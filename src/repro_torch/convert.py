@@ -15,7 +15,8 @@ import torch
 
 def from_jax_numpy(tree, device):
     """Nested dicts/lists/tuples of numpy arrays -> the same structure of
-    tensors on ``device`` (copied, dtype kept)."""
+    tensors on ``device`` (copied, dtype kept: float32 stays float32, and
+    the int8 leaves of a quantized sidecar become ``torch.int8``)."""
     if isinstance(tree, dict):
         return {k: from_jax_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

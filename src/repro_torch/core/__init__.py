@@ -10,6 +10,7 @@ from .modular import (MultimodalModule, emsnet_module,  # noqa: F401
                       emsnet_subset_module, emsnet_zoo)
 from .offload import (TIER_FACTORS, AdaptiveOffloadPolicy,  # noqa: F401
                       BandwidthTrace, Decision, HeartbeatMonitor,
-                      ProfileTable, nlos_bandwidth)
+                      MultiTierPolicy, ProfileTable, TierDecision,
+                      TierEstimate, nlos_bandwidth)
 from .splitter import (SplitModel, feature_sizes,  # noqa: F401
                        payload_nbytes, profile, select_model, split)

@@ -12,6 +12,7 @@ from itertools import combinations
 from typing import Callable, Dict, Optional
 
 from ..models import emsnet as E
+from ..models.quantized import quantize_emsnet_params
 
 ALL_MODALITIES = E.ALL_MODALITIES
 
@@ -30,8 +31,10 @@ class MultimodalModule:
     max_lengths: Dict[str, int] = field(default_factory=dict)
     # encoded-feature widths per modality (the F_C slice layout)
     feature_dims: Dict[str, int] = field(default_factory=dict)
-    # int8 sidecar derivation; always None until the quantized glass
-    # tier is ported
+    # optional int8 support: fn(params) -> sidecar dict the SAME
+    # encoder_fns accept (quantized dense leaves, float32 rest shared by
+    # reference). None = no quantized variant; a precision-enabled engine
+    # refuses such a model.
     quantize_fn: Optional[Callable] = None
 
     def full_fn(self):
@@ -66,6 +69,7 @@ def emsnet_module(cfg, modalities=ALL_MODALITIES) -> MultimodalModule:
         max_lengths=({"text": cfg.max_text_len} if "text" in modalities
                      else {}),
         feature_dims={m: cfg.feature_dims[m] for m in modalities},
+        quantize_fn=quantize_emsnet_params,
     )
 
 
@@ -93,6 +97,7 @@ def emsnet_subset_module(cfg, subset,
         max_lengths={m: n for m, n in base.max_lengths.items()
                      if m in subset},
         feature_dims={m: base.feature_dims[m] for m in subset},
+        quantize_fn=base.quantize_fn,
     )
 
 

@@ -38,6 +38,18 @@ class SplitModel:
         pieces run eagerly."""
         return 0
 
+    def quantize_params(self, params):
+        """Derive the int8 sidecar dict the SAME encoders accept
+        (``layers.dense`` dispatches on the sidecar leaf form). Raises for
+        modules without a quantized variant: a precision-enabled spec over
+        such a model is a configuration error, not a quiet float32
+        fallback."""
+        if self.module.quantize_fn is None:
+            raise ValueError(
+                f"model {self.module.name!r} declares no quantize_fn; "
+                "it cannot serve an int8 precision tier")
+        return self.module.quantize_fn(params)
+
 
 def select_model(models: Dict[str, SplitModel], observed) -> str | None:
     """EMSServe's model-selection rule (paper §4.2): the model consuming

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from ..kernels.ops import quantized_matmul
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                bias: bool = False, scale: float | None = None, device):
@@ -26,10 +28,13 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
 
 def dense(p, x):
     if "w_q" in p:
-        raise NotImplementedError(
-            "int8 sidecar dense weights belong to the quantized glass tier, "
-            "which this port does not have yet")
-    y = x @ p["w"]
+        # int8 sidecar form (models.quantized.quantize_dense_params):
+        # per-output-channel int8 weights + float32 scales. Activations
+        # are rowwise-quantized on the fly and the contraction runs
+        # through the fused int8 x int8 -> int32 -> scaled float32 GEMM.
+        y = quantized_matmul(x, p["w_q"], p["w_scale"]).to(x.dtype)
+    else:
+        y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
     return y

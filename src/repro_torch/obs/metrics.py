@@ -7,13 +7,14 @@ deterministic (bucket index ``ceil(log_gamma(v))``, insertion-order
 independent) and relative-error bounded (any reported quantile ``q̂``
 satisfies ``|q̂ - q| <= rel_err * q`` against the true sample quantile).
 
-A copy of the part of ``repro.obs.metrics`` that the per-event engine
-uses; merging and Prometheus export join with the observability slice.
+A copy of the part of ``repro.obs.metrics`` that the per-event and
+tiered engines use; merging and Prometheus export join with the
+observability slice.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 __all__ = ["QuantileSketch", "Metrics"]
 
@@ -105,17 +106,20 @@ class Metrics:
 
     * counters — accumulated floats (``inc``); read with ``get`` (0 when
       never incremented).
-    * gauges — last-write-wins values (``set_gauge``).
+    * gauges — last-write-wins values (``set_gauge``), or callables
+      (``gauge_fn``) sampled at ``snapshot()`` time.
     * histograms — a ``QuantileSketch`` per name (``observe``).
 
     ``snapshot()`` returns one JSON-serialisable dict with sorted keys;
-    ``reset()`` clears all three.
+    ``reset()`` clears counters, gauge values and histograms but keeps
+    gauge registrations (callable gauges describe live state).
     """
 
     def __init__(self, *, rel_err: float = 0.01):
         self.rel_err = rel_err
         self._counters: Dict[str, float] = {}
         self._gauges: Dict[str, float] = {}
+        self._gauge_fns: Dict[str, Callable[[], float]] = {}
         self._hists: Dict[str, QuantileSketch] = {}
 
     def inc(self, name: str, value: float = 1) -> None:
@@ -127,16 +131,25 @@ class Metrics:
     def set_gauge(self, name: str, value: float) -> None:
         self._gauges[name] = value
 
+    def gauge_fn(self, name: str, fn: Callable[[], float]) -> None:
+        self._gauge_fns[name] = fn
+
     def observe(self, name: str, value: float) -> None:
         h = self._hists.get(name)
         if h is None:
             h = self._hists[name] = QuantileSketch(self.rel_err)
         h.add(value)
 
+    def histogram(self, name: str) -> Optional[QuantileSketch]:
+        return self._hists.get(name)
+
     def snapshot(self) -> dict:
+        gauges = dict(self._gauges)
+        for name, fn in self._gauge_fns.items():
+            gauges[name] = fn()
         return {
             "counters": {k: self._counters[k] for k in sorted(self._counters)},
-            "gauges": {k: self._gauges[k] for k in sorted(self._gauges)},
+            "gauges": {k: gauges[k] for k in sorted(gauges)},
             "histograms": {k: self._hists[k].summary()
                            for k in sorted(self._hists)},
         }

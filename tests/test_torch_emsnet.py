@@ -122,10 +122,32 @@ def test_layers_match_reference():
     _close(L.embed(t(emb), torch.from_numpy(toks)), JL.embed(emb, toks))
 
 
+def _dense_leaves():
+    from repro.models import quantized as JQ
+    from repro_torch.models import quantized as PQ
+    rng = np.random.default_rng(5)
+    p = {"w": rng.normal(size=(24, 10)).astype(np.float32) / 5,
+         "b": rng.normal(size=(10,)).astype(np.float32)}
+    jleaf = JQ.quantize_dense_params({k: jnp.asarray(v) for k, v in p.items()})
+    leaf = PQ.quantize_dense_params({k: torch.from_numpy(v)
+                                     for k, v in p.items()})
+    return jleaf, leaf, rng
+
+
+def test_quantized_dense_leaf_matches_reference():
+    """An int8 sidecar leaf runs through the quantized GEMM as JAX's dense
+    runs it (bias added after)."""
+    jleaf, leaf, rng = _dense_leaves()
+    x = rng.normal(size=(2, 3, 24)).astype(np.float32)
+    _close(L.dense(leaf, torch.from_numpy(x)), JL.dense(jleaf, jnp.asarray(x)))
+
+
 def test_quantized_dense_leaf_is_refused():
-    with pytest.raises(NotImplementedError, match="quantized"):
-        L.dense({"w_q": torch.zeros((2, 2)), "w_scale": torch.ones((1, 2))},
-                torch.zeros((1, 2)))
+    """A quantized leaf whose contraction does not match the input is
+    refused."""
+    _jleaf, leaf, _rng = _dense_leaves()
+    with pytest.raises(ValueError, match="contraction mismatch"):
+        L.dense(leaf, torch.zeros((1, 23)))
 
 
 # ---------------------------------------------------------------- encoders

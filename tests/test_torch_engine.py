@@ -25,6 +25,7 @@ from repro_torch.configs.emsnet import tiny
 from repro_torch.convert import from_jax_numpy
 from repro_torch.core import splitter as PS
 from repro_torch.launch import serve as PL
+from repro_torch.models.quantized import quantize_emsnet_params
 from repro_torch.obs import Metrics, Tracer
 
 ATOL = 1e-5
@@ -237,7 +238,9 @@ def test_zoo_matches_reference_layout():
         assert (a.name, a.modalities, a.payload_bytes, a.max_lengths,
                 a.feature_dims) == (b.name, b.modalities, b.payload_bytes,
                                     b.max_lengths, b.feature_dims)
-        assert b.quantize_fn is None
+        # both declare their int8 sidecar derivation
+        assert a.quantize_fn is not None
+        assert b.quantize_fn is quantize_emsnet_params
 
 
 def test_subset_module_serves_from_one_full_param_dict(zoo):

@@ -40,7 +40,8 @@ def test_package_imports_with_jax_unavailable():
         "sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.core, repro_torch.launch.serve\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
-        "import repro_torch.convert, repro_torch.obs\n"
+        "import repro_torch.convert, repro_torch.obs, repro_torch.serving\n"
+        "import repro_torch.serving.api, repro_torch.models.quantized\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
     )
