@@ -47,8 +47,35 @@ Phases, each printing one JSON line:
           Reports the largest |output|, per-arrival wall p50/p99, the
           card's busy share, enc:text wall fp32 vs int8 and the feature
           wire's shrink.
-  cli     the launcher's default command and its tiered int8 command on
-          the card.
+  decode_kernel  the CUDA decode-attention kernel against its plain
+          version on the card: tests/test_decode_kernel.py's shapes x
+          windows 0/24 (float32, 3e-5), a small bf16 case and Mistral-NeMo's
+          full-width decode (B=1, W=1024, H=32, KV=8, D=128, bf16; half
+          filled, and wrapped at t=1500 with a 512 window), each within one
+          bf16 step of the plain result, and a cache with no valid slot
+          (the mean of v); times of kernel, plain version and
+          F.scaled_dot_product_attention (a yardstick only), each with the
+          L2 cache flushed before the call (as a decode step finds it) and
+          warm, and the bound.
+  rwkv_kernel  the CUDA RWKV6 scan against its plain version on the card:
+          tests/test_kernels.py's shapes (1e-4), the chained-state contract,
+          RWKV6-1.6B's full width (B=1, H=32, n=64, nonzero s0) at S=520
+          and S=1 (1e-4 of the output's scale); times (L2 flushed, and
+          warm) and the bound.
+  llm     the prefix-cached LLMServer. (i) Both ported archs reduced to 2
+          float32 layers on examples/llm_generate.py's mix, card vs CPU:
+          the same tokens and stats, logits of every call within 1e-4, a
+          prefix hit's tokens equal to a cold server's. (ii) Each at full
+          width in bf16 (mistral-nemo-12b, then rwkv6-1.6b, one at a time):
+          a 512-token system prompt, 4 hits of it + 8 tokens (16 new tokens
+          each), one cold 520-token request, cache_len 1024: 4/4 hits, the
+          stats the mix implies, decode attention launched layers x decode
+          steps and the scan layers x (prefills + decode steps) times,
+          finite logits, two captured layer inputs held against the plain
+          version; reports prefill and per-token decode wall, tokens/s,
+          peak memory and the card's busy share under the profiler.
+  cli     the launcher's default command, its tiered int8 command and
+          python -m repro_torch.launch.llm_generate, on the card.
 
 The last lines are the card's name and power limit as nvidia-smi prints
 them, the kernels' summary, and {"ok": true, "device": {...}}. Any failed
@@ -163,6 +190,35 @@ def device_ms(fn, *, reps=25, per_rep=10):
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / per_rep)
+    return statistics.median(times)
+
+
+_FLUSH = []
+
+
+def device_ms_cold(fn, *, reps=25):
+    """Median over ``reps`` of the card's time for one call, CUDA events
+    around that call alone, with the 50 MB L2 cache flushed before it (a
+    64 MB read): a decode step finds its KV cache and scan inputs cold,
+    since a layer's weights stream through L2 between two calls. The
+    call is queued behind a sleep kernel and the flush, so the host's
+    launch overhead stays out of the reading."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(16 << 20, dtype=torch.float32, device="cuda"))
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        _FLUSH[0].amax()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
     return statistics.median(times)
 
 
@@ -826,6 +882,492 @@ def phase_tiered():
     return launches
 
 
+# ---------------------------------------------------------- decode_kernel
+
+DECODE_TOL = 3e-5   # float32, tests/test_decode_kernel.py's tolerance
+RWKV_TOL = 1e-4     # float32, tests/test_kernels.py's tolerance
+BF16_BYTES = 2
+
+
+def bf16_steps(got, want):
+    """Largest |got - want| in bf16 steps of each element of ``want``."""
+    w = want.float().abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(w)) - 7)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def decode_bound(q, kbuf, valid):
+    """Least time the card could take for one decode attention: q read and
+    the output written once, and K and V of the slots these inputs need
+    (the valid ones; all W when none is, since the result is then their
+    mean) read once, over HBM bandwidth; against 4 D float32 operations
+    per (query head, needed slot) (a score and its share of p @ v) over
+    the float32 rate."""
+    B, _, H, D = q.shape
+    W, KV = kbuf.shape[1], kbuf.shape[2]
+    need = int(valid.sum()) or W
+    item = q.element_size()
+    nbytes = 2 * B * H * D * item + 2 * B * need * KV * D * item + 4 * W
+    ops = 4 * B * H * need * D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", ops, nbytes)
+
+
+def ring_positions(W, t):
+    """Slot positions of a ring of W slots after positions 0..t were
+    written, slot = p % W."""
+    pos = torch.full((W,), -1, dtype=torch.int32)
+    p = torch.arange(max(0, t - W + 1), t + 1, dtype=torch.int32)
+    pos[p % W] = p
+    return pos
+
+
+def decode_case(name, *, B, W, H, KV, D, t, pos, window=0,
+                dtype=torch.float32, seed=0):
+    from repro_torch.kernels import decode_attention as DA
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, 1, H, D), generator=g).to(dev, dtype)
+    k = torch.randn((B, W, KV, D), generator=g).to(dev, dtype)
+    v = torch.randn((B, W, KV, D), generator=g).to(dev, dtype)
+    pos = pos.to(dev)
+    t_dev = torch.tensor(t, dtype=torch.int32, device=dev)
+    valid = (pos >= 0) & (pos <= t)
+    if window:
+        valid &= t - pos < window
+    before = DA.decode_attention.launches
+    got = DA.decode_attention(q, k, v, pos, t_dev, window=window)
+    torch.cuda.synchronize()
+    check(DA.decode_attention.launches == before + 1,
+          f"{name}: launches {DA.decode_attention.launches} != {before + 1}")
+    want = DA.decode_attention_plain(q, k, v, pos, t_dev, window=window)
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    row = dict(name=name, shape=dict(B=B, W=W, H=H, KV=KV, D=D, t=t,
+                                     window=window),
+               dtype=str(dtype).split(".")[-1], valid_slots=int(valid.sum()),
+               max_abs_err=err)
+    if dtype == torch.bfloat16:
+        steps = bf16_steps(got, want)
+        row["max_bf16_steps"] = steps
+        check(steps <= 1.0, f"{name}: kernel {steps} bf16 steps from plain")
+    else:
+        check(err <= DECODE_TOL, f"{name}: max |kernel - plain| = {err} > "
+              f"{DECODE_TOL}")
+    if not bool(valid.any()):
+        # no valid slot: the oracle's softmax weighs all W slots equally
+        mean = v.float().mean(dim=1).repeat_interleave(H // KV, dim=1)
+        mean_err = float((got.float()[:, 0] - mean).abs().max())
+        row["max_abs_err_vs_mean"] = mean_err
+        check(mean_err <= DECODE_TOL, f"{name}: all-invalid cache is "
+              f"{mean_err} from the mean of v")
+    kfn = lambda: DA.decode_attention(q, k, v, pos, t_dev, window=window)  # noqa: E731
+    pfn = lambda: DA.decode_attention_plain(q, k, v, pos, t_dev, window=window)  # noqa: E731
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = valid[None, None, None, :]
+    lfn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=KV != H)
+    b_ms, b_by, ops, nbytes = decode_bound(q, k, valid)
+    lib = bool(valid.any())             # SDPA has no all-masked row semantics
+    row.update(ms=device_ms_cold(kfn), plain_ms=device_ms_cold(pfn),
+               library_ms=device_ms_cold(lfn) if lib else None,
+               ms_l2_warm=device_ms(kfn), plain_ms_l2_warm=device_ms(pfn),
+               library_ms_l2_warm=device_ms(lfn) if lib else None,
+               call_ms=call_ms(kfn), bound_ms=b_ms, bound_by=b_by, ops=ops,
+               bytes=nbytes)
+    emit("decode_kernel", **row)
+    return row
+
+
+def phase_decode_kernel():
+    rows = {}
+    # tests/test_decode_kernel.py's shapes: a ring with every 7th slot
+    # never written, t = W + 5
+    for B, W, H, KV, D in ((2, 64, 8, 4, 16), (1, 100, 4, 4, 32),
+                           (2, 48, 8, 2, 64)):
+        t = W + 5
+        pos = torch.tensor([t - (s % (W + 3)) for s in range(W)],
+                           dtype=torch.int32)
+        pos[::7] = -1
+        for window in (0, 24):
+            name = f"decode_{B}x{W}x{H}x{KV}x{D}_w{window}"
+            rows[name] = decode_case(name, B=B, W=W, H=H, KV=KV, D=D, t=t,
+                                     pos=pos, window=window, seed=W + window)
+    rows["bf16_small"] = decode_case(
+        "decode_bf16_1x32x4x2x16", B=1, W=32, H=4, KV=2, D=16, t=31,
+        pos=torch.arange(32, dtype=torch.int32), dtype=torch.bfloat16)
+    # Mistral-NeMo-12B's decode: B=1, a 1024-slot ring, 32 heads over 8
+    rows["mistral_half"] = decode_case(
+        "decode_mistral_half_filled", B=1, W=1024, H=32, KV=8, D=128, t=511,
+        pos=ring_positions(1024, 511), dtype=torch.bfloat16, seed=1)
+    rows["mistral_wrapped"] = decode_case(
+        "decode_mistral_wrapped_window512", B=1, W=1024, H=32, KV=8, D=128,
+        t=1500, pos=ring_positions(1024, 1500), window=512,
+        dtype=torch.bfloat16, seed=2)
+    rows["all_invalid"] = decode_case(
+        "decode_all_invalid_1x20x4x2x8", B=1, W=20, H=4, KV=2, D=8, t=3,
+        pos=torch.full((20,), -1, dtype=torch.int32), seed=3)
+    return rows
+
+
+# ------------------------------------------------------------ rwkv_kernel
+
+def rwkv_bound(B, S, H, n, *, s0):
+    """Least time the card could take for one scan: r, k, v, w, u (and
+    s0) read once, y and the final state written once, over HBM
+    bandwidth; against the float32 operations per (step, batch, head)
+    over the float32 rate: 5 n^2 (k v^T; w S + k v^T as a multiply and an
+    add; r S as a multiply and an add) and 5 n for the bonus, which
+    factors out as v_j (sum_i r_i u_i k_i)."""
+    nbytes = 4 * (5 * B * S * H * n + H * n + (1 + s0) * B * H * n * n)
+    ops = 5 * B * S * H * n * (n + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", ops, nbytes)
+
+
+def rwkv_inputs(B, S, H, n, *, s0, seed):
+    """r, k, v ~ N(0, 1); w in (0.4, 0.9), tests/test_kernels.py's decay
+    range; u ~ 0.1 N(0, 1); s0 ~ N(0, 1) or None; on the card."""
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn((B, S, H, n), generator=g) for _ in range(3))
+    w = torch.sigmoid(torch.randn((B, S, H, n), generator=g)) * 0.5 + 0.4
+    u = torch.randn((H, n), generator=g) * 0.1
+    s = torch.randn((B, H, n, n), generator=g) if s0 else None
+    return [x.cuda() if x is not None else None for x in (r, k, v, w, u, s)]
+
+
+def rwkv_case(name, *, B, S, H, n, s0=False, seed=0, scaled=False):
+    """Kernel vs plain version on the card at RWKV_TOL; with ``scaled``,
+    RWKV_TOL of the output's own scale (max |plain|, at least 1): at full
+    width the state sums hundreds of steps of N(0, 1) products."""
+    from repro_torch.kernels import rwkv6 as RW
+    args = rwkv_inputs(B, S, H, n, s0=s0, seed=seed)
+    before = RW.rwkv6_scan.launches
+    y, sf = RW.rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    check(RW.rwkv6_scan.launches == before + 1,
+          f"{name}: launches {RW.rwkv6_scan.launches} != {before + 1}")
+    yp, sp = RW.rwkv6_scan_plain(*args)
+    check(bool(torch.isfinite(y).all() and torch.isfinite(sf).all()),
+          f"{name}: non-finite output")
+    err = max(float((y - yp).abs().max()), float((sf - sp).abs().max()))
+    scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
+    tol = RWKV_TOL * (scale if scaled else 1.0)
+    check(err <= tol, f"{name}: max |kernel - plain| = {err} > {tol}")
+    b_ms, b_by, ops, nbytes = rwkv_bound(B, S, H, n, s0=s0)
+    kfn = lambda: RW.rwkv6_scan(*args)  # noqa: E731
+    pfn = lambda: RW.rwkv6_scan_plain(*args)  # noqa: E731
+    row = dict(name=name, shape=dict(B=B, S=S, H=H, n=n, s0=s0),
+               max_abs_err=err, scale=scale, tol=tol, ms=device_ms_cold(kfn),
+               plain_ms=device_ms_cold(pfn, reps=5 if S > 100 else 25),
+               library_ms=None, ms_l2_warm=device_ms(kfn),
+               call_ms=call_ms(kfn), bound_ms=b_ms, bound_by=b_by, ops=ops,
+               bytes=nbytes)
+    emit("rwkv_kernel", **row)
+    return row
+
+
+def phase_rwkv_kernel():
+    from repro_torch.kernels import rwkv6 as RW
+    rows = {}
+    for B, S, H, n in ((2, 32, 2, 16), (1, 100, 4, 8), (2, 17, 1, 32),
+                       (1, 64, 8, 64)):           # tests/test_kernels.py
+        name = f"rwkv_{B}x{S}x{H}x{n}"
+        rows[name] = rwkv_case(name, B=B, S=S, H=H, n=n, seed=S)
+    # the chunked-prefill contract: two calls chained through the state
+    # equal one call
+    r, k, v, w, u, _ = rwkv_inputs(1, 48, 2, 16, s0=False, seed=48)
+    y_full, s_full = RW.rwkv6_scan(r, k, v, w, u)
+    y1, s1 = RW.rwkv6_scan(r[:, :24].contiguous(), k[:, :24].contiguous(),
+                           v[:, :24].contiguous(), w[:, :24].contiguous(), u)
+    y2, s2 = RW.rwkv6_scan(r[:, 24:].contiguous(), k[:, 24:].contiguous(),
+                           v[:, 24:].contiguous(), w[:, 24:].contiguous(), u,
+                           s1)
+    chain_err = max(float((torch.cat([y1, y2], 1) - y_full).abs().max()),
+                    float((s2 - s_full).abs().max()))
+    check(chain_err <= RWKV_TOL, f"chained scan differs by {chain_err}")
+    emit("rwkv_kernel", name="rwkv_chained_24+24", max_abs_err=chain_err)
+    # RWKV6-1.6B: 32 heads of 64; a 520-token prefill (not a multiple of
+    # 64) and one decode step, each from a nonzero state
+    rows["prefill_520"] = rwkv_case("rwkv_prefill_1x520x32x64", B=1, S=520,
+                                    H=32, n=64, s0=True, seed=1, scaled=True)
+    rows["decode_1"] = rwkv_case("rwkv_decode_1x1x32x64", B=1, S=1, H=32,
+                                 n=64, s0=True, seed=2, scaled=True)
+    return rows
+
+
+# -------------------------------------------------------------------- llm
+
+LLM_ARCHS = ("mistral-nemo-12b", "rwkv6-1.6b")
+LLM_LOGIT_TOL = 1e-4    # reduced float32 models, card vs CPU
+
+
+def llm_counters():
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import rwkv6 as RW
+    return DA.decode_attention, RW.rwkv6_scan
+
+
+def two_layers(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, groups=((cfg.groups[0][0], 2),),
+                               n_layers=2)
+
+
+class Recorder:
+    """Wraps a server's prefill and decode callables: counts the calls,
+    keeps each call's logits on the host (``keep``), and times each
+    prefill, and each decode step while ``time_decode`` is set, with the
+    card synchronised after it (otherwise decode steps queue without a
+    sync, as the server runs them)."""
+
+    def __init__(self, srv, *, keep=False, timed=False):
+        self.calls = {"prefill": 0, "decode": 0}
+        self.logits, self.ms = [], {"prefill": [], "decode": []}
+        self.finite = None
+        self.time_decode = False
+        for kind in ("prefill", "decode"):
+            fn = getattr(srv, f"_{kind}")
+            setattr(srv, f"_{kind}", self._wrap(kind, fn, keep, timed))
+
+    def _wrap(self, kind, fn, keep, timed):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            logits, cache = fn(*a, **kw)
+            if timed and (kind == "prefill" or self.time_decode):
+                torch.cuda.synchronize()
+                self.ms[kind].append((time.perf_counter() - t0) * 1e3)
+            ok = torch.isfinite(logits).all()
+            self.finite = ok if self.finite is None else self.finite & ok
+            self.calls[kind] += 1
+            if keep:
+                self.logits.append(logits.float().cpu())
+            return logits, cache
+        return call
+
+
+def llm_mix(srv, request_cls):
+    """examples/llm_generate.py's mix: a 32-token system prompt, then 4
+    users of +2 tokens, 8 new tokens each."""
+    system = np.arange(1, 33, dtype=np.int32)
+    out = [srv.serve_one(request_cls("warm", system, max_new_tokens=1))]
+    for i in range(4):
+        u = np.array([40 + i, 50 + i], np.int32)
+        out.append(srv.serve_one(request_cls(
+            f"u{i}", np.concatenate([system, u]), max_new_tokens=8)))
+    return out
+
+
+def llm_reduced(arch):
+    """(i) the reduced 2-layer float32 model served on the card and on the
+    CPU: the same tokens and stats, logits of every call within
+    LLM_LOGIT_TOL; a prefix hit's tokens equal a cold server's."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import LLMServer, Request
+    cfg = two_layers(reduced(get_config(arch)))
+    cpu_params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    params = tree_to(cpu_params, "cuda")
+    for k in llm_counters():
+        k.launches = 0
+    srv = LLMServer(cfg, params, cache_len=96, device="cuda")
+    rec = Recorder(srv, keep=True)
+    res = llm_mix(srv, Request)
+    launches = [k.launches for k in llm_counters()]
+    cpu = LLMServer(cfg, cpu_params, cache_len=96, device="cpu")
+    cpu_rec = Recorder(cpu, keep=True)
+    cpu_res = llm_mix(cpu, Request)
+    check(srv.stats == cpu.stats, f"{arch}: stats {srv.stats} != CPU "
+          f"{cpu.stats}")
+    check(all(np.array_equal(a.tokens, b.tokens) for a, b in zip(res, cpu_res)),
+          f"{arch}: card and CPU tokens differ")
+    check(len(rec.logits) == len(cpu_rec.logits), f"{arch}: call counts differ")
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(rec.logits, cpu_rec.logits))
+    check(diff <= LLM_LOGIT_TOL, f"{arch}: card vs CPU logits {diff} > "
+          f"{LLM_LOGIT_TOL}")
+    cold = LLMServer(cfg, params, cache_len=96, device="cuda",
+                     enable_prefix_cache=False)
+    cold_res = llm_mix(cold, Request)
+    check(all(a.prefix_hit and np.array_equal(a.tokens, b.tokens)
+              for a, b in zip(res[1:], cold_res[1:])),
+          f"{arch}: prefix-hit tokens differ from a cold server's")
+    want = ([cfg.n_layers * rec.calls["decode"], 0] if arch.startswith("mistral")
+            else [0, cfg.n_layers * (rec.calls["prefill"] + rec.calls["decode"])])
+    check(launches == want, f"{arch}: launches {launches} != {want}")
+    return dict(arch=arch, stats=srv.stats, calls=rec.calls,
+                max_abs_logit_diff=diff, launches=launches,
+                first_tokens=res[1].tokens.tolist())
+
+
+def llm_full(arch):
+    """(ii) the full-width bf16 model on the card: a 512-token system
+    prompt served once, 4 hits of it + 8 user tokens (16 new tokens each),
+    one cold 520-token request; cache_len 1024. Checked and timed as the
+    server runs it (decode steps queued with no sync: tokens/s); then one
+    more hit with every decode step synchronised (per-token latency) and
+    one under the profiler (the card's busy share)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import LLMServer, Request
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in leaves(params))
+    weight_bytes = sum(a.numel() * a.element_size()
+                       for a in leaves(params))
+    rng = np.random.default_rng(0)
+    V = cfg.vocab_size
+    system = rng.integers(1, V, 512).astype(np.int32)
+    users = [rng.integers(1, V, 8).astype(np.int32) for _ in range(4)]
+    cold_prompt = rng.integers(1, V, 520).astype(np.int32)
+
+    # real kernel inputs of layer 2, captured mid-run: its 1st call (the
+    # system prompt's prefill for RWKV, the first decode step for
+    # Mistral) and its call two steps later (a decode step either way)
+    L = cfg.n_layers
+    captured, calls = [], [0]
+    name = "decode_attention" if arch.startswith("mistral") else "rwkv6_scan"
+    orig = getattr(ops, name)
+
+    def capture(*a, **kw):
+        calls[0] += 1
+        if calls[0] in (3, 2 * L + 3):
+            captured.append(([x.clone() if isinstance(x, torch.Tensor) else x
+                              for x in a], dict(kw)))
+        return orig(*a, **kw)
+
+    srv = LLMServer(cfg, params, cache_len=1024, device="cuda")
+    rec = Recorder(srv, timed=True)
+    setattr(ops, name, capture)
+    try:
+        for k in llm_counters():
+            k.launches = 0                      # the main path starts here
+        t0 = time.perf_counter()
+        res = [srv.serve_one(Request("system", system, max_new_tokens=1))]
+        t1 = time.perf_counter()
+        res += [srv.serve_one(Request(f"u{i}", np.concatenate([system, u]),
+                                      max_new_tokens=16))
+                for i, u in enumerate(users)]
+        t2 = time.perf_counter()
+        res.append(srv.serve_one(Request("cold", cold_prompt,
+                                         max_new_tokens=16)))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = [k.launches for k in llm_counters()]  # ... and ends here
+    finally:
+        setattr(ops, name, orig)
+    peak = torch.cuda.max_memory_allocated()
+    hits = sum(r.prefix_hit for r in res)
+    check(hits == 4, f"{arch}: {hits}/4 prefix hits")
+    want_stats = {"prefix_hits": 4, "prefix_misses": 2,
+                  "prefill_tokens": 512 + 4 * 8 + 520,
+                  "decode_steps": 4 * 15 + 15}
+    check(srv.stats == want_stats, f"{arch}: stats {srv.stats} != "
+          f"{want_stats}")
+    want_calls = {"prefill": 2, "decode": 4 * (8 + 15) + 15}
+    check(rec.calls == want_calls, f"{arch}: calls {rec.calls} != "
+          f"{want_calls}")
+    want = ([L * want_calls["decode"], 0] if arch.startswith("mistral")
+            else [0, L * (want_calls["prefill"] + want_calls["decode"])])
+    check(launches == want, f"{arch}: launches (decode_attention, rwkv6_scan)"
+          f" {launches} != {want}")
+    check(bool(rec.finite), f"{arch}: non-finite logits")
+    check(all(len(r.tokens) in (1, 16) and 0 <= r.tokens.min()
+              and r.tokens.max() < V for r in res), f"{arch}: bad tokens")
+
+    # the captured layer's inputs: kernel vs plain version
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import rwkv6 as RW
+    check(len(captured) == 2, f"{arch}: captured {len(captured)} calls")
+    cap = []
+    for a, kw in captured:
+        if name == "decode_attention":
+            got = DA.decode_attention(*a, **kw)
+            plain = DA.decode_attention_plain(*a, **kw)
+            steps = bf16_steps(got, plain)
+            cap.append(dict(q=list(a[0].shape), cache=list(a[1].shape),
+                            t=int(a[4]), max_bf16_steps=steps))
+            check(steps <= 1.0, f"{arch}: captured decode attention {steps}"
+                  " bf16 steps from plain")
+        else:
+            (y, s), (yp, sp) = RW.rwkv6_scan(*a), RW.rwkv6_scan_plain(*a)
+            err = max(float((y - yp).abs().max()),
+                      float((s - sp).abs().max()))
+            scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
+            cap.append(dict(r=list(a[0].shape), s0=a[5] is not None,
+                            max_abs_err=err, scale=scale))
+            check(err <= RWKV_TOL * scale, f"{arch}: captured scan {err} > "
+                  f"{RWKV_TOL} x {scale}")
+
+    stats, calls = dict(srv.stats), dict(rec.calls)
+    # per-token latency: one more hit with each decode step synchronised
+    rec.time_decode = True
+    srv.serve_one(Request("latency", np.concatenate([system, users[1][::-1]]),
+                          max_new_tokens=16))
+    rec.time_decode = False
+    # one more hit under the profiler: the card's busy share of its wall
+    busy_us, kernel_share, prof_wall_us = device_time(
+        lambda: srv.serve_one(Request("prof", np.concatenate(
+            [system, users[0][::-1]]), max_new_tokens=16)),
+        "decode_attention_kernel" if name == "decode_attention"
+        else "rwkv6_scan_kernel")
+    dec = sorted(rec.ms["decode"])
+    gen_tokens = sum(len(r.tokens) for r in res[1:])
+    row = dict(arch=arch, dtype=cfg.dtype, layers=L, params=n_params,
+               weight_bytes=weight_bytes, init_s=init_s, stats=stats,
+               calls=calls, launches=launches, captured=cap,
+               prefill_ms=rec.ms["prefill"],
+               decode_ms_p50=float(np.percentile(dec, 50)),
+               decode_ms_p99=float(np.percentile(dec, 99)),
+               weight_read_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+               system_wall_s=t1 - t0, hits_wall_s=t2 - t1,
+               cold_wall_s=t3 - t2,
+               tokens_per_s=gen_tokens / (t3 - t1),
+               max_memory_allocated=peak, gpu_busy_us=busy_us,
+               kernel_share_of_gpu_time=kernel_share,
+               profiled_wall_us=prof_wall_us,
+               gpu_busy_share_of_profiled_wall=(busy_us / prof_wall_us
+                                                if busy_us else None),
+               first_tokens=res[1].tokens[:8].tolist())
+    emit("llm_full", **row)
+    del srv, params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def leaves(tree):
+    """The tensors of a nested dict."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_llm():
+    reduced_rows = {arch: llm_reduced(arch) for arch in LLM_ARCHS}
+    emit("llm_reduced", **reduced_rows)
+    return {arch: llm_full(arch) for arch in LLM_ARCHS}
+
+
 def phase_cli():
     from repro_torch.launch.serve import main
     buf = io.StringIO()
@@ -846,9 +1388,17 @@ def phase_cli():
           f"unexpected tiered cli output {tiered[-1:]}")
     check(any("[int8]" in ln for ln in tiered), "tiered cli ran no int8 "
           "flight")
+    from repro_torch.launch.llm_generate import main as llm_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        llm_main([])
+    llm = buf.getvalue().strip().splitlines()
+    check(len(llm) == len(LLM_ARCHS) and all(
+        "4/4 prefix hits" in ln and ln.endswith("on cuda") for ln in llm),
+        f"unexpected llm_generate output {llm}")
     emit("cli", lines=len(lines), last=lines[-1], tiered_lines=len(tiered),
          tiered_int8_records=sum("[int8]" in ln for ln in tiered),
-         tiered_last=tiered[-1])
+         tiered_last=tiered[-1], llm_generate=llm)
 
 
 KERNELS = {
@@ -881,8 +1431,11 @@ def main():
     phase_build()
     rows = phase_kernel()
     int8_rows = phase_int8()
+    decode_rows = phase_decode_kernel()
+    rwkv_rows = phase_rwkv_kernel()
     serve_launches = phase_serve()
     tiered_launches = phase_tiered()
+    llm_rows = phase_llm()
     phase_cli()
     emit("done", seconds=time.perf_counter() - t0)
     print(smi)
@@ -895,6 +1448,21 @@ def main():
     for name, (source, replaces, row) in KERNELS.items():
         kernels.append(_line(name, source, replaces, tiered_launches[name],
                              int8_rows[row], shape=int8_rows[row]["shape"]))
+    # launches on the llm path: the full-width run of the arch that runs
+    # each kernel (mistral-nemo decode attention, rwkv6 scan)
+    mistral, rwkv = (llm_rows[a] for a in LLM_ARCHS)
+    kernels.append(_line("decode_attention",
+                         "src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:68",
+                         mistral["launches"][0], decode_rows["mistral_half"],
+                         shape=decode_rows["mistral_half"]["shape"]))
+    kernels.append(_line("rwkv6_scan", "src/repro_torch/csrc/rwkv6.cu",
+                         "src/repro/kernels/rwkv6.py:62",
+                         rwkv["launches"][1], rwkv_rows["prefill_520"],
+                         shape=rwkv_rows["prefill_520"]["shape"],
+                         decode_step={k: rwkv_rows["decode_1"][k] for k in
+                                      ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "max_abs_err")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,33 @@
-"""Model configurations of the port (EMSNet only, so far)."""
+"""Model configurations of the port: EMSNet (``emsnet``) and the LLM
+zoo's registry, ``get_config(arch_id)``.
+
+The registry names only the architectures the port serves. The JAX
+package's other architectures (MLA, MoE, Mamba, cross-attention,
+musicgen codebooks) are known by name and refused with an error that
+points at ROADMAP item 11, where they are queued.
+"""
+from . import mistral_nemo_12b, rwkv6_1b6
+from .base import (SHAPES, InputShape, LayerSpec,  # noqa: F401
+                   MambaConfig, MLAConfig, ModelConfig, reduced)
+
+_REGISTRY = {
+    "mistral-nemo-12b": mistral_nemo_12b.config,
+    "rwkv6-1.6b": rwkv6_1b6.config,
+}
+
+ARCHS = tuple(_REGISTRY)
+
+# the reference's other architectures, still to port
+NOT_PORTED = ("deepseek-v3-671b", "nemotron-4-15b", "codeqwen1.5-7b",
+              "musicgen-large", "llama-3.2-vision-11b", "qwen1.5-32b",
+              "jamba-v0.1-52b", "olmoe-1b-7b")
+
+
+def get_config(name: str) -> ModelConfig:
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (ROADMAP item 11); the port "
+            f"serves {ARCHS}")
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")
+    return _REGISTRY[name]()

@@ -18,4 +18,7 @@ def resolve(device="cuda") -> torch.device:
         # JAX reference assume it, and TF32 keeps only ~3 decimal digits
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # bfloat16 products accumulate in float32 all the way, as on the
+        # CPU, so the bf16 parity tolerances hold on the card too
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev

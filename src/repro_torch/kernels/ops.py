@@ -3,12 +3,14 @@
 Each kernel name here is the kernel's own wrapper (counters included):
 the hand-written CUDA kernel on CUDA tensors, its plain PyTorch version
 on CPU tensors. ``quantize_colwise`` and ``quantized_matmul`` compose the
-int8 kernels as ``repro.kernels.ops`` does. The Pallas package's decode
-attention and RWKV6 scan join as their slices are ported.
+int8 kernels as ``repro.kernels.ops`` does. Every Pallas kernel of the
+JAX package has its counterpart here.
 """
+from .decode_attention import decode_attention  # noqa: F401
 from .flash_attention import flash_attention  # noqa: F401
 from .quantized import (MAX_K, dequantize_rowwise,  # noqa: F401
                         int8_matmul, quantize_rowwise)
+from .rwkv6 import rwkv6_scan  # noqa: F401
 
 
 def quantize_colwise(w):

@@ -151,13 +151,15 @@ def test_cuda_launch_checks_head_dim_before_building():
 def test_build_targets_sm90a_per_source():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     srcs = build.sources()
-    assert [s.name for s in srcs] == ["flash_attention.cu", "quantized.cu"]
-    assert len({build._target(s) for s in srcs}) == 2
+    assert [s.name for s in srcs] == ["decode_attention.cu",
+                                      "flash_attention.cu", "quantized.cu",
+                                      "rwkv6.cu"]
+    assert len({build._target(s) for s in srcs}) == 4
     assert all(build._target(s).parent == build.BUILD_DIR for s in srcs)
-    text = srcs[0].read_text()
+    text = srcs[1].read_text()
     assert "repro/kernels/flash_attention.py::flash_attention" in text
     assert 'extern "C" int repro_flash_attention_fwd' in text
-    text = srcs[1].read_text()
+    text = srcs[2].read_text()
     for fn in ("quantize_rowwise", "dequantize_rowwise", "int8_matmul"):
         assert f'extern "C" int repro_{fn}' in text
 

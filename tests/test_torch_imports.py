@@ -42,6 +42,10 @@ def test_package_imports_with_jax_unavailable():
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
         "import repro_torch.convert, repro_torch.obs, repro_torch.serving\n"
         "import repro_torch.serving.api, repro_torch.models.quantized\n"
+        "import repro_torch.configs.base, repro_torch.models.transformer\n"
+        "import repro_torch.models.rwkv, repro_torch.models.attention\n"
+        "import repro_torch.serving.engine, repro_torch.launch.llm_generate\n"
+        "import repro_torch.kernels.decode_attention, repro_torch.kernels.rwkv6\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
     )
