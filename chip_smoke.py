@@ -584,21 +584,32 @@ def phase_int8():
             library=lambda: torch.mul(qq, ss),
             bound_args=("dequantize", M, K))
 
-    for M, K, N in ((64, 312, 936), (64, 312, 312), (64, 312, 1200),
-                    (64, 1200, 312), (30, 6, 192), (1, 3, 16),
-                    (33, 100, 130)):
-        xq, sx = Q.quantize_rowwise_plain(randn(M, K))
-        wq, sw = Q.quantize_rowwise_plain(randn(N, K))
-        wq, sw = wq.T.contiguous(), sw.reshape(1, N)
+    def gemm(key, xq, sx, wq, sw):
+        (M, K), N = xq.shape, wq.shape[1]
         # torch._int_mm (the integer product alone) takes M > 16 and K, N
         # multiples of 8: the GEMM's yardstick where those rules allow
         lib = ((lambda: torch._int_mm(xq, wq))
                if M > 16 and K % 8 == 0 and N % 8 == 0 else None)
-        rows[f"gemm_{M}x{K}x{N}"] = int8_case(
-            f"int8_matmul_{M}x{K}x{N}", Q.int8_matmul,
+        rows[key] = int8_case(
+            f"int8_matmul_{key[5:]}", Q.int8_matmul,
             lambda: Q.int8_matmul(xq, sx, wq, sw),
             lambda: Q.int8_matmul_plain(xq, sx, wq, sw), library=lib,
             bound_args=("gemm", M, K, N))
+
+    # the tiered path's shapes, (33,100)x(100,130), then the tensor-core
+    # tiles' edges: two row tiles and a tail (M = 130), exactly one
+    # k-step and one n-group (64,32,8)
+    for M, K, N in ((64, 312, 936), (64, 312, 312), (64, 312, 1200),
+                    (64, 1200, 312), (30, 6, 192), (1, 3, 16),
+                    (33, 100, 130), (130, 312, 312), (64, 32, 8)):
+        xq, sx = Q.quantize_rowwise_plain(randn(M, K))
+        wq, sw = Q.quantize_rowwise_plain(randn(N, K))
+        gemm(f"gemm_{M}x{K}x{N}", xq, sx, wq.T.contiguous(), sw.reshape(1, N))
+    # every entry +-127: the largest sums of either sign the guard allows
+    sign = lambda *shape: (torch.randint(0, 2, shape, generator=g) * 254  # noqa: E731
+                           - 127).to(torch.int8).to(dev)
+    gemm("gemm_64x1200x312_pm127", sign(64, 1200), randn(64, 1).abs(),
+         sign(1200, 312), randn(1, 312).abs())
     return rows
 
 
@@ -960,8 +971,14 @@ def decode_case(name, *, B, W, H, KV, D, t, pos, window=0,
         mean = v.float().mean(dim=1).repeat_interleave(H // KV, dim=1)
         mean_err = float((got.float()[:, 0] - mean).abs().max())
         row["max_abs_err_vs_mean"] = mean_err
-        check(mean_err <= DECODE_TOL, f"{name}: all-invalid cache is "
-              f"{mean_err} from the mean of v")
+        if dtype == torch.bfloat16:     # one rounding of the float32 mean
+            steps = bf16_steps(got[:, 0], mean)
+            row["max_bf16_steps_vs_mean"] = steps
+            check(steps <= 1.0, f"{name}: all-invalid cache is {steps} "
+                  f"bf16 steps from the mean of v")
+        else:
+            check(mean_err <= DECODE_TOL, f"{name}: all-invalid cache is "
+                  f"{mean_err} from the mean of v")
     kfn = lambda: DA.decode_attention(q, k, v, pos, t_dev, window=window)  # noqa: E731
     pfn = lambda: DA.decode_attention_plain(q, k, v, pos, t_dev, window=window)  # noqa: E731
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1008,6 +1025,35 @@ def phase_decode_kernel():
     rows["all_invalid"] = decode_case(
         "decode_all_invalid_1x20x4x2x8", B=1, W=20, H=4, KV=2, D=8, t=3,
         pos=torch.full((20,), -1, dtype=torch.int32), seed=3)
+    # the edges of the split over W (decode_attention.plan_splits: 16
+    # chunks of 64 slots at Mistral's width): valid slots in the first
+    # chunk only; none valid (the mean over every chunk); a window whose
+    # valid slots lie inside one chunk of a wrapped ring; W = 20 and 37
+    # (chunks of 2 and 3 slots, the last one short); B = 2 (8 chunks of
+    # two 64-slot tiles); rows off 16-byte boundaries (staged element by
+    # element)
+    mistral = dict(W=1024, H=32, KV=8, D=128, dtype=torch.bfloat16)
+    rows["mistral_t2"] = decode_case(
+        "decode_mistral_t2", B=1, t=2, pos=ring_positions(1024, 2), seed=4,
+        **mistral)
+    rows["mistral_all_invalid"] = decode_case(
+        "decode_mistral_all_invalid", B=1, t=2,
+        pos=torch.full((1024,), -1, dtype=torch.int32), seed=5, **mistral)
+    rows["mistral_window_one_chunk"] = decode_case(
+        "decode_mistral_wrapped_window48", B=1, t=1535,
+        pos=ring_positions(1024, 1535), window=48, seed=6, **mistral)
+    for W in (20, 37):
+        pos = ring_positions(W, W + 9)
+        pos[::5] = -1
+        rows[f"slots_{W}"] = decode_case(
+            f"decode_1x{W}x32x8x128", B=1, W=W, H=32, KV=8, D=128, t=W + 9,
+            pos=pos, seed=W)
+    rows["mistral_b2"] = decode_case(
+        "decode_mistral_b2", B=2, t=700, pos=ring_positions(1024, 700),
+        seed=7, **mistral)
+    rows["unaligned"] = decode_case(
+        "decode_bf16_1x40x6x3x12_w30", B=1, W=40, H=6, KV=3, D=12, t=50,
+        pos=ring_positions(40, 50), window=30, dtype=torch.bfloat16, seed=8)
     return rows
 
 
@@ -1425,7 +1471,25 @@ def _line(name, source, replaces, launches, row, **extra):
             **extra}
 
 
+PHASES = {"kernel": phase_kernel, "int8": phase_int8,
+          "decode_kernel": phase_decode_kernel,
+          "rwkv_kernel": phase_rwkv_kernel, "serve": phase_serve,
+          "tiered": phase_tiered, "llm": phase_llm, "cli": phase_cli}
+
+
 def main():
+    if sys.argv[1:]:
+        # --only a,b: the device and build phases, then the named phases
+        # alone; no summary and no result line (that needs every phase)
+        if len(sys.argv) != 3 or sys.argv[1] != "--only" or \
+                not set(sys.argv[2].split(",")) <= set(PHASES):
+            raise SystemExit(f"usage: chip_smoke.py [--only PHASE[,PHASE]] "
+                             f"with PHASE in {sorted(PHASES)}")
+        phase_device()
+        phase_build()
+        for name in sys.argv[2].split(","):
+            PHASES[name]()
+        return
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()

@@ -13,7 +13,9 @@ over the W slots, as the oracle does (the Pallas kernel, which pads W to
 a block multiple, averages its padded zero slots in too: ROADMAP queue 3).
 
 On a CUDA tensor it launches ``csrc/decode_attention.cu`` (float32 or
-bfloat16; built with ``nvcc`` for ``sm_90a`` at first use) or raises; on
+bfloat16; built with ``nvcc`` for ``sm_90a`` at first use), which cuts
+the W slots into ``plan_splits`` chunks, one block each, merged inside a
+thread-block cluster; or it raises. On
 a CPU tensor it computes ``decode_attention_plain``. Nothing falls back
 from one to the other. ``t`` may be a Python int or a 0-d integer
 tensor; on the card it is read from device memory, so a decode step
@@ -29,9 +31,27 @@ import math
 
 import torch
 
+from . import build
+
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/decode_attention.cu: query rows per block (GB) and the cluster size
+# cap (MAX_SPLIT; above 8 the cluster is non-portable)
+ROWS_PER_BLOCK = 4
+MAX_SPLIT = 16
+
+
+def plan_splits(B, KV, G, W):
+    """``(nsplit, chunk)``: the W slots cut into nsplit contiguous chunks
+    of ``chunk`` slots (the last one may be shorter, none is empty), so
+    that the grid of ``B * KV * ceil(G / ROWS_PER_BLOCK) * nsplit`` blocks
+    comes to about one wave of the card, with ``nsplit <= MAX_SPLIT`` (one
+    cluster merges the chunks) and ``nsplit <= W``."""
+    blocks = B * KV * -(-G // ROWS_PER_BLOCK)
+    want = max(1, min(MAX_SPLIT, W, build.SMS // blocks))
+    chunk = -(-W // want)
+    return -(-W // chunk), chunk
 
 
 def decode_attention_plain(q, kbuf, vbuf, slot_pos, t, *, window=0,
@@ -59,11 +79,11 @@ def decode_attention_plain(q, kbuf, vbuf, slot_pos, t, *, window=0,
 
 def _kernel_fn():
     """The C entry point of csrc/decode_attention.cu, typed once."""
-    from . import build
     fn = build.library("decode_attention").repro_decode_attention
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 6 + [i] * 7 + [ll] * 8 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 6 + [i] * 7 + [ll] * 8 + [ctypes.c_float] + \
+            [i] * 3 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -91,6 +111,7 @@ def _launch(q, kbuf, vbuf, slot_pos, t, *, window, scale):
     if B * H * W * Dv == 0:
         raise ValueError(f"empty decode: B={B}, H={H}, W={W}, Dv={Dv}")
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
+    nsplit, chunk = plan_splits(B, KV, H // KV, W)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel_fn()(
         q.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(), out.data_ptr(),
@@ -99,7 +120,7 @@ def _launch(q, kbuf, vbuf, slot_pos, t, *, window, scale):
         q.stride(0), q.stride(2),
         kbuf.stride(0), kbuf.stride(1), kbuf.stride(2),
         vbuf.stride(0), vbuf.stride(1), vbuf.stride(2),
-        float(scale), int(window), stream)
+        float(scale), int(window), nsplit, chunk, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")

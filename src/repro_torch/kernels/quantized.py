@@ -13,11 +13,13 @@ Ports of the Pallas TPU kernels of ``repro/kernels/quantized.py``:
     ``K <= MAX_K``.
 
 On a CUDA tensor each wrapper launches its kernel from
-``csrc/quantized.cu`` (built with ``nvcc`` for ``sm_90a`` at first use)
-or raises; on a CPU tensor it computes the same function with the plain
-version. The plain versions divide by tensors (never by a Python scalar,
-which PyTorch's CUDA division turns into a multiply by the reciprocal)
-and accumulate the GEMM in float64, exact because
+``csrc/quantized.cu`` (built with ``nvcc`` for ``sm_90a`` at first use;
+the GEMM on the int8 tensor cores, K split over a thread-block cluster
+as ``plan_k_splits`` says) or raises; on a CPU tensor it computes the
+same function with the plain version. The plain versions divide by
+tensors (never by a Python scalar, which PyTorch's CUDA division turns
+into a multiply by the reciprocal) and accumulate the GEMM in float64,
+exact because
 ``K * 127**2 < 2**31 < 2**53``, so kernel and plain version agree bit for
 bit on the card.
 
@@ -31,8 +33,28 @@ import ctypes
 
 import torch
 
+from . import build
+
 # int32 accumulator headroom: K * 127 * 127 must stay below 2^31
 MAX_K = (1 << 31) // (127 * 127)
+# csrc/quantized.cu's GEMM: output tile (BM = BN), wgmma's depth for
+# 8-bit operands, and the cluster size cap of its split-K
+GEMM_TILE = 64
+K_STEP = 32
+MAX_KSPLIT = 8
+
+
+def plan_k_splits(M, K, N):
+    """``(ksplit, kchunk)``: K cut into ksplit contiguous chunks of
+    ``kchunk`` (a multiple of K_STEP; the last chunk may be shorter, none
+    is empty), so that ``ceil(M / 64) * ceil(N / 64) * ksplit`` blocks come
+    to about one wave of the card, with ``ksplit <= MAX_KSPLIT`` (one
+    cluster sums the chunks)."""
+    tiles = -(-M // GEMM_TILE) * -(-N // GEMM_TILE)
+    steps = max(1, -(-K // K_STEP))
+    want = max(1, min(MAX_KSPLIT, steps, build.SMS // max(1, tiles)))
+    chunk = -(-steps // want)
+    return -(-steps // chunk), chunk * K_STEP
 
 
 # ---------------------------------------------------------------- plain
@@ -66,13 +88,12 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "repro_quantize_rowwise": [_P, _P, _P, _I, _I, _LL, _LL, _P],
     "repro_dequantize_rowwise": [_P, _P, _P, _I, _I, _P],
-    "repro_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
 def _kernel_fn(name):
     """A C entry point of csrc/quantized.cu, typed once."""
-    from . import build
     fn = getattr(build.library("quantized"), name)
     if fn.argtypes is None:
         fn.argtypes = _SIGNATURES[name]
@@ -174,9 +195,10 @@ def int8_matmul(xq, sx, wq, sw):
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     if out.numel() == 0:
         return out
+    ksplit, kchunk = plan_k_splits(M, K, N)
     _check(_kernel_fn("repro_int8_matmul")(
         xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
-        out.data_ptr(), M, K, N, _stream(xq)), "int8_matmul")
+        out.data_ptr(), M, K, N, ksplit, kchunk, _stream(xq)), "int8_matmul")
     int8_matmul.launches += 1
     return out
 

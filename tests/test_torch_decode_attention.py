@@ -161,6 +161,28 @@ def test_cuda_launch_checks_before_building():
         DA._launch(q, k, k, pos[:5], 3, window=0, scale=1.0)
 
 
+@pytest.mark.parametrize("W", [1, 20, 37, 64, 1024, 4096])
+@pytest.mark.parametrize("B, KV, G", [(1, 8, 4), (2, 8, 4), (1, 2, 2),
+                                      (1, 1, 1), (4, 4, 1), (1, 8, 6),
+                                      (64, 8, 4)])
+def test_split_plan_covers_the_window_once(B, KV, G, W):
+    """The chunks cover [0, W) once, in order, none empty, and their count
+    stays within the kernel's cluster size and W."""
+    nsplit, chunk = DA.plan_splits(B, KV, G, W)
+    assert 1 <= nsplit <= min(DA.MAX_SPLIT, W)
+    spans = [(i * chunk, min(W, (i + 1) * chunk)) for i in range(nsplit)]
+    assert spans[0][0] == 0 and spans[-1][1] == W
+    assert all(a < b for a, b in spans)
+    assert all(spans[i][1] == spans[i + 1][0] for i in range(nsplit - 1))
+
+
+def test_split_plan_fills_one_wave_at_mistral_width():
+    # B=1, KV=8, G=4: 8 blocks a chunk, 16 chunks of 64 slots, 128 blocks
+    assert DA.plan_splits(1, 8, 4, 1024) == (16, 64)
+    assert DA.plan_splits(2, 8, 4, 1024) == (8, 128)
+    assert DA.plan_splits(1, 8, 4, 20) == (10, 2)
+
+
 def test_source_names_what_it_replaces():
     text = (build.CSRC / "decode_attention.cu").read_text()
     assert "repro/kernels/decode_attention.py::decode_attention" in text
@@ -180,3 +202,30 @@ def test_kernel_matches_plain_on_card():
     want = DA.decode_attention_plain(q, k, v, pos, 53, window=24)
     assert DA.decode_attention.launches == before + 1
     assert float((got - want).abs().max()) <= ATOL
+    # chip_smoke.py's split-W edges: (B, W, H, KV, D, t, window, pos, bf16)
+    full = np.full((1024,), -1, np.int32)
+    # slot s holds the last position p <= t with p % W == s (-1: none yet)
+    ring = lambda W, t: np.array([max(t - (t - s) % W, -1)  # noqa: E731
+                                  for s in range(W)], np.int32)
+    cases = [(1, 1024, 32, 8, 128, 2, 0, ring(1024, 2), True),
+             (1, 1024, 32, 8, 128, 2, 0, full, True),
+             (1, 1024, 32, 8, 128, 1535, 48, ring(1024, 1535), True),
+             (1, 20, 32, 8, 128, 29, 0, _ring_pos(20, 29), False),
+             (1, 37, 32, 8, 128, 46, 0, _ring_pos(37, 46), False),
+             (2, 1024, 32, 8, 128, 700, 0, ring(1024, 700), True),
+             (1, 40, 6, 3, 12, 50, 30, ring(40, 50), True)]
+    for i, (B, W, H, KV, D, t, window, pos, bf16) in enumerate(cases):
+        q, k, v = (torch.from_numpy(a).to(dev) for a in
+                   _inputs(20 + i, B, W, H, KV, D))
+        if bf16:
+            q, k, v = (x.bfloat16() for x in (q, k, v))
+        pos = torch.from_numpy(pos).to(dev)
+        got = ops.decode_attention(q, k, v, pos, t, window=window).float()
+        want = DA.decode_attention_plain(q, k, v, pos, t,
+                                         window=window).float()
+        assert torch.isfinite(got).all()
+        if bf16:
+            ulp = torch.from_numpy(_bf16_ulp(want.cpu().numpy())).to(dev)
+            assert bool(((got - want).abs() <= ulp).all()), (i, W, t)
+        else:
+            assert float((got - want).abs().max()) <= ATOL, (i, W, t)

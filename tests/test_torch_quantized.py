@@ -215,6 +215,29 @@ def test_zero_rows_launch_nothing():
     assert tuple(out.shape) == (0, 3)
 
 
+@pytest.mark.parametrize("M, K, N", MAIN_PATH_GEMMS + GEMM_SHAPES + [
+    (64, 1200, 312), (64, 312, 936), (64, 312, 1200), (30, 6, 192),
+    (1, 3, 16), (130, 312, 312), (64, 32, 8), (2, 4000, 3), (64, 1216, 64),
+    (256, 129, 640)])
+def test_k_split_plan_covers_k(M, K, N):
+    """K chunks are multiples of K_STEP except the last, cover [0, K) in
+    order, none empty, and their count stays within the cluster cap."""
+    ksplit, kchunk = PK.plan_k_splits(M, K, N)
+    assert 1 <= ksplit <= PK.MAX_KSPLIT
+    assert kchunk % PK.K_STEP == 0
+    spans = [(i * kchunk, min(K, (i + 1) * kchunk)) for i in range(ksplit)]
+    assert spans[0][0] == 0 and spans[-1][1] == K
+    assert all(a < b for a, b in spans)
+    assert all((b - a) % PK.K_STEP == 0 for a, b in spans[:-1])
+
+
+def test_k_split_plan_at_the_text_layer():
+    # 5 N tiles x 8 chunks of 160 at K = 1200; 15 x 5 chunks of 64 at 312
+    assert PK.plan_k_splits(64, 1200, 312) == (8, 160)
+    assert PK.plan_k_splits(64, 312, 936) == (5, 64)
+    assert PK.plan_k_splits(30, 6, 192) == (1, 32)
+
+
 def test_kernels_match_plain_versions_on_the_card():
     """Card-only: each CUDA kernel is bit-equal to its plain version at a
     shape with K and N tails (``python3 chip_smoke.py`` runs every main
@@ -232,6 +255,21 @@ def test_kernels_match_plain_versions_on_the_card():
                        PK.int8_matmul_plain(q, s, wq, sw))
     assert torch.equal(PO.dequantize_rowwise(q, s),
                        PK.dequantize_rowwise_plain(q, s))
+    # chip_smoke.py's tensor-core tile edges and the +-127 extremes
+    for M, K, N in ((130, 312, 312), (64, 32, 8), (64, 1200, 312)):
+        q, s = PO.quantize_rowwise(torch.from_numpy(
+            rng.normal(size=(M, K)).astype(np.float32)).cuda())
+        wq, sw = PO.quantize_colwise(torch.from_numpy(
+            rng.normal(size=(K, N)).astype(np.float32)).cuda())
+        assert torch.equal(PO.int8_matmul(q, s, wq, sw),
+                           PK.int8_matmul_plain(q, s, wq, sw)), (M, K, N)
+    q = torch.from_numpy(rng.choice([-127, 127], size=(64, 1200))
+                         .astype(np.int8)).cuda()
+    wq = torch.from_numpy(rng.choice([-127, 127], size=(1200, 312))
+                          .astype(np.int8)).cuda()
+    s, sw = torch.ones((64, 1)).cuda(), torch.ones((1, 312)).cuda()
+    assert torch.equal(PO.int8_matmul(q, s, wq, sw),
+                       PK.int8_matmul_plain(q, s, wq, sw))
 
 
 # ------------------------------------------------------------- sidecar
