@@ -9,12 +9,15 @@ Phases, each printing one JSON line:
   device  the card, its power limit, the software versions; TF32 off.
   build   every kernel under src/repro_torch/csrc built with nvcc.
   kernel  the CUDA flash-attention kernel against its plain PyTorch
-          version on the card, at the serving shapes and at the other
-          modes' shapes: max |diff| <= 1e-4, exact zeros on fully masked
-          rows, one launch counted per call; times of the kernel, the
-          plain version and F.scaled_dot_product_attention (a yardstick
-          only: the port never calls it), and the least time the card
-          could take for the same work.
+          version on the card, at the serving shapes (TinyBERT, BERT-base
+          and MobileBERT per event, a padded batch, the S=512 segments
+          buffer, BERT-base at B=8 S=128) and causal GQA with a window:
+          max |diff| <= 1e-4, exact zeros on fully masked rows, one
+          launch counted per call, the same under every tile plan the
+          kernel compiles (each timed); times of the kernel, the plain
+          version and F.scaled_dot_product_attention (a yardstick only:
+          the port never calls it), and the least time the card could
+          take for the same work.
   serve   EMSNet TinyBERT-GRU-FC served per event by EMSServe on Table-6
           episodes 1-3 (adaptive offload under mobility, an edge crash in
           episode 2): the kernel must be launched exactly layers x
@@ -22,6 +25,10 @@ Phases, each printing one JSON line:
           finite, and the same episodes on the CPU (plain versions, the
           same profile table) must pick the same model, tier and cache
           hits, with outputs within 1e-4.
+  bertbase  Table-6 episode 1 served per event with the BERT-base text
+          encoder (12 layers of 12 heads of 64): flash launches ==
+          layers x text-consuming models x text events, every
+          recommendation finite.
   int8    the CUDA quantize, dequantize and int8 GEMM kernels against
           their plain PyTorch versions on the card at every shape the
           tiered int8 path gives them (plus (33,100)x(100,130), an
@@ -60,8 +67,11 @@ Phases, each printing one JSON line:
   rwkv_kernel  the CUDA RWKV6 scan against its plain version on the card:
           tests/test_kernels.py's shapes (1e-4), the chained-state contract,
           RWKV6-1.6B's full width (B=1, H=32, n=64, nonzero s0) at S=520
-          and S=1 (1e-4 of the output's scale); times (L2 flushed, and
-          warm) and the bound.
+          and S=1 (1e-4 of the output's scale), with decays in (0.4, 0.9)
+          and as the model draws them, and a small scan whose decays hold
+          exact 0s and 1s; every case under each chunk length the kernel
+          compiles (each timed); times (L2 flushed, and warm) and the
+          bound.
   llm     the prefix-cached LLMServer. (i) Both ported archs reduced to 2
           float32 layers on examples/llm_generate.py's mix, card vs CPU:
           the same tokens and stats, logits of every call within 1e-4, a
@@ -86,6 +96,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -292,6 +303,25 @@ def kernel_case(name, *, B, Sq, Sk, H, KV, D, causal=False, window=0,
 
     kfn = lambda: FA.flash_attention(q, k, v, block_q=block, block_k=block, **kw)  # noqa: E731
     pfn = lambda: FA.flash_attention_plain(q, k, v, **kw)  # noqa: E731
+    # every tile plan the kernel compiles, on the same inputs: each within
+    # TOL of the plain version, each timed, so the plan's pick is checked
+    # against the others (padding-free shapes only: the plan sees S as is)
+    by_block_q = {}
+    if segments is None or Sq % block == 0:
+        for bq in FA.BLOCK_Q:
+            afn = lambda bq=bq: FA._launch(  # noqa: E731
+                q, k, v, causal=causal, window=window, scale=1.0 / math.sqrt(D),
+                kv_lengths=kw.get("kv_lengths"),
+                segment_ids=kw.get("segment_ids"), block_q=bq)
+            alt = afn()
+            torch.cuda.synchronize()
+            a_err = float((alt - want).abs().max())
+            check(a_err <= TOL, f"{name}: block_q={bq}: max |kernel - plain| "
+                  f"= {a_err} > {TOL}")
+            if n_dead:
+                check(float(alt[dead].abs().max()) == 0.0,
+                      f"{name}: block_q={bq}: masked rows are not exactly 0")
+            by_block_q[bq] = {"max_abs_err": a_err, "ms": device_ms(afn)}
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa_kw = {"attn_mask": mask[:, None]}
     if KV != H:
@@ -303,6 +333,7 @@ def kernel_case(name, *, B, Sq, Sk, H, KV, D, causal=False, window=0,
     library_ms = device_ms(lfn) if gqa_ok else None
     b_ms, b_by, flops, nbytes = bound(q, v, mask, H, KV, extra)
     row = dict(name=name, shape=dict(B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, D=D),
+               plan=FA.plan_tiles(B, Sq, Sk, H, D), by_block_q=by_block_q,
                max_abs_err=err, zero_rows=n_dead, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, call_ms=call_ms(kfn),
                plain_call_ms=call_ms(pfn), bound_ms=b_ms, bound_by=b_by,
@@ -318,6 +349,14 @@ def phase_kernel():
     rows["per_event"] = kernel_case(
         "tinybert_per_event", B=1, Sq=64, Sk=64, H=12, KV=12, D=26,
         lengths=[64], fused_qkv=True)
+    # BERT-base (d=768, 12 heads of 64) and MobileBERT (d=128, 4 heads of
+    # 32) per event, as --text-encoder bertbase / mobilebert serve them
+    rows["bertbase_per_event"] = kernel_case(
+        "bertbase_per_event", B=1, Sq=64, Sk=64, H=12, KV=12, D=64,
+        lengths=[64], fused_qkv=True, seed=5)
+    rows["mobilebert_per_event"] = kernel_case(
+        "mobilebert_per_event", B=1, Sq=64, Sk=64, H=4, KV=4, D=32,
+        lengths=[64], fused_qkv=True, seed=6)
     lens = rng.integers(0, 65, 64)
     lens[0], lens[1] = 0, 64
     rows["padded"] = kernel_case(
@@ -344,12 +383,12 @@ def phase_kernel():
 # ----------------------------------------------------------------- serve
 
 def run_episodes(splits, params, payloads, table, device, *, cached=True,
-                 crash=(2, 12)):
+                 crash=(2, 12), episodes=(1, 2, 3)):
     from repro_torch.core import (AdaptiveOffloadPolicy, EMSServe,
                                   HeartbeatMonitor, table6)
     from repro_torch.launch.serve import _mobility_trace
     out = []
-    for ep in (1, 2, 3):
+    for ep in episodes:
         policy = AdaptiveOffloadPolicy(table, HeartbeatMonitor(
             _mobility_trace(True)))
         eng = EMSServe(splits, params, policy=policy, cached=cached,
@@ -486,6 +525,51 @@ def phase_serve():
          direct_over_cached_sim=sim["direct"] / sim["cached"],
          direct_over_cached_wall=wall["direct"] / wall["cached"],
          sim_s=sim, wall_s=wall)
+    return launches
+
+
+def phase_bertbase():
+    """One Table-6 episode served per event with the BERT-base text
+    encoder (12 layers, d=768, 12 heads of 64), as --text-encoder
+    bertbase serves it: the flash kernel's launches counted on that path,
+    every recommendation finite."""
+    from repro_torch.configs.emsnet import config
+    from repro_torch.core import ProfileTable, profile
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import build_models, sample_payloads
+
+    cfg = config(text_encoder="bertbase", vocab_size=2048)
+    splits, params = build_models(cfg, seed=0, device="cuda")
+    payloads = sample_payloads(cfg)
+    table = ProfileTable(base=profile(splits["m3"], params["m3"], payloads,
+                                      device="cuda"))
+    FA.flash_attention.launches = 0             # the path starts here
+    runs = run_episodes(splits, params, payloads, table, "cuda",
+                        episodes=(1,))
+    launches = FA.flash_attention.launches      # ... and ends here
+    n_layers = cfg.text_dims[0]
+    text_models = sum("text" in sm.modalities() for sm in splits.values())
+    text_events = sum(r.modality == "text" for r in runs[0]["engine"].records)
+    expected = n_layers * text_models * text_events
+    check(text_events >= 1, "the episode served no text event")
+    check(launches == expected, f"bertbase: flash kernel launched {launches} "
+          f"times, expected {n_layers} layers x {text_models} models x "
+          f"{text_events} text events = {expected}")
+    n_recs = 0
+    for r in runs[0]["engine"].records:
+        if r.recommendation is not None:
+            n_recs += 1
+            for k, t in r.recommendation.items():
+                check(bool(torch.isfinite(t).all()), f"bertbase: non-finite {k}")
+    check(n_recs > 0, "bertbase: no recommendation was served")
+    ev_ms = sorted(1e3 * t for t in runs[0]["event_s"])
+    emit("bertbase", config="bertbase-gru-fc vocab 2048", launches=launches,
+         expected_launches=expected, text_events=text_events,
+         recommendations=n_recs, episode_wall_s=runs[0]["wall_s"],
+         event_ms_p50=float(np.percentile(ev_ms, 50)),
+         event_ms_p99=float(np.percentile(ev_ms, 99)))
+    del splits, params
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1073,23 +1157,35 @@ def rwkv_bound(B, S, H, n, *, s0):
             "bytes" if t_bytes >= t_ops else "operations", ops, nbytes)
 
 
-def rwkv_inputs(B, S, H, n, *, s0, seed):
-    """r, k, v ~ N(0, 1); w in (0.4, 0.9), tests/test_kernels.py's decay
-    range; u ~ 0.1 N(0, 1); s0 ~ N(0, 1) or None; on the card."""
+def rwkv_inputs(B, S, H, n, *, s0, seed, decay="range"):
+    """r, k, v ~ N(0, 1); u ~ 0.1 N(0, 1); s0 ~ N(0, 1) or None; on the
+    card. Decays w: "range" in (0.4, 0.9), tests/test_kernels.py's range;
+    "model" as the model draws them, exp(-exp(w0 + lora)) with w0 spread
+    over linspace(-6, -1) across the head dim and the lora term 0.5 N(0,
+    1); "edges" the range with a tenth of the entries exactly 0 and a
+    tenth exactly 1, which the model's double exp gives in float32."""
     g = torch.Generator().manual_seed(seed)
     r, k, v = (torch.randn((B, S, H, n), generator=g) for _ in range(3))
     w = torch.sigmoid(torch.randn((B, S, H, n), generator=g)) * 0.5 + 0.4
+    if decay == "model":
+        w = torch.exp(-torch.exp(torch.linspace(-6.0, -1.0, n)
+                                 + 0.5 * torch.randn((B, S, H, n), generator=g)))
+    elif decay == "edges":
+        pick = torch.rand((B, S, H, n), generator=g)
+        w = torch.where(pick < 0.1, 0.0, torch.where(pick > 0.9, 1.0, w))
     u = torch.randn((H, n), generator=g) * 0.1
     s = torch.randn((B, H, n, n), generator=g) if s0 else None
     return [x.cuda() if x is not None else None for x in (r, k, v, w, u, s)]
 
 
-def rwkv_case(name, *, B, S, H, n, s0=False, seed=0, scaled=False):
+def rwkv_case(name, *, B, S, H, n, s0=False, seed=0, scaled=False,
+              decay="range"):
     """Kernel vs plain version on the card at RWKV_TOL; with ``scaled``,
     RWKV_TOL of the output's own scale (max |plain|, at least 1): at full
-    width the state sums hundreds of steps of N(0, 1) products."""
+    width the state sums hundreds of steps of N(0, 1) products. Every
+    chunk length the kernel compiles is checked the same way and timed."""
     from repro_torch.kernels import rwkv6 as RW
-    args = rwkv_inputs(B, S, H, n, s0=s0, seed=seed)
+    args = rwkv_inputs(B, S, H, n, s0=s0, seed=seed, decay=decay)
     before = RW.rwkv6_scan.launches
     y, sf = RW.rwkv6_scan(*args)
     torch.cuda.synchronize()
@@ -1102,10 +1198,22 @@ def rwkv_case(name, *, B, S, H, n, s0=False, seed=0, scaled=False):
     scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
     tol = RWKV_TOL * (scale if scaled else 1.0)
     check(err <= tol, f"{name}: max |kernel - plain| = {err} > {tol}")
+    by_chunk = {}
+    for chunk in RW.CHUNKS:
+        afn = lambda chunk=chunk: RW._launch(*args, chunk=chunk)  # noqa: E731
+        ya, sa = afn()
+        torch.cuda.synchronize()
+        a_err = max(float((ya - yp).abs().max()), float((sa - sp).abs().max()))
+        check(bool(torch.isfinite(ya).all() and torch.isfinite(sa).all())
+              and a_err <= tol, f"{name}: chunk={chunk}: max |kernel - "
+              f"plain| = {a_err} > {tol}")
+        by_chunk[chunk] = {"max_abs_err": a_err, "ms": device_ms_cold(afn)}
     b_ms, b_by, ops, nbytes = rwkv_bound(B, S, H, n, s0=s0)
     kfn = lambda: RW.rwkv6_scan(*args)  # noqa: E731
     pfn = lambda: RW.rwkv6_scan_plain(*args)  # noqa: E731
     row = dict(name=name, shape=dict(B=B, S=S, H=H, n=n, s0=s0),
+               decay=decay, plan=RW.plan_chunks(B, S, H, n),
+               by_chunk=by_chunk,
                max_abs_err=err, scale=scale, tol=tol, ms=device_ms_cold(kfn),
                plain_ms=device_ms_cold(pfn, reps=5 if S > 100 else 25),
                library_ms=None, ms_l2_warm=device_ms(kfn),
@@ -1141,6 +1249,16 @@ def phase_rwkv_kernel():
                                     H=32, n=64, s0=True, seed=1, scaled=True)
     rows["decode_1"] = rwkv_case("rwkv_decode_1x1x32x64", B=1, S=1, H=32,
                                  n=64, s0=True, seed=2, scaled=True)
+    # the same two calls with decays as the model draws them, and a small
+    # scan whose decays hold exact 0s and 1s (no NaN from a log of 0)
+    rows["prefill_520_model"] = rwkv_case(
+        "rwkv_prefill_1x520x32x64_model_decay", B=1, S=520, H=32, n=64,
+        s0=True, seed=3, scaled=True, decay="model")
+    rows["decode_1_model"] = rwkv_case(
+        "rwkv_decode_1x1x32x64_model_decay", B=1, S=1, H=32, n=64, s0=True,
+        seed=4, scaled=True, decay="model")
+    rows["edges"] = rwkv_case("rwkv_1x40x2x16_exact_0_and_1", B=1, S=40,
+                              H=2, n=16, s0=True, seed=5, decay="edges")
     return rows
 
 
@@ -1367,7 +1485,7 @@ def llm_full(arch):
         lambda: srv.serve_one(Request("prof", np.concatenate(
             [system, users[0][::-1]]), max_new_tokens=16)),
         "decode_attention_kernel" if name == "decode_attention"
-        else "rwkv6_scan_kernel")
+        else "rwkv6_")             # rwkv6_chunk_kernel and rwkv6_step_kernel
     dec = sorted(rec.ms["decode"])
     gen_tokens = sum(len(r.tokens) for r in res[1:])
     row = dict(arch=arch, dtype=cfg.dtype, layers=L, params=n_params,
@@ -1474,6 +1592,7 @@ def _line(name, source, replaces, launches, row, **extra):
 PHASES = {"kernel": phase_kernel, "int8": phase_int8,
           "decode_kernel": phase_decode_kernel,
           "rwkv_kernel": phase_rwkv_kernel, "serve": phase_serve,
+          "bertbase": phase_bertbase,
           "tiered": phase_tiered, "llm": phase_llm, "cli": phase_cli}
 
 
@@ -1498,6 +1617,7 @@ def main():
     decode_rows = phase_decode_kernel()
     rwkv_rows = phase_rwkv_kernel()
     serve_launches = phase_serve()
+    bertbase_launches = phase_bertbase()
     tiered_launches = phase_tiered()
     llm_rows = phase_llm()
     phase_cli()
@@ -1508,7 +1628,13 @@ def main():
                      serve_launches, rows["per_event"],
                      launches_by_path={
                          "serve": serve_launches,
-                         "tiered": tiered_launches["flash_attention"]})]
+                         "tiered": tiered_launches["flash_attention"],
+                         "bertbase": bertbase_launches}),
+               _line("flash_attention_bertbase",
+                     "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:98",
+                     bertbase_launches, rows["bertbase_per_event"],
+                     shape=rows["bertbase_per_event"]["shape"])]
     for name, (source, replaces, row) in KERNELS.items():
         kernels.append(_line(name, source, replaces, tiered_launches[name],
                              int8_rows[row], shape=int8_rows[row]["shape"]))

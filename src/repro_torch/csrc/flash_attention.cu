@@ -8,43 +8,57 @@
 // exactly 0: the mask is applied again after the exp and the output is
 // acc / max(l, 1e-30), as in the Pallas body.
 //
-// What bounds it on this card. EMSNet's per-event text encode calls it
-// at B=1, S=64, H=12, D=26: about 5 MFLOP and about 320 KB of q, k, v
-// and output, i.e. well under a microsecond of either float32 compute
-// (67 TFLOP/s) or HBM traffic (3.35 TB/s) at the H100 SXM's published
-// peaks (700 W limit). The call is bound by launch latency, not by FLOPs
-// or bytes.
+// What bounds it on this card. The path's shapes are small: EMSNet's
+// per-event text encode (B=1, S=64, H=12, D=26 for TinyBERT, D=64 for
+// BERT-base) moves well under a megabyte and does a few MFLOP, so one
+// call is bound by its own latency chain (launch, global round trips,
+// barriers), not by HBM (3.35 TB/s) or float32 (67 TFLOP/s at the H100
+// SXM's 700 W limit). Batches (B=8, S=128, D=64: 403 MFLOP, 6 us at the
+// float32 peak) are bound by operations. TF32 tensor cores are ruled out
+// by float32 parity, so the products run on the FFMA units, and what
+// starves those units is shared memory: a kernel that reads two operands
+// from shared memory per FMA runs at 1/8 of the float32 rate.
 //
-// What the design does about that. One launch per attention call, with
-// no layout copies before it: the kernel reads q, k and v through their
-// (B, S, H, D) strides, so the model passes views of its fused qkv
-// projection as they are. One block of 4 warps per (batch*head, 16-query
-// tile) keeps the small per-event shape spread over 48 SMs, and key tiles
-// that the mask hides from every query of the tile (past kv_lengths, past
-// the causal diagonal, before the window) are never loaded. Tensor cores,
-// wgmma and TMA would not move a launch-bound call; they are left for the
-// batched serving path, where the shapes grow.
-//
-// Layout of the work inside a block: the 16-query tile sits in shared
-// memory; 32-key tiles of K and V are staged in shared memory in turn;
-// each warp takes 4 query rows, one key per lane, and keeps the running
-// max and denominator of the online softmax in float32; the float32
-// accumulator (16 rows x padded head dim) lives in registers, spread
-// over the 128 threads. The head dim is padded to a bucket of 32, 64 or
-// 128 (template DP) with zeros in shared memory, so any D <= 128 works,
-// 26 included; the host refuses D > 128.
+// What the design does about that.
+// - Register micro-tiles. A warp owns 4*RPT query rows; within it lane
+//   (ty, tx) takes rows ty, ty+4, ... (RPT of them) and keys tx, tx+8,
+//   ..., tx+56 of a 64-key tile. Scores come from float4 reads of q and
+//   k rows, so RPT + 8 shared loads feed 32*RPT FMAs (12 for 128 at
+//   RPT=4). P goes through shared memory once per tile (its own warp's
+//   rows only, so a __syncwarp suffices) and O += P V reads float4 rows
+//   of P and V: RPT + 4*DP/32 loads feed 4*RPT*DP/8 FMAs.
+// - The row max is reduced by three shuffles among the 8 lanes that
+//   share a row; the denominator stays a per-lane partial sum until the
+//   end. One block barrier per key tile.
+// - K/V tiles are staged by cp.async 16-byte copies, double buffered:
+//   the next tile is in flight while this one is used. Rows off a 16-byte
+//   boundary (D=26, or an odd head's view of the fused qkv buffer) are
+//   staged element by element. Out-of-range rows and the head-dim padding
+//   (up to DP = 32, 64 or 128) are zero-filled by the copy itself.
+// - A tile plan per shape (kernels/flash_attention.py::plan_tiles). At
+//   the per-event shapes and the packed ragged buffer, 16 query rows a
+//   block on 4 warps (one row a lane): the most blocks, each with the
+//   shortest chain, and S <= 64 stages all of K/V in one round trip.
+//   Where a 16-row grid would run more than 4 waves, 64 rows on 4 warps
+//   or 128 on 8 (4 rows a lane), so each staged K/V tile serves 64 or 128
+//   queries (B=8, S=128: 96 blocks of 8 warps). Key tiles that the mask
+//   hides from every query of the block (past kv_lengths, past the causal
+//   diagonal, before the window) are never loaded. q, k and v are read
+//   through their (B, S, H, D) strides, so the model passes views of its
+//   fused qkv projection as they are.
+// - The exponentials are __expf (ex2.approx): their error, a few ulp, is
+//   far inside the 1e-4 the outputs are held to.
 //
 // C interface (bound with ctypes): pointers as void*, strides in
 // elements, the CUDA stream last; returns cudaGetLastError() as an int.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 16;                  // query rows per block
-constexpr int BK = 32;                  // keys per shared-memory tile: one per lane
-constexpr int THREADS = 128;            // 4 warps
-constexpr int WARPS = THREADS / 32;
+constexpr int BK = 64;                  // keys per tile: 8 lanes x 8 keys
+constexpr int LDP = BK + 8;             // row stride of P: lanes of a warp hit distinct banks
 constexpr float NEG_INF = -1e30f;       // the Pallas kernel's mask value
 
 struct Params {
@@ -61,57 +75,93 @@ struct Params {
   long long seg_sb;
   float scale;
   int causal, window, q_offset;
+  int vec;                              // every row starts on a 16-byte boundary
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(in ? 16 : 0));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(in ? 4 : 0));
 }
 
-template <int DP>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows r0 .. r0 + rows - 1 of a (S, width) matrix with row stride ss into
+// dst[rows][LD], by the block's THREADS lanes; rows at or past r0 + nvalid
+// and columns at or past width (up to DP) are zero-filled.
+template <int DP, int THREADS>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long ss, int r0, int rows,
+                                           int nvalid, int width, bool vec) {
+  constexpr int LD = DP + 4;
+  if (vec) {
+    constexpr int C = DP / 4;
+    for (int e = threadIdx.x; e < rows * C; e += THREADS) {
+      const int r = e / C, c = e % C;
+      const bool in = r < nvalid && 4 * c < width;
+      cp_async16(dst + r * LD + 4 * c,
+                 in ? src + (r0 + r) * ss + 4 * c : src, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * DP; e += THREADS) {
+      const int r = e / DP, d = e % DP;
+      const bool in = r < nvalid && d < width;
+      cp_async4(dst + r * LD + d, in ? src + (r0 + r) * ss + d : src, in);
+    }
+  }
+}
+
+template <int DP, int RPT, int NW>
+constexpr int smem_bytes() {
+  return 4 * ((NW * 4 * RPT) * (DP + 4)         // q tile
+              + 4 * BK * (DP + 4)               // K and V, two buffers each
+              + (NW * 4 * RPT) * LDP            // P
+              + 2 * BK);                        // key segment ids, two buffers
+}
+
+// NW warps of 4 * RPT query rows each: BQ = 16 NW RPT rows a block
+template <int DP, int RPT, int NW>
+__global__ void __launch_bounds__(32 * NW)
 flash_fwd_kernel(const Params p) {
-  constexpr int LD = DP + 1;            // odd row stride: lanes on different keys hit different banks
-  constexpr int ACC = BQ * DP / THREADS;
-  __shared__ float sq[BQ][LD];
-  __shared__ float sk[BK][LD];
-  __shared__ float sv[BK][LD];
-  __shared__ float sp[BQ][BK];
-  __shared__ float s_m[BQ], s_l[BQ], s_corr[BQ];
-  __shared__ int s_qseg[BQ];
+  constexpr int THREADS = 32 * NW;
+  constexpr int LD = DP + 4;
+  constexpr int BQ = NW * 4 * RPT;
+  constexpr int CG = DP / 32;           // float4 column groups of O per lane
+  extern __shared__ float4 smem4[];
+  float* sq = reinterpret_cast<float*>(smem4);
+  float* sk = sq + BQ * LD;
+  float* sv = sk + 2 * BK * LD;
+  float* sp = sv + 2 * BK * LD;
+  int* skseg = reinterpret_cast<int*>(sp + BQ * LDP);
 
   const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
   const int kvh = h / (p.H / p.KV);
   const int q0 = blockIdx.y * BQ;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tx = lane & 7, ty = lane >> 3;
+  const int row0 = warp * 4 * RPT + ty;  // this lane's rows: row0 + 4 r
 
   const float* qb = p.q + b * p.q_sb + h * p.q_sh;
   const float* kb = p.k + b * p.k_sb + kvh * p.k_sh;
   const float* vb = p.v + b * p.v_sb + kvh * p.v_sh;
   const int* segb = p.seg ? p.seg + b * p.seg_sb : nullptr;
+  const bool vec = p.vec;
 
-  for (int e = tid; e < BQ * DP; e += THREADS) {
-    const int r = e / DP, d = e % DP, qi = q0 + r;
-    sq[r][d] = (qi < p.Sq && d < p.D) ? qb[qi * p.q_ss + d] : 0.f;
-  }
-  if (tid < BQ) {
-    s_m[tid] = NEG_INF;
-    s_l[tid] = 0.f;
-    s_qseg[tid] = (segb && q0 + tid < p.Sq) ? segb[q0 + tid] : -1;
-  }
-
-  // Keys no query of this tile can see: past the row's length, past the
-  // causal diagonal of the tile's last query, before the window of its
+  // Keys no query of this block can see: past the row's length, past the
+  // causal diagonal of the block's last query, before the window of its
   // first. Skipping them is exact: a fully masked tile leaves m, l and
   // acc unchanged.
   int k_begin = 0, k_end = p.Sk;
@@ -122,73 +172,198 @@ flash_fwd_kernel(const Params p) {
     if (p.causal) k_end = min(k_end, qlast + 1);
     if (p.window > 0) k_begin = max(k_begin, qfirst - p.window + 1);
   }
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  float acc[ACC];
+  auto stage_tile = [&](int t) {
+    const int kt = k_begin + t * BK, buf = t & 1, nv = min(BK, k_end - kt);
+    stage_rows<DP, THREADS>(sk + buf * BK * LD, kb, p.k_ss, kt, BK, nv, p.D, vec);
+    stage_rows<DP, THREADS>(sv + buf * BK * LD, vb, p.v_ss, kt, BK, nv, p.Dv, vec);
+    if (segb)
+      for (int c = threadIdx.x; c < BK; c += THREADS)
+        cp_async4(skseg + buf * BK + c, c < nv ? segb + kt + c : segb, c < nv);
+  };
+
+  stage_rows<DP, THREADS>(sq, qb, p.q_ss, q0, BQ, min(BQ, p.Sq - q0), p.D, vec);
+  if (ntiles) stage_tile(0);
+  cp_async_commit();
+
+  int qseg[RPT];
+  float m[RPT], l[RPT], o[RPT][CG][4];
 #pragma unroll
-  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+  for (int r = 0; r < RPT; ++r) {
+    const int qi = q0 + row0 + 4 * r;
+    qseg[r] = (segb && qi < p.Sq) ? segb[qi] : -1;
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+#pragma unroll
+    for (int g = 0; g < CG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[r][g][e] = 0.f;
+  }
 
-  for (int kt = k_begin; kt < k_end; kt += BK) {
-    __syncthreads();                    // the last tile is consumed; the q tile is in
-    for (int e = tid; e < BK * DP; e += THREADS) {
-      const int c = e / DP, d = e % DP, kj = kt + c;
-      const bool in = kj < k_end;
-      sk[c][d] = (in && d < p.D) ? kb[kj * p.k_ss + d] : 0.f;
-      sv[c][d] = (in && d < p.Dv) ? vb[kj * p.v_ss + d] : 0.f;
+  for (int t = 0; t < ntiles; ++t) {
+    const int buf = t & 1, kt = k_begin + t * BK;
+    cp_async_wait_all();                // tile t (and the q tile) landed ...
+    __syncthreads();                    // ... for every lane; tile t-1 is consumed
+    if (t + 1 < ntiles) stage_tile(t + 1);
+    cp_async_commit();
+    const float* K = sk + buf * BK * LD;
+    const float* V = sv + buf * BK * LD;
+
+    // S = q k^T on the lane's RPT x 8 micro-tile
+    float s[RPT][8];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[r][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DP; d += 4) {
+      float4 qv[RPT];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        qv[r] = *reinterpret_cast<const float4*>(sq + (row0 + 4 * r) * LD + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 kv = *reinterpret_cast<const float4*>(K + (tx + 8 * j) * LD + d);
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          s[r][j] = fmaf(qv[r].x, kv.x, s[r][j]);
+          s[r][j] = fmaf(qv[r].y, kv.y, s[r][j]);
+          s[r][j] = fmaf(qv[r].z, kv.z, s[r][j]);
+          s[r][j] = fmaf(qv[r].w, kv.w, s[r][j]);
+        }
+      }
     }
-    __syncthreads();
 
-    // scores and the online-softmax update: warp w takes rows w, w+4, ...
-    const int kj = kt + lane;
-    for (int r = warp; r < BQ; r += WARPS) {
-      const int qi = q0 + r;
-      float s = 0.f;
+    // mask, online softmax; P to shared memory (this warp's rows only)
+    __syncwarp();                       // the last tile's P is consumed
 #pragma unroll
-      for (int d = 0; d < DP; ++d) s += sq[r][d] * sk[lane][d];
-      s *= p.scale;
-      bool valid = qi < p.Sq && kj < k_end;
-      if (segb) {
-        const int kid = valid ? segb[kj] : -1;
-        valid = valid && kid == s_qseg[r] && kid >= 0;
+    for (int r = 0; r < RPT; ++r) {
+      const int row = row0 + 4 * r, qi = q0 + row;
+      const int qpos = p.q_offset + qi;
+      unsigned valid = 0;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = tx + 8 * j, kj = kt + c;
+        bool ok = qi < p.Sq && kj < k_end;
+        if (segb) {
+          const int kid = skseg[buf * BK + c];
+          ok = ok && kid == qseg[r] && kid >= 0;
+        } else {
+          if (p.causal) ok = ok && kj <= qpos;
+          if (p.window > 0) ok = ok && qpos - kj < p.window;
+        }
+        s[r][j] = ok ? s[r][j] * p.scale : NEG_INF;
+        valid |= static_cast<unsigned>(ok) << j;
+        mx = fmaxf(mx, s[r][j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[r], mx);
+      const float corr = __expf(m[r] - m_new);
+      m[r] = m_new;
+      float ls = l[r] * corr;
+#pragma unroll
+      for (int g = 0; g < CG; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[r][g][e] *= corr;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float pr = (valid >> j) & 1u ? __expf(s[r][j] - m_new) : 0.f;  // re-masked
+        ls += pr;
+        sp[row * LDP + tx + 8 * j] = pr;
+      }
+      l[r] = ls;
+    }
+    __syncwarp();
+
+    // O += P V on the lane's RPT x (4 CG) micro-tile: columns 4 tx + 32 g
+#pragma unroll 2
+    for (int c = 0; c < BK; c += 4) {
+      float4 pv[RPT];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        pv[r] = *reinterpret_cast<const float4*>(sp + (row0 + 4 * r) * LDP + c);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+        for (int g = 0; g < CG; ++g) {
+          const float4 vv = *reinterpret_cast<const float4*>(V + (c + cc) * LD + 4 * tx + 32 * g);
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) {
+            const float pr = cc == 0 ? pv[r].x : cc == 1 ? pv[r].y : cc == 2 ? pv[r].z : pv[r].w;
+            o[r][g][0] = fmaf(pr, vv.x, o[r][g][0]);
+            o[r][g][1] = fmaf(pr, vv.y, o[r][g][1]);
+            o[r][g][2] = fmaf(pr, vv.z, o[r][g][2]);
+            o[r][g][3] = fmaf(pr, vv.w, o[r][g][3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait_all();                  // nothing left in flight at exit
+
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    float ls = l[r];
+    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+    ls += __shfl_xor_sync(0xffffffffu, ls, 4);
+    const float den = fmaxf(ls, 1e-30f);
+    const int qi = q0 + row0 + 4 * r;
+    if (qi >= p.Sq) continue;
+    float* orow = p.o + ((static_cast<long long>(b) * p.Sq + qi) * p.H + h) * p.Dv;
+#pragma unroll
+    for (int g = 0; g < CG; ++g) {
+      const int col = 4 * tx + 32 * g;
+      if (vec && col + 3 < p.Dv) {
+        *reinterpret_cast<float4*>(orow + col) = make_float4(
+            o[r][g][0] / den, o[r][g][1] / den, o[r][g][2] / den, o[r][g][3] / den);
       } else {
-        const int qpos = p.q_offset + qi;
-        if (p.causal) valid = valid && kj <= qpos;
-        if (p.window > 0) valid = valid && qpos - kj < p.window;
-      }
-      const float sm = valid ? s : NEG_INF;
-      const float m_prev = s_m[r];
-      const float m_new = fmaxf(m_prev, warp_max(sm));
-      const float pr = valid ? expf(sm - m_new) : 0.f;  // re-masked after the exp
-      const float psum = warp_sum(pr);
-      sp[r][lane] = pr;
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        s_l[r] = s_l[r] * corr + psum;
-        s_m[r] = m_new;
-        s_corr[r] = corr;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < p.Dv) orow[col + e] = o[r][g][e] / den;
       }
     }
-    __syncthreads();
-
-    // acc = acc * corr + p @ v; thread t owns elements t, t+128, ... of
-    // the (BQ, DP) accumulator
-#pragma unroll
-    for (int i = 0; i < ACC; ++i) {
-      const int e = tid + i * THREADS, r = e / DP, d = e % DP;
-      float a = acc[i] * s_corr[r];
-#pragma unroll 8
-      for (int c = 0; c < BK; ++c) a += sp[r][c] * sv[c][d];
-      acc[i] = a;
-    }
   }
-  __syncthreads();
+}
 
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) {
-    const int e = tid + i * THREADS, r = e / DP, d = e % DP, qi = q0 + r;
-    if (qi < p.Sq && d < p.Dv)
-      p.o[((static_cast<long long>(b) * p.Sq + qi) * p.H + h) * p.Dv + d] =
-          acc[i] / fmaxf(s_l[r], 1e-30f);
+template <int DP, int RPT, int NW>
+int launch(const Params& p, cudaStream_t s) {
+  constexpr int BQ = NW * 4 * RPT;
+  constexpr int bytes = smem_bytes<DP, RPT, NW>();
+  static_assert(bytes <= 232448, "shared memory of one block");
+  static bool configured = false;       // the attribute is set once per variant
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<DP, RPT, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
   }
+  const dim3 grid(p.B * p.H, (p.Sq + BQ - 1) / BQ);
+  flash_fwd_kernel<DP, RPT, NW><<<grid, 32 * NW, bytes, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the tile plans of kernels/flash_attention.py::plan_tiles: 16 and 64
+// query rows on 4 warps, 128 on 8 (not at DP = 128: its tiles would need
+// more shared memory than a block has)
+template <int DP>
+int launch_rows(const Params& p, int block_q, cudaStream_t s) {
+  switch (block_q) {
+    case 16: return launch<DP, 1, 4>(p, s);
+    case 64: return launch<DP, 4, 4>(p, s);
+    case 128:
+      if constexpr (DP < 128) return launch<DP, 4, 8>(p, s);
+      return static_cast<int>(cudaErrorInvalidValue);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
 }
 
 }  // namespace
@@ -201,7 +376,7 @@ extern "C" int repro_flash_attention_fwd(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long seg_sb, float scale, int causal, int window, int q_offset,
-    void* stream) {
+    int block_q, int head_pad, void* stream) {
   Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -215,13 +390,19 @@ extern "C" int repro_flash_attention_fwd(
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.seg_sb = seg_sb;
   p.scale = scale; p.causal = causal; p.window = window; p.q_offset = q_offset;
-
-  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+  // 16-byte copies need every row of q, k and v on a 16-byte boundary:
+  // aligned bases, strides and widths in multiples of 4 floats
+  bool vec = D % 4 == 0 && Dv % 4 == 0 && aligned16(q) && aligned16(k) &&
+             aligned16(v) && aligned16(o);
+  for (long long st : {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh})
+    vec = vec && st % 4 == 0;
+  p.vec = vec;
+  if (D > head_pad || Dv > head_pad) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int dp = D > Dv ? D : Dv;
-  if (dp <= 32) flash_fwd_kernel<32><<<grid, THREADS, 0, s>>>(p);
-  else if (dp <= 64) flash_fwd_kernel<64><<<grid, THREADS, 0, s>>>(p);
-  else if (dp <= 128) flash_fwd_kernel<128><<<grid, THREADS, 0, s>>>(p);
-  else return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  switch (head_pad) {
+    case 32: return launch_rows<32>(p, block_q, s);
+    case 64: return launch_rows<64>(p, block_q, s);
+    case 128: return launch_rows<128>(p, block_q, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

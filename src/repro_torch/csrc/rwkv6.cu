@@ -9,40 +9,58 @@
 // for t = 0 .. S-1; returns every y_t and the final state.
 //
 // What bounds it on this card. RWKV6-1.6B's prefill of a 520-token prompt
-// (B=1, H=32, n=64) reads r, k, v and w (17 MB) and writes y (4.3 MB),
-// plus the state in and out (2 x 0.5 MB), about 22 MB or ~6.6 us of HBM
-// time at the H100 SXM's 3.35 TB/s (700 W limit); it does about 6 n^2
-// float32 operations per (step, head), ~0.4 GFLOP or ~6 us at 67 TFLOP/s.
-// Both are a few microseconds. What actually bounds this kernel is the
-// recurrence: S steps one after the other, each a few hundred cycles.
+// (B=1, H=32, n=64) moves about 22 MB (r, k, v, w in, y out, the state in
+// and out): 6.7 us of HBM time at the H100 SXM's 3.35 TB/s (700 W limit),
+// and its 5 n^2 float32 operations per (step, head) take about as long at
+// 67 TFLOP/s. A decode step (S=1) moves 1 MB: 0.3 us. What bounds a
+// step-by-step kernel is neither: it is the chain of S dependent steps,
+// and with one block per (batch, head) only B*H = 32 SMs of 132 work.
 //
-// What the design does about that. One block per (batch, head) keeps the
-// whole (n, n) state on chip for the whole sequence: thread j holds
-// column j of S in registers (n floats), so the state never touches
-// device memory between steps and is read and written once per call.
-// The inputs are staged through shared memory 16 steps at a time with
-// cp.async, double buffered: while the block runs the recurrence over
-// one chunk, the next chunk's r, k, w and v rows are already in flight,
-// and the 16 steps of a chunk run with no barrier and no global load.
-// Each step reads (r_i, k_i, w_i, u_i) as one broadcast float4 per i and
-// sums y_j over i in four partial sums, so its dependency chain is a
-// quarter of n long. Any S >= 1 runs with no padding (the Pallas w=1/k=0
-// padding is a TPU blocking device). Only B*H blocks run (32 at full
-// width, for 132 SMs); a chunked form that spreads the sequence itself
-// over more of the card is later work. n <= 64; the host refuses more.
+// What the design does about that.
+// - Split over value columns. Column j of S depends only on v[:, j], so
+//   the grid is B * H * ceil(n / 16) blocks (128 at full width), each
+//   owning a 64 x 16 slice of the state for the whole sequence, in
+//   registers (8 elements a lane) and mirrored in shared memory.
+// - Chunk the time axis (rwkv6_chunk_kernel). The sequence runs in chunks
+//   of L = 16 steps (kernels/rwkv6.py::plan_chunks). With
+//   a_t = prod_{tau<t} w_tau (decay from the chunk's start) and
+//   b_s = prod_{s<tau<L} w_tau (decay to its end), a chunk is a few small
+//   products and no per-step chain:
+//     A[t,s] = sum_i r_t[i] k_s[i] prod_{s<tau<t} w_tau[i]   (s < t)
+//     y_t    = (r_t * a_t) S + (sum_i r_t[i] u[i] k_t[i]) v_t
+//              + sum_{s<t} A[t,s] v_s
+//     S     <- diag(a_L) S + sum_s (k_s * b_s)^T v_s
+//   The sequential chain shrinks from S steps to ceil(S / L) chunks.
+// - Decay products are running products, never differences of log
+//   cumsums: w = exp(-exp(.)) can be exactly 0 or 1 in float32, where a
+//   log gives -inf and -inf - -inf is NaN. Products give exact zeros.
+// - Every phase is a latency chain of shared-memory reads on a single
+//   block per SM, so the block's 16 warps take roles and overlap two
+//   chunks: while 8 warps form chunk c+1's products (A, the decays), 8
+//   warps finish chunk c (y, and the state). Four of the first eight also
+//   copy chunk c+3's r, k, w and v rows in by cp.async 16-byte copies
+//   (element by element when n is not a multiple of 4), so a chunk's
+//   inputs have two iterations to land. One barrier a chunk.
+// - A decode step (S=1) takes rwkv6_step_kernel on the same grid: every
+//   lane reads its inputs and state straight from device memory, all in
+//   flight at once, and the step is a handful of FMAs and a sum over the
+//   rows by shuffles, with no chunk phases to wait for. One launch per
+//   call either way.
 //
 // C interface (bound with ctypes): pointers as void*, sizes as int, the
 // CUDA stream last; returns cudaGetLastError() as an int. r, k, v, w and
 // y are contiguous (B, S, H, n); u is (H, n); s0 (or null) and the final
-// state are contiguous (B, H, n, n).
+// state are contiguous (B, H, n, n). n <= 64.
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int NMAX = 64;                // head dim limit; also the block size
-constexpr int TC = 16;                  // steps per staged chunk
+constexpr int NMAX = 64;                // head dim limit: rows of a slice
+constexpr int CW = 16;                  // state columns a block owns
+constexpr int THREADS = 512;            // 16 warps in five roles (below)
+constexpr int RS = NMAX + 4;            // padded row stride of r, k, w and their products
 
 struct Params {
   const float* r;
@@ -54,83 +72,449 @@ struct Params {
   float* y;
   float* sf;
   int B, S, H, n;
+  int vec;                              // rows on 16-byte boundaries (n % 4 == 0)
 };
 
-__global__ void __launch_bounds__(NMAX) rwkv6_scan_kernel(const Params p) {
-  __shared__ float4 sx[2][TC][NMAX];    // (r, k, w, u) of each step and lane i
-  __shared__ float sv[2][TC][NMAX];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(in ? 16 : 0));
+}
 
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int j = threadIdx.x, n = p.n;
-  const bool act = j < n;
-  const long long nn = static_cast<long long>(n) * n;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(in ? 4 : 0));
+}
 
-  float s[NMAX];                        // column j of the state: s[i] = S[i][j]
-#pragma unroll
-  for (int i = 0; i < NMAX; ++i)
-    s[i] = (act && i < n && p.s0) ? p.s0[bh * nn + i * n + j] : 0.f;
-  if (act) {
-    const float uj = p.u[h * n + j];
-    for (int c = 0; c < 2; ++c)
-      for (int tt = 0; tt < TC; ++tt) sx[c][tt][j].w = uj;
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  // element (b, t, h, j) of a contiguous (B, S, H, n) array
-  const long long row = static_cast<long long>(p.H) * n;
-  const long long base = static_cast<long long>(b) * p.S * row + h * n + j;
-  const int chunks = (p.S + TC - 1) / TC;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-  // lane j copies element j of each step of chunk c into buffer c & 1
-  auto stage = [&](int c) {
-    const int buf = c & 1;
-    for (int tt = 0; tt < TC && c * TC + tt < p.S; ++tt) {
-      if (!act) break;
-      const long long o = base + (c * TC + tt) * row;
-      __pipeline_memcpy_async(&sx[buf][tt][j].x, p.r + o, sizeof(float));
-      __pipeline_memcpy_async(&sx[buf][tt][j].y, p.k + o, sizeof(float));
-      __pipeline_memcpy_async(&sx[buf][tt][j].z, p.w + o, sizeof(float));
-      __pipeline_memcpy_async(&sv[buf][tt][j], p.v + o, sizeof(float));
+// rows x PAD floats into dst (row stride ld) from src (row stride ss), by
+// lanes lane = 0 .. nlanes-1: rows at or past nvalid and columns at or
+// past width are zero-filled
+template <int PAD>
+__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
+                                      long long ss, int rows, int nvalid,
+                                      int width, bool vec, int lane, int nlanes) {
+  if (vec) {
+    constexpr int C = PAD / 4;
+    for (int e = lane; e < rows * C; e += nlanes) {
+      const int t = e / C, c = e % C;
+      const bool in = t < nvalid && 4 * c < width;
+      cp_async16(dst + t * ld + 4 * c, in ? src + t * ss + 4 * c : src, in);
     }
-    __pipeline_commit();
+  } else {
+    for (int e = lane; e < rows * PAD; e += nlanes) {
+      const int t = e / PAD, c = e % PAD;
+      const bool in = t < nvalid && c < width;
+      cp_async4(dst + t * ld + c, in ? src + t * ss + c : src, in);
+    }
+  }
+}
+
+// Roles of the block's 16 warps. Within iteration c of the chunk loop
+// the producers prepare chunk c+1 while the consumers finish chunk c:
+constexpr int A_LANES = 128;            // warps 0-3: A of chunk c+1
+constexpr int PRE0 = 128;               // warps 4-5: a_t, r*a, r*u*k of chunk c+1
+constexpr int SUF0 = 192;               // warps 6-7: b_s, k*b of chunk c+1; warps 4-7
+                                        //   also copy in chunk c+3
+constexpr int Y0 = 256;                 // warps 8-11: y of chunk c
+constexpr int ST0 = 384;                // warps 12-15: the state through chunk c
+constexpr int L = 16;                   // steps a chunk
+constexpr int STAGES = 4;               // input buffers: chunks c .. c+3
+
+// N (2 or 4) contiguous floats from shared memory in one load
+template <int N>
+__device__ __forceinline__ void lds(float (&out)[N], const float* src) {
+  static_assert(N == 2 || N == 4, "a float2 or a float4");
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(src);
+    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(src);
+    out[0] = x.x; out[1] = x.y;
+  }
+}
+
+__host__ __device__ constexpr int in_floats() { return 3 * L * RS + L * CW; }   // r, k, w, v of a chunk
+
+__host__ __device__ constexpr int prod_floats() { return 3 * L * RS + L * (L + 1) + NMAX; }   // r*a, k*b, r*u*k, A, a_L
+
+constexpr int smem_bytes() {
+  return 4 * (STAGES * in_floats()    // inputs
+              + 2 * prod_floats()     // a chunk's products, two buffers
+              + 2 * NMAX * CW);          // the state slice, two buffers
+}
+
+__global__ void __launch_bounds__(THREADS) rwkv6_chunk_kernel(const Params p) {
+  constexpr int G = L / 2;               // pairs (s, L-1-s) of the A phase
+  constexpr int IG = A_LANES / G;        // lanes that share one pair's sum over i
+  constexpr int IPT = NMAX / IG;         // i a lane sums over
+  constexpr int JPT = L / 8;             // y columns a lane computes
+  constexpr int TPR = CW / JPT;          // lanes on one y row
+  constexpr int AS = L + 1;              // row stride of A
+  constexpr int VW = 4;                  // floats a lane loads at once in the A phase
+  static_assert(IG <= 32 && IG >= L - 1 && IPT % VW == 0 && JPT == 2, "tile plan");
+
+  extern __shared__ float4 smem4[];
+  float* in = reinterpret_cast<float*>(smem4);
+  float* prod = in + STAGES * in_floats();
+  float* St = prod + 2 * prod_floats();
+
+  const int ncb = (p.n + CW - 1) / CW;
+  const int bh = blockIdx.x / ncb, cb = blockIdx.x % ncb;
+  const int b = bh / p.H, h = bh % p.H, j0 = cb * CW;
+  const int tid = threadIdx.x, n = p.n;
+  const bool vec = p.vec;
+  const long long row = static_cast<long long>(p.H) * n;       // stride of t
+  const long long base = static_cast<long long>(b) * p.S * row + h * n;
+  const int chunks = (p.S + L - 1) / L;
+  auto steps_of = [&](int c) { return min(L, p.S - c * L); };
+
+  auto stage_chunk = [&](int c, int lane, int nlanes) {
+    float* R = in + (c % STAGES) * in_floats();
+    const long long o = base + static_cast<long long>(c) * L * row;
+    const int nv = steps_of(c);
+    stage<NMAX>(R, RS, p.r + o, row, L, nv, n, vec, lane, nlanes);
+    stage<NMAX>(R + L * RS, RS, p.k + o, row, L, nv, n, vec, lane, nlanes);
+    stage<NMAX>(R + 2 * L * RS, RS, p.w + o, row, L, nv, n, vec, lane, nlanes);
+    stage<CW>(R + 3 * L * RS, CW, p.v + o + j0, row, L, nv, min(CW, n - j0), vec,
+              lane, nlanes);
+    cp_async_commit();
   };
 
-  stage(0);
-  for (int c = 0; c < chunks; ++c) {
-    const int buf = c & 1;
-    if (c + 1 < chunks) {
-      stage(c + 1);                     // in flight while chunk c runs
-      __pipeline_wait_prior(1);         // chunk c has landed
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();                    // ... for every lane
-    const int steps = min(TC, p.S - c * TC);
-    for (int tt = 0; tt < steps; ++tt) {
-      if (!act) break;
-      const float vj = sv[buf][tt][j];
-      float y0 = 0.f, y1 = 0.f, y2 = 0.f, y3 = 0.f;
+  // The producers: the products of chunk c from its inputs, into buffer c & 1
+  auto produce = [&](int c) {
+    const int steps = steps_of(c);
+    const float* R = in + (c % STAGES) * in_floats();
+    const float* K = R + L * RS;
+    const float* W = K + L * RS;
+    float* P = prod + (c & 1) * prod_floats();
+    float* ra = P;
+    float* kb = ra + L * RS;
+    float* ruk = kb + L * RS;
+    float* A = ruk + L * RS;
+    float* aL = A + L * AS;
+    if (tid < A_LANES) {
+      // A below the diagonal: pair sp takes s = sp for t = sp+1 .. L-1,
+      // then s = L-1-sp for t = L-sp .. L-1: L - 1 entries for every
+      // lane, with no branch. kp = k_s * prod_{s<tau<t} w_tau starts as
+      // k_s at each s. The partial sums over this lane's i are summed over
+      // the i-group after the loop, so the shuffles run converged. A
+      // decode step (one step a chunk) has no such entry.
+      if (steps < 2) return;
+      const int ig = tid % IG, sp = tid / IG;
+      float part[L - 1];
+      float kp[IPT];
 #pragma unroll
-      for (int i = 0; i < NMAX; ++i) {
-        if (i < n) {
-          const float4 x = sx[buf][tt][i];      // r_i, k_i, w_i, u_i
-          const float kv = x.y * vj;
-          const float term = x.x * (s[i] + x.w * kv);
-          if (i % 4 == 0) y0 += term;
-          else if (i % 4 == 1) y1 += term;
-          else if (i % 4 == 2) y2 += term;
-          else y3 += term;
-          s[i] = x.z * s[i] + kv;
+      for (int e = 0; e < L - 1; ++e) {
+        const bool first = e < L - 1 - sp;
+        const int s = first ? sp : L - 1 - sp;
+        const int t = first ? sp + 1 + e : e + 1;
+        const bool fresh = e == 0 || e == L - 1 - sp;
+        float acc = 0.f;
+#pragma unroll
+        for (int q = 0; q < IPT; q += VW) {
+          if (fresh) {
+            float kx[VW];
+            lds(kx, K + s * RS + ig * IPT + q);
+#pragma unroll
+            for (int x = 0; x < VW; ++x) kp[q + x] = kx[x];
+          }
+          float rx[VW], wx[VW];
+          lds(rx, R + t * RS + ig * IPT + q);
+          lds(wx, W + t * RS + ig * IPT + q);
+#pragma unroll
+          for (int x = 0; x < VW; ++x) {
+            acc = fmaf(rx[x], kp[q + x], acc);
+            kp[q + x] *= wx[x];
+          }
+        }
+        part[e] = acc;
+      }
+      // sum over the i-group as a reduce-scatter: at each level a lane
+      // keeps half of its entries and adds its partner's half, so lane ig
+      // ends with the whole sum of entry ig (IG - 1 shuffles in all)
+      float red[IG];
+#pragma unroll
+      for (int e = 0; e < IG; ++e) red[e] = e < L - 1 ? part[e] : 0.f;
+#pragma unroll
+      for (int off = IG / 2; off > 0; off >>= 1) {
+        const bool hi = ig & off;
+#pragma unroll
+        for (int k = 0; k < off; ++k) {
+          const float send = hi ? red[k] : red[k + off];
+          const float keep = hi ? red[k + off] : red[k];
+          red[k] = keep + __shfl_xor_sync(0xffffffffu, send, off);
         }
       }
-      p.y[base + (c * TC + tt) * row] = (y0 + y1) + (y2 + y3);
-    }
-    __syncthreads();                    // buffer buf is free for chunk c + 2
-  }
-  if (act) {
+      const int e = ig;
+      const bool first = e < L - 1 - sp;
+      const int s = first ? sp : L - 1 - sp;
+      const int t = first ? sp + 1 + e : e + 1;
+      if (e < L - 1 && t < steps) A[t * AS + s] = red[0];
+    } else if (tid < SUF0) {
+      // a_t forward along i, with r_t a_t and r_t u k_t; every load comes
+      // before the first store, so none waits behind one
+      const int i = tid - PRE0;
+      const float ui = i < n ? p.u[h * n + i] : 0.f;
+      float rv[L], kv[L], wv[L];
 #pragma unroll
-    for (int i = 0; i < NMAX; ++i)
-      if (i < n) p.sf[bh * nn + i * n + j] = s[i];
+      for (int t = 0; t < L; ++t) {
+        rv[t] = R[t * RS + i];
+        kv[t] = K[t * RS + i];
+        wv[t] = t < steps ? W[t * RS + i] : 1.f;
+      }
+      float a = 1.f;
+#pragma unroll
+      for (int t = 0; t < L; ++t) {
+        ra[t * RS + i] = rv[t] * a;
+        ruk[t * RS + i] = rv[t] * ui * kv[t];
+        a *= wv[t];
+      }
+      aL[i] = a;
+    } else {
+      // b_s backward along i, with k_s b_s
+      const int i = tid - SUF0;
+      float kv[L], wv[L];
+#pragma unroll
+      for (int t = 0; t < L; ++t) {
+        kv[t] = K[t * RS + i];
+        wv[t] = t < steps ? W[t * RS + i] : 1.f;
+      }
+      float bb = 1.f;
+#pragma unroll
+      for (int t = L - 1; t >= 0; --t) {
+        kb[t * RS + i] = kv[t] * bb;
+        bb *= wv[t];
+      }
+    }
+  };
+
+  // the state lanes: row si, columns sj .. sj + 7 of the slice
+  const int sl = tid - ST0;
+  const int si = sl >> 1, sj = (sl & 1) * 8;
+  const long long sbase = static_cast<long long>(bh) * n * n + static_cast<long long>(si) * n + j0 + sj;
+  float st[8];
+  if (tid >= ST0) {
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const bool ok = p.s0 && si < n && j0 + sj + jj < n;
+      st[jj] = ok ? p.s0[sbase + jj] : 0.f;
+      St[si * CW + sj + jj] = st[jj];
+    }
   }
+  // the copying lanes: warps 4-7, which each copy a chunk's inputs two
+  // iterations ahead of its products
+  const bool copier = tid >= PRE0 && tid < Y0;
+  auto copy_ahead = [&](int c) {
+    if (c < chunks) stage_chunk(c, tid - PRE0, Y0 - PRE0);
+    else cp_async_commit();             // an empty group keeps the count
+  };
+  stage_chunk(0, tid, THREADS);
+  if (chunks > 1) stage_chunk(1, tid, THREADS);
+  cp_async_wait_all();
+  __syncthreads();                      // chunks 0 and 1 and the state mirror are in
+  if (copier) copy_ahead(2);
+  if (tid < Y0) produce(0);
+  __syncthreads();                      // chunk 0's products are in
+
+  for (int c = 0; c < chunks; ++c) {
+    if (tid < Y0) {
+      if (copier) copy_ahead(c + 3);    // into the buffer of chunk c - 1
+      if (c + 1 < chunks) produce(c + 1);
+      if (copier)                       // chunk c + 2, copied since the last
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");   // iteration, has landed
+    } else {
+      const int steps = steps_of(c);
+      const float* V = in + (c % STAGES) * in_floats() + 3 * L * RS;
+      const float* P = prod + (c & 1) * prod_floats();
+      const float* ra = P;
+      const float* kb = ra + L * RS;
+      const float* ruk = kb + L * RS;
+      const float* A = ruk + L * RS;
+      const float* aL = A + L * AS;
+      const float* Sc = St + (c & 1) * NMAX * CW;
+      if (tid < ST0) {
+        // y_t = (r_t a_t) S + (sum_i r_t u k_t) v_t + sum_{s<t} A[t,s] v_s
+        // from the state mirror before chunk c
+        const int yl = tid - Y0;
+        const int yt = yl / TPR, yj = (yl % TPR) * JPT;
+        // the row's TPR lanes each sum 64 / TPR of r_t u k_t, then share
+        // the sum by shuffles (every lane, so they run converged)
+        float dg = 0.f;
+#pragma unroll
+        for (int i = 0; i < NMAX / TPR; i += 4) {
+          const float4 d = *reinterpret_cast<const float4*>(
+              ruk + yt * RS + (yl % TPR) * (NMAX / TPR) + i);
+          dg += (d.x + d.y) + (d.z + d.w);
+        }
+#pragma unroll
+        for (int off = TPR / 2; off > 0; off >>= 1)
+          dg += __shfl_xor_sync(0xffffffffu, dg, off);
+        if (yt < steps) {
+          float acc[4][JPT];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int jj = 0; jj < JPT; ++jj) acc[q][jj] = 0.f;
+#pragma unroll
+          for (int i = 0; i < NMAX; i += 4) {
+            const float4 x = *reinterpret_cast<const float4*>(ra + yt * RS + i);
+            const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              float sv[JPT];
+              lds(sv, Sc + (i + q) * CW + yj);
+#pragma unroll
+              for (int jj = 0; jj < JPT; ++jj) acc[q][jj] = fmaf(xs[q], sv[jj], acc[q][jj]);
+            }
+          }
+#pragma unroll
+          for (int jj = 0; jj < JPT; ++jj)
+            acc[0][jj] = fmaf(dg, V[yt * CW + yj + jj], acc[0][jj]);
+#pragma unroll
+          for (int s = 0; s < L - 1; ++s) {
+            if (s < yt) {
+              const float a = A[yt * AS + s];
+#pragma unroll
+              for (int jj = 0; jj < JPT; ++jj)
+                acc[(s + 1) & 3][jj] = fmaf(a, V[s * CW + yj + jj], acc[(s + 1) & 3][jj]);
+            }
+          }
+          float* yrow = p.y + base + static_cast<long long>(c * L + yt) * row + j0 + yj;
+#pragma unroll
+          for (int jj = 0; jj < JPT; ++jj)
+            if (j0 + yj + jj < n) yrow[jj] = (acc[0][jj] + acc[1][jj]) + (acc[2][jj] + acc[3][jj]);
+        }
+      } else {
+        // S <- diag(a_L) S + sum_s (k_s b_s)^T v_s, into the other mirror
+        const float a = aL[si];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) st[jj] *= a;
+#pragma unroll
+        for (int s = 0; s < L; ++s) {
+          if (s < steps) {
+            const float x = kb[s * RS + si];
+            const float4 v0 = *reinterpret_cast<const float4*>(V + s * CW + sj);
+            const float4 v1 = *reinterpret_cast<const float4*>(V + s * CW + sj + 4);
+            st[0] = fmaf(x, v0.x, st[0]); st[1] = fmaf(x, v0.y, st[1]);
+            st[2] = fmaf(x, v0.z, st[2]); st[3] = fmaf(x, v0.w, st[3]);
+            st[4] = fmaf(x, v1.x, st[4]); st[5] = fmaf(x, v1.y, st[5]);
+            st[6] = fmaf(x, v1.z, st[6]); st[7] = fmaf(x, v1.w, st[7]);
+          }
+        }
+        float* Sn = St + ((c + 1) & 1) * NMAX * CW + si * CW + sj;
+        *reinterpret_cast<float4*>(Sn) = make_float4(st[0], st[1], st[2], st[3]);
+        *reinterpret_cast<float4*>(Sn + 4) = make_float4(st[4], st[5], st[6], st[7]);
+      }
+    }
+    __syncthreads();                    // chunk c+1's products, chunk c+2's inputs,
+                                        // the state after chunk c are in
+  }
+  cp_async_wait_all();                  // nothing left in flight at exit
+  if (tid >= ST0 && si < n) {
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+      if (j0 + sj + jj < n) p.sf[sbase + jj] = st[jj];
+  }
+}
+
+// One step at a time, on the same grid: lane (si, sj) holds S[si][j0+sj ..
+// j0+sj+7] in registers; each step reads r, k, w of row si and v of the
+// lane's 8 columns straight from device memory (a decode step's inputs
+// and state slice all in flight at once), updates the 8 elements, and sums
+// the lane's share of y_t over the 64 rows: shuffles within a warp, then
+// shared memory across the 4 warps. The plan takes it for a decode step
+// (S=1), where the chunked kernel's phases and barriers would be the
+// whole cost.
+constexpr int STEP_THREADS = 2 * NMAX;  // two lanes per state row
+
+__global__ void __launch_bounds__(STEP_THREADS) rwkv6_step_kernel(const Params p) {
+  __shared__ float ypart[STEP_THREADS / 32][CW];
+  const int ncb = (p.n + CW - 1) / CW;
+  const int bh = blockIdx.x / ncb, cb = blockIdx.x % ncb;
+  const int b = bh / p.H, h = bh % p.H, j0 = cb * CW;
+  const int tid = threadIdx.x, n = p.n, lane = tid & 31, warp = tid >> 5;
+  const int si = tid >> 1, sj = (tid & 1) * 8;
+  const bool row_ok = si < n;
+  const long long row = static_cast<long long>(p.H) * n;
+  const long long base = static_cast<long long>(b) * p.S * row + h * n;
+  const long long sbase = static_cast<long long>(bh) * n * n + static_cast<long long>(si) * n + j0 + sj;
+  bool col_ok[8];
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) col_ok[jj] = row_ok && j0 + sj + jj < n;
+
+  float st[8];
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) st[jj] = (p.s0 && col_ok[jj]) ? p.s0[sbase + jj] : 0.f;
+  const float ui = row_ok ? p.u[h * n + si] : 0.f;
+
+  for (int t = 0; t < p.S; ++t) {
+    const long long o = base + static_cast<long long>(t) * row;
+    const float ri = row_ok ? p.r[o + si] : 0.f;
+    const float ki = row_ok ? p.k[o + si] : 0.f;
+    const float wi = row_ok ? p.w[o + si] : 0.f;
+    float part[8];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = j0 + sj + jj;
+      const float vj = j < n ? p.v[o + j] : 0.f;
+      const float kv = ki * vj;
+      part[jj] = ri * fmaf(ui, kv, st[jj]);
+      st[jj] = fmaf(wi, st[jj], kv);
+    }
+    // sum over the rows: lanes of one parity hold the same 8 columns
+#pragma unroll
+    for (int off = 2; off < 32; off <<= 1)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        part[jj] += __shfl_xor_sync(0xffffffffu, part[jj], off);
+    if (lane < 2)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) ypart[warp][sj + jj] = part[jj];
+    __syncthreads();
+    if (tid < CW && j0 + tid < n) {
+      float y = 0.f;
+#pragma unroll
+      for (int w = 0; w < STEP_THREADS / 32; ++w) y += ypart[w][tid];
+      p.y[o + j0 + tid] = y;
+    }
+    __syncthreads();                    // ypart is free for the next step
+  }
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+    if (col_ok[jj]) p.sf[sbase + jj] = st[jj];
+}
+
+int launch_steps(const Params& p, cudaStream_t s) {
+  const int ncb = (p.n + CW - 1) / CW;
+  rwkv6_step_kernel<<<p.B * p.H * ncb, STEP_THREADS, 0, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_chunks(const Params& p, cudaStream_t s) {
+  constexpr int bytes = smem_bytes();
+  static bool configured = false;       // the attribute is set once
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rwkv6_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const int ncb = (p.n + CW - 1) / CW;
+  rwkv6_chunk_kernel<<<p.B * p.H * ncb, THREADS, bytes, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
 }
 
 }  // namespace
@@ -138,7 +522,7 @@ __global__ void __launch_bounds__(NMAX) rwkv6_scan_kernel(const Params p) {
 extern "C" int repro_rwkv6_scan(
     const void* r, const void* k, const void* v, const void* w,
     const void* u, const void* s0, void* y, void* sf,
-    int B, int S, int H, int n, void* stream) {
+    int B, int S, int H, int n, int chunk, void* stream) {
   if (n < 1 || n > NMAX || S < 1) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.r = static_cast<const float*>(r);
@@ -150,6 +534,11 @@ extern "C" int repro_rwkv6_scan(
   p.y = static_cast<float*>(y);
   p.sf = static_cast<float*>(sf);
   p.B = B; p.S = S; p.H = H; p.n = n;
-  rwkv6_scan_kernel<<<B * H, NMAX, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  p.vec = n % 4 == 0 && aligned16(r) && aligned16(k) && aligned16(v) && aligned16(w);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (chunk) {
+    case 1: return launch_steps(p, s);
+    case L: return launch_chunks(p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

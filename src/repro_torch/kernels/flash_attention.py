@@ -20,8 +20,36 @@ import math
 
 import torch
 
+from . import build
+
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
+# csrc/flash_attention.cu: query rows a block can take (16 or 64 on 4
+# warps of 1 or 4 rows a lane; 128 on 8 warps of 4, below head dim 128)
+# and the head-dim paddings it compiles
+BLOCK_Q = (16, 64, 128)
+HEAD_PADS = (32, 64, 128)
+SMALL_GRID_WAVES = 4
+
+
+def plan_tiles(B, Sq, Sk, H, D):
+    """``(block_q, head_pad)`` for the CUDA kernel: the head dim padded to
+    the next of ``HEAD_PADS``, and the query rows a block. While a grid of
+    16-row blocks is at most ``SMALL_GRID_WAVES`` waves of the card (the
+    per-event encodes, the packed ragged buffer), 16 rows: the most
+    blocks, each with the shortest chain. Above that, the largest block
+    that Sq fills, so each staged K/V tile serves the most queries: 128
+    rows on 8 warps (head dims up to 64), else 64. Sk does not enter:
+    every plan walks the keys in 64-key tiles."""
+    head_pad = next((p for p in HEAD_PADS if D <= p), None)
+    if head_pad is None:
+        raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}")
+    if B * H * -(-Sq // 16) <= SMALL_GRID_WAVES * build.SMS:
+        return 16, head_pad
+    for block_q in (128, 64):
+        if block_q <= Sq and (block_q < 128 or head_pad < 128):
+            return block_q, head_pad
+    return 16, head_pad
 
 
 def attention_mask(B, Sq, Sk, *, causal=False, window=0, kv_lengths=None,
@@ -68,16 +96,17 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None,
 def _kernel_fn():
     """The C entry point of csrc/flash_attention.cu, typed once (ctypes
     keeps one function object per library attribute)."""
-    from . import build
     fn = build.library("flash_attention").repro_flash_attention_fwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 6 + [i] * 7 + [ll] * 10 + [ctypes.c_float, i, i, i, p]
+        fn.argtypes = ([p] * 6 + [i] * 7 + [ll] * 10
+                       + [ctypes.c_float, i, i, i, i, i, p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k, v, *, causal, window, scale, kv_lengths, segment_ids):
+def _launch(q, k, v, *, causal, window, scale, kv_lengths, segment_ids,
+            block_q=None):
     B, Sq, H, D = q.shape
     _, Sk, KV, Dv = v.shape
     if not (q.dtype == k.dtype == v.dtype == torch.float32):
@@ -90,7 +119,11 @@ def _launch(q, k, v, *, causal, window, scale, kv_lengths, segment_ids):
         raise ValueError("q, k and v must be on one device")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v need a unit stride on the head dim")
-    if Sq > 65535 * 16:
+    planned, head_pad = plan_tiles(B, Sq, Sk, H, max(D, Dv))
+    block_q = block_q or planned           # another plan only to compare them
+    if block_q not in BLOCK_Q:
+        raise ValueError(f"block_q={block_q} not in {BLOCK_Q}")
+    if -(-Sq // block_q) > 65535:
         raise ValueError(f"Sq={Sq} exceeds the kernel's grid")
     out = torch.empty((B, Sq, H, Dv), dtype=torch.float32, device=q.device)
     lens = seg = None
@@ -116,7 +149,7 @@ def _launch(q, k, v, *, causal, window, scale, kv_lengths, segment_ids):
         v.stride(0), v.stride(1), v.stride(2),
         seg.stride(0) if seg is not None else 0,
         float(scale), int(causal), int(window), (Sk - Sq) if causal else 0,
-        stream)
+        block_q, head_pad, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

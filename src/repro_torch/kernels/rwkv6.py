@@ -13,9 +13,11 @@ starting from ``s0`` (zeros when absent). Returns ``(y, final_state)``,
 the kernel's order (``_wkv_scan`` returns ``(state, y)``).
 
 On a CUDA tensor it launches ``csrc/rwkv6.cu`` (float32, head dim
-n <= 64; built with ``nvcc`` for ``sm_90a`` at first use) or raises; on
-a CPU tensor it computes ``rwkv6_scan_plain``. Nothing falls back from
-one to the other. ``rwkv6_scan.launches`` counts kernel launches.
+n <= 64; built with ``nvcc`` for ``sm_90a`` at first use) once per call,
+split over the state's value columns and chunked over time as
+``plan_chunks`` says, or raises; on a CPU tensor it computes
+``rwkv6_scan_plain``. Nothing falls back from one to the other.
+``rwkv6_scan.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -24,6 +26,23 @@ import ctypes
 import torch
 
 MAX_HEAD_DIM = 64
+# csrc/rwkv6.cu: state columns a block owns, and the chunk lengths it
+# compiles (1: one step at a time)
+COLS_PER_BLOCK = 16
+CHUNKS = (1, 16)
+
+
+def plan_chunks(B, S, H, n):
+    """``(chunk, col_blocks)`` for the CUDA kernel: each (batch, head)
+    state is split over ``col_blocks`` blocks of ``COLS_PER_BLOCK`` value
+    columns, so the grid is ``B * H * col_blocks`` blocks, and the time
+    axis runs in chunks of ``chunk`` steps: 16 for a prompt, 1 (the step
+    kernel) for a decode step, where a chunk's phases would be the whole
+    cost."""
+    if not 1 <= n <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {n} outside 1..{MAX_HEAD_DIM}")
+    step, chunk = CHUNKS
+    return (step if S == 1 else chunk), -(-n // COLS_PER_BLOCK)
 
 
 def rwkv6_scan_plain(r, k, v, w, u, s0=None):
@@ -48,16 +67,16 @@ def _kernel_fn():
     fn = build.library("rwkv6").repro_rwkv6_scan
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 4 + [p]
+        fn.argtypes = [p] * 8 + [i] * 5 + [p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(r, k, v, w, u, s0):
+def _launch(r, k, v, w, u, s0, chunk=None):
     B, S, H, n = r.shape
     if n > MAX_HEAD_DIM:
         raise ValueError(f"head dim {n} > {MAX_HEAD_DIM}: the CUDA RWKV6 "
-                         "kernel holds one state column per thread")
+                         "kernel holds a 64-row state slice per block")
     if S < 1 or B * H == 0:
         raise ValueError(f"empty scan: B={B}, S={S}, H={H}")
     args = (r, k, v, w, u) + ((s0,) if s0 is not None else ())
@@ -69,13 +88,16 @@ def _launch(r, k, v, w, u, s0):
     if any(not a.is_contiguous() for a in args):
         raise ValueError("the CUDA RWKV6 kernel takes contiguous r/k/v/w "
                          "(B, S, H, n), u (H, n) and s0 (B, H, n, n)")
+    chunk = chunk or plan_chunks(B, S, H, n)[0]   # another only to compare them
+    if chunk not in CHUNKS:
+        raise ValueError(f"chunk={chunk} not in {CHUNKS}")
     y = torch.empty((B, S, H, n), dtype=torch.float32, device=r.device)
     sf = torch.empty((B, H, n, n), dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = _kernel_fn()(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         s0.data_ptr() if s0 is not None else None, y.data_ptr(),
-        sf.data_ptr(), B, S, H, n, stream)
+        sf.data_ptr(), B, S, H, n, chunk, stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error {err}")
     rwkv6_scan.launches += 1

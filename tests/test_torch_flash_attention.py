@@ -178,3 +178,66 @@ def test_kernel_matches_plain_on_card():
     assert FA.flash_attention.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-4
     assert float(got[2].abs().max()) == 0.0
+
+
+def test_kv_lengths_at_head_dim_64():
+    """BERT-base's head dim, a B=2, S=128 batch with one short row."""
+    q, k, v = _qkv(10, 2, 128, 128, 4, 4, 64)
+    lens = np.array([128, 37], np.int32)
+    want, got = _both(q, k, v, block=32, causal=False, kv_lengths=lens)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_segments_at_head_dim_64():
+    """The packed ragged layout at head dim 64: rows at 8-aligned offsets,
+    -1 gaps, an interior -1 and a ragged tail."""
+    S = 45
+    seg = np.full((1, S), -1, np.int32)
+    seg[0, 0:13], seg[0, 16:30], seg[0, 32:43] = 0, 1, 2
+    seg[0, 20] = -1
+    q, k, v = _qkv(11, 1, S, S, 2, 2, 64)
+    want, got = _both(q, k, v, causal=False, segment_ids=seg)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    assert np.abs(got[seg == -1]).max() == 0.0
+
+
+@pytest.mark.parametrize("shape, plan", [
+    ((1, 64, 64, 12, 26), (16, 32)),     # TinyBERT per event
+    ((1, 64, 64, 12, 64), (16, 64)),     # BERT-base per event
+    ((1, 64, 64, 4, 32), (16, 32)),      # MobileBERT per event
+    ((8, 128, 128, 12, 64), (128, 64)),  # BERT-base, B=8 S=128
+    ((64, 64, 64, 12, 26), (64, 32)),    # TinyBERT padded batch
+    ((1, 512, 512, 12, 26), (16, 32)),   # the S=512 segments buffer
+    ((8, 128, 128, 12, 128), (64, 128)),  # no 128-row tile at head dim 128
+    ((64, 32, 32, 12, 26), (16, 32)),    # short rows: no block S fills
+])
+def test_plan_tiles_at_path_shapes(shape, plan):
+    assert FA.plan_tiles(*shape) == plan
+    B, Sq, _, H, _ = shape
+    block_q, _ = plan
+    assert block_q in FA.BLOCK_Q
+    assert block_q <= Sq or block_q == min(FA.BLOCK_Q)
+    if B * H * -(-Sq // 16) <= FA.SMALL_GRID_WAVES * build.SMS:
+        assert block_q == 16
+
+
+def test_plan_tiles_and_launch_refuse_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="head dim 130"):
+        FA.plan_tiles(1, 8, 8, 2, 130)
+    q = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="block_q=32"):
+        FA._launch(q, q, q, causal=False, window=0, scale=1.0,
+                   kv_lengths=None, segment_ids=None, block_q=32)
+
+
+@pytest.mark.parametrize("source, replaces", [
+    ("flash_attention.cu", "repro/kernels/flash_attention.py::flash_attention"),
+    ("rwkv6.cu", "repro/kernels/rwkv6.py::rwkv6_scan"),
+])
+def test_source_note_names_kernel_bound_and_design(source, replaces):
+    """Each redesigned kernel's note says which TPU kernel it replaces,
+    what bounds it on the card and what its design does about that."""
+    note = (build.CSRC / source).read_text().split("#include")[0]
+    assert replaces in note
+    assert "What bounds it on this card" in note
+    assert "What the design does about that" in note

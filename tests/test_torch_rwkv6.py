@@ -38,6 +38,59 @@ def _inputs(seed, B, S, H, n, *, s0=False):
     return out
 
 
+def _decays(rng, shape, kind):
+    """w in (0.4, 0.9) ("range", the JAX test's); as the model draws them,
+    exp(-exp(w0 + lora)) with w0 = linspace(-6, -1) over the head dim and
+    lora ~ 0.5 N(0, 1) ("model"); or the range with a tenth exactly 0 and
+    a tenth exactly 1 ("edges")."""
+    w = 1.0 / (1.0 + np.exp(-rng.normal(size=shape))) * 0.5 + 0.4
+    if kind == "model":
+        w = np.exp(-np.exp(np.linspace(-6.0, -1.0, shape[-1])
+                           + 0.5 * rng.normal(size=shape)))
+    elif kind == "edges":
+        pick = rng.random(shape)
+        w = np.where(pick < 0.1, 0.0, np.where(pick > 0.9, 1.0, w))
+    return w.astype(np.float32)
+
+
+def _chunked_mirror(r, k, v, w, u, s0, *, chunk, cols):
+    """A torch mirror of csrc/rwkv6.cu's algebra: the state split into
+    ``cols``-column slices, each run on its own; time in chunks of
+    ``chunk`` steps, each chunk as products with no per-step chain:
+    A[t,s] = sum_i r_t k_s prod_{s<tau<t} w_tau (u on the diagonal),
+    y = (r * a) S + A V, S <- diag(a_L) S + (k * b)^T V, where a and b
+    are running products of w (never a log: w may be exactly 0)."""
+    B, S, H, n = r.shape
+    r, k, v, w = (x.permute(0, 2, 1, 3) for x in (r, k, v, w))  # (B,H,S,n)
+    state = (torch.zeros((B, H, n, n)) if s0 is None else s0).clone()
+    y = torch.zeros((B, H, S, n))
+    for j0 in range(0, n, cols):
+        St = state[..., j0:j0 + cols]
+        for c0 in range(0, S, chunk):
+            T = min(chunk, S - c0)
+            R, K, W = (x[:, :, c0:c0 + T] for x in (r, k, w))
+            V = v[:, :, c0:c0 + T, j0:j0 + cols]
+            a = [torch.ones((B, H, n))]
+            for t in range(T):
+                a.append(a[-1] * W[:, :, t])
+            b = [torch.ones((B, H, n))]
+            for s in range(T - 1, 0, -1):
+                b.insert(0, b[0] * W[:, :, s])
+            ra = R * torch.stack(a[:T], 2)
+            kb = K * torch.stack(b, 2)
+            A = torch.zeros((B, H, T, T))
+            for s in range(T):
+                A[:, :, s, s] = (R[:, :, s] * u * K[:, :, s]).sum(-1)
+                kp = K[:, :, s]
+                for t in range(s + 1, T):
+                    A[:, :, t, s] = (R[:, :, t] * kp).sum(-1)
+                    kp = kp * W[:, :, t]
+            y[:, :, c0:c0 + T, j0:j0 + cols] = ra @ St + A @ V
+            St = a[T][..., None] * St + kb.transpose(-1, -2) @ V
+        state[..., j0:j0 + cols] = St
+    return y.permute(0, 2, 1, 3), state
+
+
 def _port(*arrays):
     return [a.numpy() for a in ops.rwkv6_scan(*map(torch.from_numpy, arrays))]
 
@@ -136,3 +189,79 @@ def test_kernel_matches_plain_on_card():
     assert RW.rwkv6_scan.launches == before + 1
     assert float((y - yp).abs().max()) <= ATOL
     assert float((s - sp).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("chunk", RW.CHUNKS)
+@pytest.mark.parametrize("decay", ["range", "model", "edges"])
+@pytest.mark.parametrize("S", [1, 17, 45])
+def test_chunked_algebra_matches_pallas_oracle_and_plain(chunk, decay, S):
+    """The kernel's chunked, column-split decomposition, mirrored in torch
+    at each chunk length plan_chunks can pick, against the Pallas kernel
+    in interpret mode, the oracle and the port's plain version, from a
+    nonzero state. S=45 is a multiple of neither chunk length."""
+    B, H, n = 1, 2, 32
+    rng = np.random.default_rng(100 + S + chunk)
+    r, k, v = (rng.normal(size=(B, S, H, n)).astype(np.float32)
+               for _ in range(3))
+    w = _decays(rng, (B, S, H, n), decay)
+    u = (rng.normal(size=(H, n)) * 0.1).astype(np.float32)
+    s0 = rng.normal(size=(B, H, n, n)).astype(np.float32)
+    arrays = [r, k, v, w, u, s0]
+    y, s = _chunked_mirror(*map(torch.from_numpy, arrays), chunk=chunk,
+                           cols=RW.COLS_PER_BLOCK)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    jarrays = [jnp.asarray(a) for a in arrays]
+    yp, sp = RW.rwkv6_scan_plain(*map(torch.from_numpy, arrays))
+    for want_y, want_s in (rwkv_jax(*jarrays, block_t=16, interpret=True),
+                           ref.rwkv6_ref(*jarrays), (yp, sp)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), atol=ATOL)
+        np.testing.assert_allclose(s.numpy(), np.asarray(want_s), atol=ATOL)
+
+
+@pytest.mark.parametrize("chunk", RW.CHUNKS)
+def test_chunked_algebra_chains_through_s0(chunk):
+    """Two mirrored calls chained through the state equal one call and
+    the plain version, with the split inside a chunk."""
+    B, S, H, n = 1, 50, 2, 16
+    rng = np.random.default_rng(7 + chunk)
+    r, k, v = (torch.from_numpy(rng.normal(size=(B, S, H, n)).astype(
+        np.float32)) for _ in range(3))
+    w = torch.from_numpy(_decays(rng, (B, S, H, n), "model"))
+    u = torch.from_numpy((rng.normal(size=(H, n)) * 0.1).astype(np.float32))
+    mirror = lambda *a: _chunked_mirror(*a, chunk=chunk,  # noqa: E731
+                                        cols=RW.COLS_PER_BLOCK)
+    h = 21
+    y1, s1 = mirror(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u, None)
+    y2, s2 = mirror(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u, s1)
+    yp, sp = RW.rwkv6_scan_plain(r, k, v, w, u)
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(), yp.numpy(),
+                               atol=ATOL)
+    np.testing.assert_allclose(s2.numpy(), sp.numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("shape, plan", [
+    ((1, 520, 32, 64), (16, 4)),      # RWKV6-1.6B prefill, a 520-token prompt
+    ((1, 512, 32, 64), (16, 4)),      # ... the 512-token system prompt
+    ((1, 1, 32, 64), (1, 4)),         # ... a decode step: the step kernel
+    ((2, 17, 1, 32), (16, 2)),
+    ((1, 100, 4, 8), (16, 1)),
+])
+def test_plan_chunks_at_path_shapes(shape, plan):
+    assert RW.plan_chunks(*shape) == plan
+    chunk, col_blocks = plan
+    assert chunk in RW.CHUNKS
+    assert col_blocks * RW.COLS_PER_BLOCK >= shape[3]
+    # more blocks than (batch, head) pairs wherever a head has more
+    # columns than one block owns
+    assert col_blocks > 1 or shape[3] <= RW.COLS_PER_BLOCK
+
+
+def test_plan_chunks_refuses_wide_heads():
+    with pytest.raises(ValueError, match="head dim 80"):
+        RW.plan_chunks(1, 8, 2, 80)
+
+
+def test_launch_refuses_a_chunk_the_kernel_does_not_compile():
+    r, k, v, w, u = map(torch.from_numpy, _inputs(9, 1, 3, 2, 16))
+    with pytest.raises(ValueError, match="chunk=8"):
+        RW._launch(r, k, v, w, u, None, chunk=8)
