@@ -29,13 +29,20 @@ Phases, each printing one JSON line:
           encoder (12 layers of 12 heads of 64): flash launches ==
           layers x text-consuming models x text events, every
           recommendation finite.
-  int8    the CUDA quantize, dequantize and int8 GEMM kernels against
-          their plain PyTorch versions on the card at every shape the
-          tiered int8 path gives them (plus (33,100)x(100,130), an
-          all-zero row and .5 ties): bit-equal, one launch counted per
-          call; times of kernel, plain version and, where one PyTorch call
-          computes the same function, that call (torch._int_mm for the
-          GEMM's integer product, q * scale for dequantize), and the bound.
+  int8    the launch floor (torch.cuda._sleep(0), timed as the kernels
+          are), then the CUDA quantize, dequantize and int8 GEMM kernels
+          against their plain PyTorch versions on the card at every shape
+          the tiered int8 path gives them, plus every form of the quantize
+          kernel's plan (rows off 16 bytes, a block a row at the rows
+          form's cap K=2048, K=4100 over it, M=130, a strided view),
+          all-zero rows among .5 ties at K=8 and K=1200 (row-major and as
+          a transposed view), dequantize at K % 4 != 0 and K=4100, and
+          (33,100)x(100,130): bit-equal, one launch counted per call.
+          Times of kernel, plain version
+          and, where one PyTorch call computes the same function, that
+          call (torch._int_mm for the GEMM's integer product, q * scale
+          for dequantize), and the bound; two quantized_matmul rows
+          (quantize then the GEMM, timed as one call).
   tiered  the tiered EMSServeEngine at full width on the card: 4 sessions
           of the mix scenario over the 7-model zoo, tiers glass/ph1/
           edge64x, precision ph1=int8,edge64x=int8, the edge link at 28 m
@@ -596,15 +603,9 @@ def int8_bound(kind, M, K, N=0):
             "bytes" if t_bytes >= t_ops else "operations", ops, nbytes)
 
 
-def int8_case(name, kernel, fn, plain, *, bound_args, library=None):
-    """One kernel call on the card against its plain version: bit-equal
-    (max_abs_err is 0 then), exactly one launch counted; then times."""
-    before = kernel.launches
-    got = fn()
-    torch.cuda.synchronize()
-    check(kernel.launches == before + 1,
-          f"{name}: launches {kernel.launches} != {before + 1}")
-    want = plain()
+def _bit_equal(name, got, want):
+    """max |got - want| over the tuples' tensors; fails unless every
+    tensor is bit-equal (same dtype and shape)."""
     got_t = got if isinstance(got, tuple) else (got,)
     want_t = want if isinstance(want, tuple) else (want,)
     err = 0.0
@@ -615,17 +616,33 @@ def int8_case(name, kernel, fn, plain, *, bound_args, library=None):
                   if a.numel() else 0.0)
         check(torch.equal(a, b), f"{name}: kernel != plain version "
               f"(max |diff| {err})")
+    return err
+
+
+def int8_case(name, kernel, fn, plain, *, bound_args, library=None,
+              plan=None):
+    """One kernel call on the card against its plain version: bit-equal
+    (max_abs_err is 0 then), exactly one launch counted; then times."""
+    before = kernel.launches
+    got = fn()
+    torch.cuda.synchronize()
+    check(kernel.launches == before + 1,
+          f"{name}: launches {kernel.launches} != {before + 1}")
+    err = _bit_equal(name, got, plain())
     b_ms, b_by, ops, nbytes = int8_bound(*bound_args)
     row = dict(name=name, kernel=kernel.__name__, shape=bound_args[1:],
                max_abs_err=err, ms=device_ms(fn), plain_ms=device_ms(plain),
                library_ms=device_ms(library) if library is not None else None,
                call_ms=call_ms(fn), bound_ms=b_ms, bound_by=b_by, ops=ops,
                bytes=nbytes)
+    if plan is not None:
+        row["plan"] = plan._asdict()
     emit("int8", **row)
     return row
 
 
 def phase_int8():
+    from repro_torch.kernels import ops as O
     from repro_torch.kernels import quantized as Q
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
@@ -633,14 +650,20 @@ def phase_int8():
     def randn(*shape):
         return (torch.randn(shape, generator=g) * 2.0).to(dev)
 
-    rows = {}
+    # the launch floor: an empty kernel, timed as the kernels are
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0))
+    emit("int8", name="launch_floor", kernel="torch.cuda._sleep(0)",
+         ms=floor_ms)
+    rows = {"launch_floor": {"ms": floor_ms}}
 
     def quant(name, x):
         M, K = x.shape
+        plan = Q.plan_quantize(M, K, x.stride(0), x.stride(1),
+                               Q._aligned16(x))
         rows[name] = int8_case(name, Q.quantize_rowwise,
                                lambda: Q.quantize_rowwise(x),
                                lambda: Q.quantize_rowwise_plain(x),
-                               bound_args=("quantize", M, K))
+                               bound_args=("quantize", M, K), plan=plan)
 
     # activations of one int8 text layer, vitals, scene; packed features
     for M, K in ((64, 312), (64, 1200), (30, 6), (1, 3), (1, 312), (1, 64),
@@ -650,6 +673,14 @@ def phase_int8():
     for K, N in ((312, 936), (312, 312), (312, 1200), (1200, 312), (6, 192),
                  (3, 16)):
         quant(f"quantize_colwise_{K}x{N}", randn(K, N).T)
+    # every form's edges: rows off 16 bytes, a block a row at the rows
+    # form's cap, K over it, a partial block, a strided view that is
+    # neither rows nor columns
+    quant("quantize_offset_64x312", randn(64, 313)[:, 1:])
+    quant("quantize_2x2048", randn(2, 2048))
+    quant("quantize_8x4100", randn(8, 4100))
+    quant("quantize_130x312", randn(130, 312))
+    quant("quantize_strided_40x100", randn(40, 200)[:, ::2])
     ties = torch.zeros((3, 8))
     ties[1] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -3.5])
     quant("quantize_zero_rows_and_ties", ties.to(dev))
@@ -658,15 +689,33 @@ def phase_int8():
           and s[:, 0].tolist() == [1.0, 1.0, 1.0]
           and int(q[0].abs().max()) == 0 and int(q[2].abs().max()) == 0,
           f"ties/zero rows: q={q.tolist()} scale={s.tolist()}")
+    # all-zero rows among rows of .5 ties at K = 1200 (the w2 input's width)
+    wide = torch.zeros((6, 1200))
+    wide[1] = ties[1].repeat(150)
+    wide[3] = -ties[1].repeat(150)
+    wide[4] = torch.randn((1200,), generator=g)
+    quant("quantize_zero_rows_and_ties_6x1200", wide.to(dev))
+    quant("quantize_colwise_zero_cols_and_ties_1200x6", wide.T.contiguous()
+          .to(dev).T)
+    q, s = Q.quantize_rowwise(wide.to(dev))
+    check(q[1, :8].tolist() == [127, 0, 2, 2, 0, -2, 126, -4]
+          and q[3, :8].tolist() == [-127, 0, -2, -2, 0, 2, -126, 4]
+          and [s[i, 0].item() for i in (0, 1, 2, 3, 5)] == [1.0] * 5
+          and int(q[[0, 2, 5]].abs().max()) == 0,
+          "ties/zero rows at K = 1200")
 
-    for M, K in ((1, 312), (1, 64), (1, 16), (33, 100)):
-        qq, ss = Q.quantize_rowwise_plain(randn(M, K))
-        rows[f"dequantize_{M}x{K}"] = int8_case(
-            f"dequantize_{M}x{K}", Q.dequantize_rowwise,
+    def deq(name, qq, ss):
+        M, K = qq.shape
+        rows[name] = int8_case(
+            name, Q.dequantize_rowwise,
             lambda: Q.dequantize_rowwise(qq, ss),
             lambda: Q.dequantize_rowwise_plain(qq, ss),
             library=lambda: torch.mul(qq, ss),
             bound_args=("dequantize", M, K))
+
+    for M, K in ((1, 312), (1, 64), (1, 16), (33, 100), (5, 7), (64, 1200),
+                 (2, 4100)):
+        deq(f"dequantize_{M}x{K}", *Q.quantize_rowwise_plain(randn(M, K)))
 
     def gemm(key, xq, sx, wq, sw):
         (M, K), N = xq.shape, wq.shape[1]
@@ -694,6 +743,31 @@ def phase_int8():
                            - 127).to(torch.int8).to(dev)
     gemm("gemm_64x1200x312_pm127", sign(64, 1200), randn(64, 1).abs(),
          sign(1200, 312), randn(1, 312).abs())
+
+    # what a text layer pays in situ: quantize then the GEMM, one call
+    for M, K, N in ((64, 312, 936), (64, 1200, 312)):
+        x = randn(M, K)
+        wq, sw = O.quantize_colwise(randn(K, N) / math.sqrt(K))
+        name = f"quantized_matmul_{M}x{K}x{N}"
+        before = (Q.quantize_rowwise.launches, Q.int8_matmul.launches)
+        got = O.quantized_matmul(x, wq, sw)
+        torch.cuda.synchronize()
+        check((Q.quantize_rowwise.launches, Q.int8_matmul.launches)
+              == (before[0] + 1, before[1] + 1),
+              f"{name}: not one launch of each kernel")
+
+        def plain(x=x, wq=wq, sw=sw):
+            return Q.int8_matmul_plain(*Q.quantize_rowwise_plain(x), wq, sw)
+
+        err = _bit_equal(name, got, plain())
+        rows[name] = dict(
+            name=name, kernel="quantize_rowwise+int8_matmul",
+            shape=[M, K, N], max_abs_err=err,
+            ms=device_ms(lambda x=x, wq=wq, sw=sw: O.quantized_matmul(x, wq, sw)),
+            plain_ms=device_ms(plain),
+            parts_ms=rows[f"quantize_{M}x{K}"]["ms"]
+            + rows[f"gemm_{M}x{K}x{N}"]["ms"])
+        emit("int8", **rows[name])
     return rows
 
 
@@ -1636,8 +1710,11 @@ def main():
                      bertbase_launches, rows["bertbase_per_event"],
                      shape=rows["bertbase_per_event"]["shape"])]
     for name, (source, replaces, row) in KERNELS.items():
+        floor = ({"floor_ms": int8_rows["launch_floor"]["ms"]}
+                 if name != "int8_matmul" else {})
         kernels.append(_line(name, source, replaces, tiered_launches[name],
-                             int8_rows[row], shape=int8_rows[row]["shape"]))
+                             int8_rows[row], shape=int8_rows[row]["shape"],
+                             **floor))
     # launches on the llm path: the full-width run of the arch that runs
     # each kernel (mistral-nemo decode attention, rwkv6 scan)
     mistral, rwkv = (llm_rows[a] for a in LLM_ARCHS)

@@ -7,9 +7,10 @@
 //   * dequantize_rowwise (:89) out = float(q) * scale[m];
 //   * int8_matmul        (:123) out[m, n] = (float(acc) * sx[m]) * sw[n]
 //     with acc = sum_k xq[m, k] * wq[k, n] exact in int32.
-// Both divisions are IEEE divisions (no reciprocal, no fast-math flag)
-// and rounding is rintf (half to even, like jnp.round), so each kernel is
-// bit-equal to its plain PyTorch version in kernels/quantized.py.
+// Both divisions are IEEE divisions (__fdiv_rn: no reciprocal, no
+// fast-math flag), rounding is rintf (half to even, like jnp.round) and
+// the max is exact in any order, so each kernel is bit-equal to its plain
+// PyTorch version in kernels/quantized.py.
 //
 // What bounds them on this card. The quantized glass tier calls them per
 // text layer at M = 64 tokens: the GEMMs are (64,312)x(312,936),
@@ -17,14 +18,45 @@
 // most 48 MOP and 0.7 MB each. At the H100 SXM's published peaks (700 W
 // limit) that is ~0.02 us of int8 tensor-core time (1,979 TOP/s) and
 // ~0.2 us of HBM traffic (3.35 TB/s); the quantize/dequantize passes move
-// a few hundred KB at most. What bounds a call on this card is latency:
-// how many SMs share its loads and how long each one's serial K walk is
-// (a CUDA-core GEMM on 10 blocks took 50 us at K = 1200).
+// a few hundred KB at most (0.03-0.11 us). What bounds a call is latency:
+// the launch itself (~2 us back to back for an empty kernel, whatever it
+// moves), then the chain of dependent steps each thread walks — memory
+// round trips, and IEEE divisions, which are serial since each one
+// branches on its exceptional cases — and how many SMs share the loads.
 //
-// What the design does about that. One launch per call, no layout copies
-// around it: the quantize kernel reads its input through (row, col)
-// strides, so per-output-channel weight quantization runs on the view
-// w.T as it is. The GEMM runs on the int8 tensor cores: one warpgroup a
+// What the design does about that.
+// Quantize takes one of three forms, as the host's plan_quantize picks
+// from the view's strides (kernels/quantized.py):
+//   * rows (x_sk == 1, K <= 2,048): tpr threads a row (a warp at
+//     K <= 128, 3 warps at K = 312, 8 at K = 1200), so a thread holds 1-2
+//     float4 slots. Each thread issues all its loads before it uses any —
+//     16-byte loads when the row starts on 16 bytes, else 4 scalar loads
+//     in their place — so the row costs one memory round trip. The
+//     abs-max takes 5 shuffles (and one barrier across a row's warps),
+//     the scale one division, and q comes from the registers, 4 int8
+//     stored as one 32-bit word where K % 4 == 0. Nothing is read twice.
+//   * cols (x_sm == 1: quantize_colwise's view w.T, row m of the view is
+//     column m of w): a block takes 32 columns, each lane one column, and
+//     reads rows of w 128 bytes at a time (coalesced). K is split over
+//     a cluster of up to 8 blocks, each holding its rows in registers;
+//     each block stores its partial abs-maxes into every block's shared
+//     memory (distributed shared memory) ahead of one cluster barrier,
+//     and writes its q bytes through a shared-memory transpose (an odd
+//     word pitch: no bank conflicts), so every row of q is stored as
+//     contiguous words.
+//   * loop (K over either form's cap, or any other stride pair): 1-8
+//     warps a row, two passes over it with 8 loads in flight a thread.
+// Dequantize is a grid-stride loop, an element a thread, the row's scale
+// at i / K: at the tiered path's shapes (M = 1, K <= 312) its time is the
+// launch's, and a row-indexed body measured no faster (PERF.md).
+// Both launch through cudaLaunchKernelEx with programmatic stream
+// serialization (PDL): the kernel may be scheduled while its predecessor
+// in the stream drains, which took ~1 us off every call back to back and
+// off quantize-then-GEMM on the H100 (PERF.md, section 6). It touches no
+// global memory, read or write, before griddepcontrol.wait (the caching
+// allocator may hand it memory a predecessor still reads), and lets its
+// own dependents be scheduled once its loads are issued.
+// The GEMM runs on the int8 tensor cores: one warpgroup a
 // block issues wgmma.m64n64k32.s32.s8.s8 over a 64 x 64 output tile
 // (M = 64, the text layer's rows, is one row tile; other M and the N
 // tail are zero-filled). Both operands sit in shared memory in wgmma's
@@ -43,8 +75,8 @@
 // staged byte by byte.
 //
 // C interface (bound with ctypes): pointers as void*, sizes and strides in
-// elements, the CUDA stream last; each entry point returns the launch's
-// CUDA error as an int (0 on success).
+// elements, quantize's plan fields, the CUDA stream last; each entry point
+// returns the launch's CUDA error as an int (0 on success).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -54,40 +86,345 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int Q_WARPS = 8;              // rows per quantize block: one warp each
+// ------------------------------------------------- quantize, dequantize
 
-__global__ void quantize_rowwise_kernel(const float* __restrict__ x,
-                                        int8_t* __restrict__ q,
-                                        float* __restrict__ scale, int M,
-                                        int K, long long x_sm, long long x_sk) {
-  const int lane = threadIdx.x & 31;
-  const int m = blockIdx.x * Q_WARPS + (threadIdx.x >> 5);
-  if (m >= M) return;
-  const float* row = x + static_cast<long long>(m) * x_sm;
-  float amax = 0.0f;
-  for (int k = lane; k < K; k += 32) amax = fmaxf(amax, fabsf(row[k * x_sk]));
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float s = amax > 0.0f ? amax / 127.0f : 1.0f;   // IEEE division
-  int8_t* out = q + static_cast<long long>(m) * K;
-  for (int k = lane; k < K; k += 32) {
-    const float r = rintf(row[k * x_sk] / s);              // half to even
-    out[k] = static_cast<int8_t>(fminf(fmaxf(r, -127.0f), 127.0f));
-  }
-  if (lane == 0) scale[m] = s;
+constexpr int ROWS_VECS = 2;            // rows form: float4 slots a thread
+constexpr int MAX_WARPS = 8;            // rows / loop: warps a block
+constexpr int COL_MAX_WARPS = 32;       // cols form: warps a block, a lane a column
+constexpr int COL_TILE = 384;           // cols form: rows of w a block takes at most
+constexpr int MAX_CLUSTER = 8;          // portable cluster size
+constexpr int LOOP_UNROLL = 8;          // loop form: loads in flight a thread
+
+enum Form { ROWS = 0, ROWS_SCALAR = 1, COLS = 2, LOOP = 3 };
+
+struct Quant {
+  const float* x;                       // (M, K) view: x[m * x_sm + k * x_sk]
+  int8_t* q;                            // (M, K) contiguous
+  float* scale;                         // (M,)
+  int M, K;
+  long long x_sm, x_sk;
+  int tpr;                              // rows / loop: threads a row (32 .. 256)
+  int kchunk;                           // cols: rows of w a block of the cluster takes
+};
+
+// PDL: wait for the stream's predecessors (a no-op without the launch
+// attribute), and let this grid's dependents be scheduled
+__device__ __forceinline__ void grid_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
+__device__ __forceinline__ float scale_of(float amax) {
+  return amax > 0.0f ? __fdiv_rn(amax, 127.0f) : 1.0f;
+}
+
+// clip(rint(v / s)). An exact zero divides s by itself instead and is
+// selected back to 0 (0 / s is 0): a zero numerator sends the IEEE
+// division down its slow path (all-zero rows took 2x a random row's time
+// on the H100), and a branch around it would serialize the divisions.
+__device__ __forceinline__ int8_t quant1(float v, float s) {
+  const bool zero = v == 0.0f;
+  const float r = rintf(__fdiv_rn(zero ? s : v, s));
+  return static_cast<int8_t>(zero ? 0.0f : fminf(fmaxf(r, -127.0f), 127.0f));
+}
+
+__device__ __forceinline__ uint32_t pack4(const int8_t (&b)[4]) {
+  return static_cast<uint32_t>(static_cast<uint8_t>(b[0])) |
+         static_cast<uint32_t>(static_cast<uint8_t>(b[1])) << 8 |
+         static_cast<uint32_t>(static_cast<uint8_t>(b[2])) << 16 |
+         static_cast<uint32_t>(static_cast<uint8_t>(b[3])) << 24;
+}
+
+__device__ __forceinline__ float warp_max(float a) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+  return a;
+}
+
+// the max over the tpr threads of this thread's row (tpr a multiple of
+// 32); every thread of the block calls it
+__device__ __forceinline__ float row_max(float a, int tpr) {
+  __shared__ float red[MAX_WARPS];
+  a = warp_max(a);
+  if (tpr == 32) return a;
+  const int warp = threadIdx.x >> 5, w0 = warp - warp % (tpr >> 5);
+  if ((threadIdx.x & 31) == 0) red[warp] = a;
+  __syncthreads();
+  for (int w = 0; w < (tpr >> 5); ++w) a = fmaxf(a, red[w0 + w]);
+  return a;
+}
+
+// rows form: tpr threads a row; thread t of the row holds elements
+// 4 (tpr j + t) .. + 3 for j < NV in registers. VEC: float4 loads (the
+// row starts on 16 bytes), else four scalar loads in their place.
+template <bool VEC, int NV>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+quantize_rows_kernel(const Quant a) {
+  const int tpr = a.tpr, t = threadIdx.x % tpr;
+  const int m = blockIdx.x * (blockDim.x / tpr) + threadIdx.x / tpr;
+  const bool live = m < a.M;
+  const int K = a.K;
+  const float* row = a.x + static_cast<long long>(live ? m : 0) * a.x_sm;
+  float v[NV][4];
+  grid_wait();
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int k = 4 * (tpr * j + t);
+    if (VEC && live && k + 3 < K) {
+      const float4 f = *reinterpret_cast<const float4*>(row + k);
+      v[j][0] = f.x; v[j][1] = f.y; v[j][2] = f.z; v[j][3] = f.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[j][e] = live && k + e < K ? row[k + e] : 0.0f;
+    }
+  }
+  grid_launch_dependents();
+  float amax = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) amax = fmaxf(amax, fabsf(v[j][e]));
+  const float s = scale_of(row_max(amax, tpr));
+  if (!live) return;
+  int8_t* out = a.q + static_cast<long long>(m) * K;
+  const bool words = (K & 3) == 0;      // the row starts 4-byte aligned
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int k = 4 * (tpr * j + t);
+    if (k >= K) break;
+    int8_t b[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) b[e] = quant1(v[j][e], s);
+    if (words) {
+      *reinterpret_cast<uint32_t*>(out + k) = pack4(b);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k + e < K) out[k + e] = b[e];
+    }
+  }
+  if (t == 0) a.scale[m] = s;
+}
+
+// loop form: tpr threads a row, any strides, two passes over the row
+// with LOOP_UNROLL loads in flight a thread
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+quantize_loop_kernel(const Quant a) {
+  const int tpr = a.tpr, t = threadIdx.x % tpr;
+  const int m = blockIdx.x * (blockDim.x / tpr) + threadIdx.x / tpr;
+  const bool live = m < a.M;
+  const int K = live ? a.K : 0;
+  const float* row = a.x + static_cast<long long>(live ? m : 0) * a.x_sm;
+  const long long sk = a.x_sk;
+  grid_wait();
+  float amax = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += tpr * LOOP_UNROLL) {
+    float f[LOOP_UNROLL];
+#pragma unroll
+    for (int u = 0; u < LOOP_UNROLL; ++u) {
+      const int k = k0 + tpr * u + t;
+      f[u] = k < K ? row[k * sk] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < LOOP_UNROLL; ++u) amax = fmaxf(amax, fabsf(f[u]));
+  }
+  grid_launch_dependents();
+  const float s = scale_of(row_max(amax, tpr));
+  if (!live) return;
+  int8_t* out = a.q + static_cast<long long>(m) * K;
+  for (int k0 = 0; k0 < K; k0 += tpr * LOOP_UNROLL) {
+    float f[LOOP_UNROLL];
+#pragma unroll
+    for (int u = 0; u < LOOP_UNROLL; ++u) {
+      const int k = k0 + tpr * u + t;
+      f[u] = k < K ? row[k * sk] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < LOOP_UNROLL; ++u) {
+      const int k = k0 + tpr * u + t;
+      if (k < K) out[k] = quant1(f[u], s);
+    }
+  }
+  if (t == 0) a.scale[m] = s;
+}
+
+// cluster barrier halves: arrive (relaxed: orders nothing, or release:
+// orders this thread's shared-memory writes, remote ones included) and
+// wait (acquire)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// cols form: x_sm == 1, so the view's row m is column m of w (K, M) with
+// row stride x_sk. Block (g, z) takes columns m0 = 32 g .. m0 + 31, lane
+// l column m0 + l, and rows k of w in [z kchunk, (z + 1) kchunk): warp w
+// of W holds rows kb + w + W i (i < NR) in registers, so every load of a
+// warp is 128 contiguous bytes. CLUSTER: the gridDim.y blocks of a
+// column group form a cluster; each block stores its partial abs-maxes
+// into every block's shared memory and one barrier later reads them all
+// locally, so no block reads another's memory and none waits at exit.
+template <int NR, bool CLUSTER>
+__global__ void __launch_bounds__(COL_MAX_WARPS * 32)
+quantize_cols_kernel(const Quant a) {
+  __shared__ float red[COL_MAX_WARPS][32];
+  __shared__ float parts[MAX_CLUSTER][32];   // [z][lane]: block z's abs-max
+  __shared__ float s_col[32];
+  __shared__ __align__(16) int8_t tile[32 * (COL_TILE + 4)];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int z = blockIdx.y, nz = gridDim.y;
+  const int m0 = blockIdx.x * 32, m = m0 + lane;
+  const int kb = z * a.kchunk, ke = min(a.K, kb + a.kchunk), n = ke - kb;
+  // row pitch of the tile: an odd number of words, so the 32 lanes'
+  // byte writes of one row k fall in 32 banks
+  const int pitch = 4 * ((((n + 3) >> 2)) | 1);
+  // every block of the cluster has started before any stores into it
+  if constexpr (CLUSTER) cluster_arrive_relaxed();
+  grid_wait();
+  float v[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int kk = warp + nwarps * i;
+    v[i] = (m < a.M && kk < n) ? a.x[m + static_cast<long long>(kb + kk) * a.x_sk] : 0.0f;
+  }
+  grid_launch_dependents();
+  float amax = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NR; ++i) amax = fmaxf(amax, fabsf(v[i]));
+  red[warp][lane] = amax;
+  __syncthreads();
+  float b = 0.0f;
+  if (warp == 0)
+    for (int w = 0; w < nwarps; ++w) b = fmaxf(b, red[w][lane]);
+  if constexpr (CLUSTER) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster_wait();
+    if (warp == 0)
+      for (int r = 0; r < nz; ++r) *cluster.map_shared_rank(&parts[z][lane], r) = b;
+    cluster_arrive_release();
+    cluster_wait();                     // every block's partials are here
+    if (warp == 0) {
+      b = 0.0f;
+      for (int r = 0; r < nz; ++r) b = fmaxf(b, parts[r][lane]);
+    }
+  }
+  if (warp == 0) {
+    const float s = scale_of(b);
+    s_col[lane] = s;
+    if (z == 0 && m < a.M) a.scale[m] = s;
+  }
+  __syncthreads();
+  const float s = s_col[lane];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int kk = warp + nwarps * i;
+    if (kk < n) tile[lane * pitch + kk] = quant1(v[i], s);
+  }
+  __syncthreads();
+  // row r of the tile is q[m0 + r, kb .. ke): words where K % 4 == 0
+  // (kchunk is a multiple of 4, so kb and n are too), else bytes
+  const int rows = min(32, a.M - m0);
+  if ((a.K & 3) == 0) {
+    const int nw = n >> 2;
+    for (int i = threadIdx.x; i < rows * nw; i += blockDim.x) {
+      const int r = i / nw, c = i - r * nw;
+      *reinterpret_cast<uint32_t*>(a.q + static_cast<long long>(m0 + r) * a.K + kb + 4 * c) =
+          *reinterpret_cast<const uint32_t*>(tile + r * pitch + 4 * c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * n; i += blockDim.x) {
+      const int r = i / n, c = i - r * n;
+      a.q[static_cast<long long>(m0 + r) * a.K + kb + c] = tile[r * pitch + c];
+    }
+  }
+}
+
+// dequantize: a grid-stride loop over the M * K elements
 __global__ void dequantize_rowwise_kernel(const int8_t* __restrict__ q,
                                           const float* __restrict__ scale,
                                           float* __restrict__ out, int M,
                                           int K) {
   const long long n = static_cast<long long>(M) * K;
+  grid_wait();
+  // a dependent waits for this whole grid in its own grid_wait, so it may
+  // be scheduled at once
+  grid_launch_dependents();
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < n; i += static_cast<long long>(gridDim.x) * blockDim.x)
     out[i] = __fmul_rn(static_cast<float>(q[i]), scale[i / K]);
 }
+
+// One PDL launch of kernel on stream s, in a (1, cluster_y, 1) cluster
+// when cluster_y > 0. Returns the CUDA error, cleared.
+template <typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), dim3 grid, dim3 block, int cluster_y,
+           cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[2];
+  int n = 0;
+  if (cluster_y > 0) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = 1;
+    attr[n].val.clusterDim.y = cluster_y;
+    attr[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[n].val.programmaticStreamSerializationAllowed = 1;
+  ++n;
+  cfg.attrs = attr;
+  cfg.numAttrs = n;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) {
+    cudaGetLastError();                 // clear it; the caller raises
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool VEC>
+int dispatch_rows(const Quant& a, int depth, int blocks, int warps, cudaStream_t s) {
+  switch (depth) {
+    case 1: return launch(quantize_rows_kernel<VEC, 1>, dim3(blocks), dim3(32 * warps), 0, s, a);
+    case 2: return launch(quantize_rows_kernel<VEC, 2>, dim3(blocks), dim3(32 * warps), 0, s, a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int NR>
+int launch_cols(const Quant& a, int groups, int warps, int ksplit, cudaStream_t s) {
+  return ksplit > 1
+             ? launch(quantize_cols_kernel<NR, true>, dim3(groups, ksplit),
+                      dim3(32 * warps), ksplit, s, a)
+             : launch(quantize_cols_kernel<NR, false>, dim3(groups), dim3(32 * warps),
+                      0, s, a);
+}
+
+int dispatch_cols(const Quant& a, int depth, int groups, int warps, int ksplit,
+                  cudaStream_t s) {
+  switch (depth) {
+    case 1: return launch_cols<1>(a, groups, warps, ksplit, s);
+    case 4: return launch_cols<4>(a, groups, warps, ksplit, s);
+    case 8: return launch_cols<8>(a, groups, warps, ksplit, s);
+    case 12: return launch_cols<12>(a, groups, warps, ksplit, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ------------------------------------------------------------- int8 GEMM
 
 constexpr int BM = 64;                  // output rows per block: one wgmma row tile
 constexpr int BN = 64;                  // output columns per block (wgmma n)
@@ -360,15 +697,49 @@ int launch_gemm(const Gemm& g, int ksplit, cudaStream_t s) {
 
 }  // namespace
 
+// The plan (kernels/quantized.py::plan_quantize): the form, its depth
+// (rows: float4 slots a thread; cols: rows of w a lane), warps a block,
+// tpr threads a row (rows and loop forms), the grid (its y is the cols
+// form's split of K: ksplit blocks of kchunk rows, a multiple of 4, none
+// empty, a cluster when ksplit > 1).
 extern "C" int repro_quantize_rowwise(const void* x, void* q, void* scale,
                                       int M, int K, long long x_sm,
-                                      long long x_sk, void* stream) {
-  const int blocks = (M + Q_WARPS - 1) / Q_WARPS;
-  quantize_rowwise_kernel<<<blocks, Q_WARPS * 32, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<int8_t*>(q),
-      static_cast<float*>(scale), M, K, x_sm, x_sk);
-  return static_cast<int>(cudaGetLastError());
+                                      long long x_sk, int form, int depth,
+                                      int warps, int tpr, int grid, int ksplit,
+                                      int kchunk, void* stream) {
+  Quant a;
+  a.x = static_cast<const float*>(x);
+  a.q = static_cast<int8_t*>(q);
+  a.scale = static_cast<float*>(scale);
+  a.M = M; a.K = K; a.x_sm = x_sm; a.x_sk = x_sk; a.tpr = tpr; a.kchunk = kchunk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (M < 1 || K < 0) return invalid;
+  if (form == COLS) {
+    if (x_sm != 1 || K < 1 || grid != (M + 31) / 32 || warps < 1 ||
+        warps > COL_MAX_WARPS || ksplit < 1 || ksplit > MAX_CLUSTER ||
+        kchunk < 4 || kchunk % 4 || kchunk > COL_TILE || kchunk > warps * depth ||
+        static_cast<long long>(ksplit) * kchunk < K ||
+        static_cast<long long>(ksplit - 1) * kchunk >= K)
+      return invalid;
+    return dispatch_cols(a, depth, grid, warps, ksplit, s);
+  }
+  const int rows = tpr > 0 ? 32 * warps / tpr : 0;
+  if (warps < 1 || warps > MAX_WARPS || tpr < 32 || tpr % 32 || rows < 1 ||
+      rows * tpr != 32 * warps || ksplit != 1 ||
+      static_cast<long long>(grid) * rows < M || static_cast<long long>(grid - 1) * rows >= M)
+    return invalid;
+  if (form == LOOP)
+    return launch(quantize_loop_kernel, dim3(grid), dim3(32 * warps), 0, s, a);
+  if ((x_sk != 1 && K > 1) || depth < 1 || depth > ROWS_VECS || 4LL * tpr * depth < K)
+    return invalid;
+  if (form == ROWS) {
+    if (reinterpret_cast<uintptr_t>(x) % 16 || (x_sm % 4 && M > 1)) return invalid;
+    return dispatch_rows<true>(a, depth, grid, warps, s);
+  }
+  if (form == ROWS_SCALAR)
+    return dispatch_rows<false>(a, depth, grid, warps, s);
+  return invalid;
 }
 
 extern "C" int repro_dequantize_rowwise(const void* q, const void* scale,
@@ -378,11 +749,9 @@ extern "C" int repro_dequantize_rowwise(const void* q, const void* scale,
   const int threads = 256;
   long long blocks = (n + threads - 1) / threads;
   if (blocks > 4096) blocks = 4096;     // grid-stride loop covers the rest
-  dequantize_rowwise_kernel<<<static_cast<int>(blocks), threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(scale),
-      static_cast<float*>(out), M, K);
-  return static_cast<int>(cudaGetLastError());
+  return launch(dequantize_rowwise_kernel, dim3(static_cast<int>(blocks)), dim3(threads),
+                0, static_cast<cudaStream_t>(stream), static_cast<const int8_t*>(q),
+                static_cast<const float*>(scale), static_cast<float*>(out), M, K);
 }
 
 // ksplit chunks of kchunk bytes (a multiple of 32) cover [0, K), none

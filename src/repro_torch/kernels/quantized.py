@@ -13,13 +13,26 @@ Ports of the Pallas TPU kernels of ``repro/kernels/quantized.py``:
     ``K <= MAX_K``.
 
 On a CUDA tensor each wrapper launches its kernel from
-``csrc/quantized.cu`` (built with ``nvcc`` for ``sm_90a`` at first use;
-the GEMM on the int8 tensor cores, K split over a thread-block cluster
-as ``plan_k_splits`` says) or raises; on a CPU tensor it computes the
-same function with the plain version. The plain versions divide by
-tensors (never by a Python scalar, which PyTorch's CUDA division turns
-into a multiply by the reciprocal) and accumulate the GEMM in float64,
-exact because
+``csrc/quantized.cu`` (built with ``nvcc`` for ``sm_90a`` at first use)
+as its plan says, or raises; on a CPU tensor it computes the same
+function with the plain version.
+
+  * ``plan_quantize`` picks the quantize kernel's form from the view's
+    strides: ``rows`` (1-8 warps a row, every load of the row in flight
+    at once and held in registers, float4 loads where the row starts on
+    16 bytes, else ``rows_scalar``), ``cols`` (the view ``w.T`` that
+    ``quantize_colwise`` passes: 32 columns of ``w`` a block, read 128
+    bytes at a time, K split over a thread-block cluster) or ``loop``
+    (rows over either form's cap, any other strides).
+  * Dequantize is a grid-stride loop, an element a thread.
+  * Both launch with programmatic dependent launch (PDL): a launch may be
+    scheduled while its predecessor in the stream drains.
+  * ``plan_k_splits`` splits the GEMM's K over a cluster (the GEMM runs
+    on the int8 tensor cores).
+
+The plain versions divide by tensors (never by a Python scalar, which
+PyTorch's CUDA division turns into a multiply by the reciprocal) and
+accumulate the GEMM in float64, exact because
 ``K * 127**2 < 2**31 < 2**53``, so kernel and plain version agree bit for
 bit on the card.
 
@@ -30,6 +43,7 @@ path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -55,6 +69,76 @@ def plan_k_splits(M, K, N):
     want = max(1, min(MAX_KSPLIT, steps, build.SMS // max(1, tiles)))
     chunk = -(-steps // want)
     return -(-steps // chunk), chunk * K_STEP
+
+
+# csrc/quantized.cu's quantize kernel
+MAX_WARPS = 8              # warps a block of the rows and loop forms
+ROWS_VECS = 2              # rows form: float4 slots a thread at most
+ROWS_CAP = 4 * 32 * MAX_WARPS * ROWS_VECS
+ROWS_AIM = 1               # rows form: float4 slots a thread the plan aims for
+COL_WARPS = 16             # cols form: warps a block, unless K needs more
+COL_MAX_WARPS = 32
+COL_DEPTHS = (1, 4, 8, 12)  # cols form: rows of w a lane
+COL_TILE = COL_MAX_WARPS * COL_DEPTHS[-1]   # cols form: rows of w a block
+COLS_CAP = MAX_KSPLIT * COL_TILE
+LOOP_UNROLL = 8            # loop form: loads in flight a thread
+QUANTIZE_FORMS = ("rows", "rows_scalar", "cols", "loop")
+
+
+class QuantizePlan(NamedTuple):
+    form: str              # one of QUANTIZE_FORMS
+    depth: int             # rows: float4 slots a thread; cols: rows of w a lane
+    warps: int             # warps a block
+    tpr: int               # rows, loop: threads a row (a multiple of 32)
+    grid: tuple            # (x, y): y splits K over the cols form's cluster
+    kchunk: int            # cols: rows of w a block of the cluster takes
+
+
+def _rows_a_block(M):
+    """Rows a block for a warp-a-row kernel: one while the rows fit one
+    wave of the card, then enough to keep the grid at about one wave."""
+    return 1 if M <= build.SMS else min(MAX_WARPS, -(-M // build.SMS))
+
+
+def _row_plan(form, M, tpr, depth):
+    rows = _rows_a_block(M) if tpr == 32 else 1
+    return QuantizePlan(form, depth, rows * tpr // 32, tpr, (-(-M // rows), 1),
+                        0)
+
+
+def plan_quantize(M, K, x_sm, x_sk, aligned):
+    """How ``csrc/quantized.cu`` quantizes an (M, K) float32 view with
+    element strides ``(x_sm, x_sk)``; ``aligned`` says that each row
+    starts on 16 bytes (the base 16-byte aligned and ``x_sm % 4 == 0``,
+    or one row).
+
+    * ``rows`` / ``rows_scalar`` (``x_sk == 1``, ``K <= ROWS_CAP``): a
+      row takes enough warps (up to MAX_WARPS) that each thread holds
+      about ROWS_AIM float4 slots (3 warps at K = 312, 8 at K = 1200);
+      rows of one warp pack into blocks only past one wave of rows.
+    * ``cols`` (``x_sm == 1``, the view ``w.T``, ``K <= COLS_CAP``): 32
+      columns of w a block of COL_WARPS warps (more where K needs them),
+      K split over a cluster of up to MAX_KSPLIT blocks, toward one wave
+      of the card, in chunks of at least 64 rows of w.
+    * ``loop``: everything else, with 1-8 warps a row."""
+    if (x_sk == 1 or K <= 1) and K <= ROWS_CAP:
+        tpr = 32 * min(MAX_WARPS, max(1, -(-K // (4 * 32 * ROWS_AIM))))
+        return _row_plan("rows" if aligned else "rows_scalar", M, tpr,
+                         max(1, -(-K // (4 * tpr))))
+    if x_sm == 1 and x_sk != 1 and M > 1 and K <= COLS_CAP:
+        groups = -(-M // 32)
+        # a lane holds at most COL_DEPTHS[-1] rows of w, so a block of
+        # ``warps`` takes at most warps * COL_DEPTHS[-1] <= COL_TILE
+        warps = max(COL_WARPS, -(-K // (MAX_KSPLIT * COL_DEPTHS[-1])))
+        want = max(min(MAX_KSPLIT, build.SMS // groups, -(-K // 64)),
+                   -(-K // (warps * COL_DEPTHS[-1])), 1)
+        kchunk = -(-K // want)
+        kchunk += -kchunk % 4
+        depth = next(d for d in COL_DEPTHS if warps * d >= kchunk)
+        return QuantizePlan("cols", depth, warps, 0, (groups, -(-K // kchunk)),
+                            kchunk)
+    tpr = 32 * min(MAX_WARPS, max(1, -(-K // (32 * LOOP_UNROLL * 4))))
+    return _row_plan("loop", M, tpr, 0)
 
 
 # ---------------------------------------------------------------- plain
@@ -86,7 +170,8 @@ def int8_matmul_plain(xq, sx, wq, sw):
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "repro_quantize_rowwise": [_P, _P, _P, _I, _I, _LL, _LL, _P],
+    "repro_quantize_rowwise": [_P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I,
+                               _I, _I, _I, _P],
     "repro_dequantize_rowwise": [_P, _P, _P, _I, _I, _P],
     "repro_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -121,6 +206,11 @@ def _device_of(*ts):
 
 # ---------------------------------------------------------------- wrappers
 
+def _aligned16(x):
+    """Every row of the float32 view x starts on 16 bytes."""
+    return x.data_ptr() % 16 == 0 and (x.stride(0) % 4 == 0 or x.shape[0] == 1)
+
+
 def quantize_rowwise(x):
     """x (M, K) float32 -> (q int8 (M, K) contiguous, scale float32
     (M, 1)). The CUDA kernel reads ``x`` through its strides, so a
@@ -132,14 +222,18 @@ def quantize_rowwise(x):
         return quantize_rowwise_plain(x)
     if x.dtype != torch.float32:
         raise TypeError(f"the CUDA quantize kernel takes float32, got {x.dtype}")
+    if x.shape[0] == 0:
+        return (torch.empty(x.shape, dtype=torch.int8, device=x.device),
+                torch.empty((0, 1), dtype=torch.float32, device=x.device))
     M, K = x.shape
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     scale = torch.empty((M, 1), dtype=torch.float32, device=x.device)
-    if M == 0:
-        return q, scale
+    plan = plan_quantize(M, K, x.stride(0), x.stride(1), _aligned16(x))
     _check(_kernel_fn("repro_quantize_rowwise")(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), M, K,
-        x.stride(0), x.stride(1), _stream(x)), "quantize_rowwise")
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), M, K, x.stride(0),
+        x.stride(1), QUANTIZE_FORMS.index(plan.form), plan.depth, plan.warps,
+        plan.tpr, plan.grid[0], plan.grid[1], plan.kchunk, _stream(x)),
+        "quantize_rowwise")
     quantize_rowwise.launches += 1
     return q, scale
 

@@ -96,6 +96,56 @@ def test_quantize_zero_row_and_half_ties():
     np.testing.assert_array_equal(sp.numpy(), sj)
 
 
+def _layout(name, rng):
+    """(the float32 view the port quantizes, the same values contiguous
+    for JAX) for each layout the CUDA kernel's plan tells apart."""
+    if name == "offset_64x312":        # rows off 16 bytes
+        full = _t(rng.normal(size=(64, 313)).astype(np.float32) * 2.0)
+        x = full[:, 1:]
+    elif name == "rows_2x2048":        # a block a row, at the rows form's cap
+        x = _t(rng.normal(size=(2, 2048)).astype(np.float32) * 2.0)
+    elif name == "loop_8x4100":        # over the rows form's cap
+        x = _t(rng.normal(size=(8, 4100)).astype(np.float32) * 2.0)
+    elif name == "colwise_1200x312":   # the view w.T of the sidecar's w2
+        x = _t(rng.normal(size=(1200, 312)).astype(np.float32)).T
+    else:                              # strided_40x100: neither rows nor cols
+        x = _t(rng.normal(size=(40, 200)).astype(np.float32))[:, ::2]
+    return x, np.ascontiguousarray(x.numpy())
+
+
+LAYOUT_NAMES = ["offset_64x312", "rows_2x2048", "loop_8x4100",
+                "colwise_1200x312", "strided_40x100"]
+
+
+@pytest.mark.parametrize("name", LAYOUT_NAMES)
+def test_quantize_layouts_match_jax(name):
+    x, xc = _layout(name, np.random.default_rng(len(name)))
+    assert not x.is_contiguous() or name.startswith(("rows", "loop"))
+    qp, sp = PO.quantize_rowwise(x)
+    assert tuple(qp.shape) == tuple(x.shape) and tuple(sp.shape) == (x.shape[0], 1)
+    _assert_q_matches(qp, sp, *_jq(xc))
+    qr, sr = JR.quantize_rowwise_ref(jnp.asarray(xc))
+    np.testing.assert_array_equal(qp.numpy(), np.asarray(qr))
+    np.testing.assert_array_equal(sp.numpy(), np.asarray(sr))
+
+
+def test_quantize_zero_rows_and_ties_at_the_w2_width():
+    """All-zero rows (scale 1.0, q 0) among rows of .5 ties at K = 1200,
+    row-major and as a transposed view."""
+    x = np.zeros((6, 1200), np.float32)
+    tie = np.array([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -3.5], np.float32)
+    x[1], x[3] = np.tile(tie, 150), -np.tile(tie, 150)
+    x[4] = np.random.default_rng(4).normal(size=1200)
+    qj, sj = _jq(x)
+    for view in (_t(x), _t(np.ascontiguousarray(x.T)).T):
+        qp, sp = PO.quantize_rowwise(view)
+        np.testing.assert_array_equal(qp.numpy(), qj)
+        np.testing.assert_array_equal(sp.numpy(), sj)
+        assert qp[1, :8].tolist() == [127, 0, 2, 2, 0, -2, 126, -4]
+        assert sp[[0, 1, 2, 3, 5], 0].tolist() == [1.0] * 5
+        assert qp[[0, 2, 5]].abs().max() == 0
+
+
 @pytest.mark.parametrize("shape", [(4, 16), (33, 100), (1, 7), (32, 128)])
 def test_quantize_roundtrip_within_half_scale(shape):
     x = (np.random.default_rng(7).normal(size=shape) * 3.0).astype(np.float32)
@@ -144,6 +194,19 @@ def test_dequantize_rowwise_exact_vs_jax(d):
     rng = np.random.default_rng(d)
     q = rng.integers(-127, 128, (1, d)).astype(np.int8)
     s = np.abs(rng.normal(size=(1, 1))).astype(np.float32)
+    want = np.asarray(JO.dequantize_rowwise(jnp.asarray(q), jnp.asarray(s),
+                                            interpret=True))
+    np.testing.assert_array_equal(PO.dequantize_rowwise(_t(q), _t(s)).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("shape", [(5, 7), (64, 1200), (2, 4100)])
+def test_dequantize_shapes_exact_vs_jax(shape):
+    """Rows whose length is not a multiple of 4, the w2 input's width, a
+    row longer than the rows quantize form's cap."""
+    rng = np.random.default_rng(sum(shape))
+    q = rng.integers(-127, 128, shape).astype(np.int8)
+    s = np.abs(rng.normal(size=(shape[0], 1))).astype(np.float32)
     want = np.asarray(JO.dequantize_rowwise(jnp.asarray(q), jnp.asarray(s),
                                             interpret=True))
     np.testing.assert_array_equal(PO.dequantize_rowwise(_t(q), _t(s)).numpy(),
@@ -238,6 +301,122 @@ def test_k_split_plan_at_the_text_layer():
     assert PK.plan_k_splits(30, 6, 192) == (1, 32)
 
 
+def _quantize_coverage(plan, M, K):
+    """How many times the CUDA quantize kernel that ``plan`` launches
+    writes each q element (csrc/quantized.cu's index arithmetic, in
+    numpy), after the C entry point's own checks of the plan."""
+    hits = np.zeros((M, K), np.int64)
+    if plan.form == "cols":
+        ksplit, warps = plan.grid[1], plan.warps
+        assert plan.grid[0] == -(-M // 32) and 1 <= ksplit <= PK.MAX_KSPLIT
+        assert plan.kchunk % 4 == 0 and plan.kchunk <= PK.COL_TILE
+        assert plan.kchunk <= warps * plan.depth <= PK.COL_TILE
+        assert plan.depth in PK.COL_DEPTHS
+        for g in range(plan.grid[0]):
+            for z in range(ksplit):
+                kb = z * plan.kchunk
+                n = min(K, kb + plan.kchunk) - kb
+                assert n > 0                      # no split is empty
+                for w in range(warps):
+                    kk = w + warps * np.arange(plan.depth)
+                    kk = kk[kk < n]
+                    for m in range(32 * g, min(M, 32 * g + 32)):
+                        hits[m, kb + kk] += 1
+        return hits
+    tpr, rows = plan.tpr, 32 * plan.warps // plan.tpr
+    assert tpr % 32 == 0 and rows * tpr == 32 * plan.warps
+    assert plan.warps <= PK.MAX_WARPS and plan.grid[1] == 1
+    assert plan.grid[0] * rows >= M > (plan.grid[0] - 1) * rows
+    if plan.form == "loop":
+        hits[:] = 1                   # a strided loop over k < K
+        return hits
+    assert 1 <= plan.depth <= PK.ROWS_VECS
+    for t in range(tpr):
+        k = (4 * (tpr * np.arange(plan.depth) + t)[:, None]
+             + np.arange(4)).ravel()
+        hits[:, k[k < K]] += 1
+    return hits
+
+
+LAYOUTS = [  # (M, K, x_sm, x_sk, aligned): the path's views, then edges
+    (64, 312, 312, 1, True), (64, 1200, 1200, 1, True), (30, 6, 6, 1, False),
+    (1, 3, 3, 1, True), (1, 312, 312, 1, True), (1, 64, 64, 1, True),
+    (1, 16, 16, 1, True), (33, 100, 100, 1, True),
+    (936, 312, 1, 936, False), (312, 312, 1, 312, False),
+    (1200, 312, 1, 1200, False), (312, 1200, 1, 312, False),
+    (192, 6, 1, 192, False), (16, 3, 1, 16, False),
+    (64, 312, 313, 1, False), (8, 4100, 4100, 1, True),
+    (2, 13000, 13000, 1, True), (2, 2048, 2048, 1, True),
+    (40, 4000, 1, 40, False), (130, 312, 312, 1, True),
+    (1000, 64, 64, 1, True), (40, 100, 200, 2, False), (6, 1200, 1, 6, False),
+    (5, 7, 1, 5, False), (312, 2000, 1, 312, False), (3, 1, 7, 5, False)]
+
+
+@pytest.mark.parametrize("M, K, x_sm, x_sk, aligned", LAYOUTS)
+def test_quantize_plan_writes_every_element_once(M, K, x_sm, x_sk, aligned):
+    plan = PK.plan_quantize(M, K, x_sm, x_sk, aligned)
+    assert plan.form in PK.QUANTIZE_FORMS
+    if plan.form == "rows":
+        assert aligned
+    if plan.form.startswith("rows"):
+        assert x_sk == 1 or K <= 1
+    if plan.form == "cols":
+        assert x_sm == 1
+    assert (_quantize_coverage(plan, M, K) == 1).all()
+
+
+PLANS = {  # the plan at each of the path's layouts, and at the edges
+    (64, 312, 312, 1, True): ('rows', 1, 3, 96, (64, 1), 0),
+    (64, 1200, 1200, 1, True): ('rows', 2, 8, 256, (64, 1), 0),
+    (1, 312, 312, 1, True): ('rows', 1, 3, 96, (1, 1), 0),
+    (33, 100, 100, 1, True): ('rows', 1, 1, 32, (33, 1), 0),
+    (30, 6, 6, 1, False): ('rows_scalar', 1, 1, 32, (30, 1), 0),
+    (64, 312, 313, 1, False): ('rows_scalar', 1, 3, 96, (64, 1), 0),
+    (936, 312, 1, 936, False): ('cols', 8, 16, 0, (30, 4), 80),
+    (312, 312, 1, 312, False): ('cols', 4, 16, 0, (10, 5), 64),
+    (1200, 312, 1, 1200, False): ('cols', 8, 16, 0, (38, 3), 104),
+    (312, 1200, 1, 312, False): ('cols', 12, 16, 0, (10, 8), 152),
+    (192, 6, 1, 192, False): ('cols', 1, 16, 0, (6, 1), 8),
+    (16, 3, 1, 16, False): ('cols', 1, 16, 0, (1, 1), 4),
+    (2, 2048, 2048, 1, True): ('rows', 2, 8, 256, (2, 1), 0),
+    (8, 4100, 4100, 1, True): ('loop', 0, 5, 160, (8, 1), 0),
+    (2, 13000, 13000, 1, True): ('loop', 0, 8, 256, (2, 1), 0),
+    (40, 4000, 1, 40, False): ('loop', 0, 4, 128, (40, 1), 0),
+    (40, 100, 200, 2, False): ('loop', 0, 1, 32, (40, 1), 0),
+}
+
+
+@pytest.mark.parametrize("layout", list(PLANS))
+def test_quantize_plan_at_the_path(layout):
+    plan = PK.plan_quantize(*layout)
+    assert tuple(plan) == PLANS[layout]
+
+
+@pytest.mark.parametrize("M", [1, 2, 33, 312, 1200, 5000])
+def test_quantize_plan_within_the_kernel_limits(M):
+    """Every K up to each form's cap plans within what the C entry point
+    accepts (it refuses any other plan): the rows form's float4 slots,
+    the cols form's tile, warps, depths and a split of K with no empty
+    chunk."""
+    for K in range(1, PK.ROWS_CAP + 1):
+        p = PK.plan_quantize(M, K, K, 1, True)
+        assert p.form == "rows" and 1 <= p.depth <= PK.ROWS_VECS
+        assert 4 * p.tpr * p.depth >= K and p.warps <= PK.MAX_WARPS
+    assert PK.plan_quantize(M, PK.ROWS_CAP + 1, PK.ROWS_CAP + 1, 1,
+                            True).form == "loop"
+    if M == 1:
+        return
+    for K in range(2, PK.COLS_CAP + 1):
+        p = PK.plan_quantize(M, K, 1, M, False)
+        ksplit = p.grid[1]
+        assert p.form == "cols" and p.depth in PK.COL_DEPTHS
+        assert p.warps <= PK.COL_MAX_WARPS and 1 <= ksplit <= PK.MAX_KSPLIT
+        assert p.kchunk % 4 == 0 and p.kchunk <= min(PK.COL_TILE,
+                                                     p.warps * p.depth)
+        assert ksplit * p.kchunk >= K > (ksplit - 1) * p.kchunk
+    assert PK.plan_quantize(M, PK.COLS_CAP + 1, 1, M, False).form == "loop"
+
+
 def test_kernels_match_plain_versions_on_the_card():
     """Card-only: each CUDA kernel is bit-equal to its plain version at a
     shape with K and N tails (``python3 chip_smoke.py`` runs every main
@@ -270,6 +449,17 @@ def test_kernels_match_plain_versions_on_the_card():
     s, sw = torch.ones((64, 1)).cuda(), torch.ones((1, 312)).cuda()
     assert torch.equal(PO.int8_matmul(q, s, wq, sw),
                        PK.int8_matmul_plain(q, s, wq, sw))
+    # every form of the quantize kernel's plan
+    for name in LAYOUT_NAMES:
+        x = _layout(name, rng)[0].cuda()
+        got, want = PO.quantize_rowwise(x), PK.quantize_rowwise_plain(x)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+    # dequantize: K % 4 != 0, the w2 input's width, a long row
+    for M, K in ((64, 1200), (5, 7), (2, 4100)):
+        q, s = PK.quantize_rowwise_plain(torch.from_numpy(
+            rng.normal(size=(M, K)).astype(np.float32)).cuda())
+        assert torch.equal(PO.dequantize_rowwise(q, s),
+                           PK.dequantize_rowwise_plain(q, s)), (M, K)
 
 
 # ------------------------------------------------------------- sidecar
