@@ -11,7 +11,10 @@ Phases, each printing one JSON line:
   kernel  the CUDA flash-attention kernel against its plain PyTorch
           version on the card, at the serving shapes (TinyBERT, BERT-base
           and MobileBERT per event, a padded batch, the S=512 segments
-          buffer, BERT-base at B=8 S=128) and causal GQA with a window:
+          buffer, BERT-base at B=8 S=128; the flush path's bucketed
+          batches, B=16 at S=32 and 64 with ragged lengths, and its packed
+          T=1024 buffer of the batch phase's 16 text rows) and causal GQA
+          with a window:
           max |diff| <= 1e-4, exact zeros on fully masked rows, one
           launch counted per call, the same under every tile plan the
           kernel compiles (each timed); times of the kernel, the plain
@@ -61,6 +64,25 @@ Phases, each printing one JSON line:
           Reports the largest |output|, per-arrival wall p50/p99, the
           card's busy share, enc:text wall fp32 vs int8 and the feature
           wire's shrink.
+  batch   the EMSServeEngine flush path at the launcher's TinyBERT-GRU-FC
+          width, 16 sessions with their own payload lengths (text 8-64
+          tokens, vitals 5-30 steps, numpy seed 0): (i) 'batch' over
+          Table-6 episodes, (ii) the same ragged, (iii) 'batch+stream'
+          over the mix scenario (sim_window 0.05 s), bucketed and ragged
+          with grouped tails, (iv) 'stream+tiered', 4 sessions of mix on
+          glass/ph1/edge64x with ph1=int8,edge64x=int8. Each run is held
+          against a CPU run of the same engine and payloads: the same
+          flushes, encoder and tail calls, (sid, step, model, kind) of
+          every prediction, outputs within 1e-4 (INT8_TOL where the fusion
+          read an int8 feature; t_emit within 1e-9 in (iv)). Flash
+          launches == the CPU run's calls == layers x text encoder calls;
+          the int8 kernels' launches == the CPU run's calls; at most one
+          synchronising call flagged per flush; ragged within 1e-4 of
+          bucketed on the card; a grouped tail fusing several sessions;
+          at least one glass partial in (iv). Reports per-flush wall and
+          per-arrival latency p50/p99, the card's busy share, the padded
+          FLOP fraction, the live bucket and packed shapes, and one
+          flush of 16 sessions' text or vitals, bucketed against ragged.
   decode_kernel  the CUDA decode-attention kernel against its plain
           version on the card: tests/test_decode_kernel.py's shapes x
           windows 0/24 (float32, 3e-5), a small bf16 case and Mistral-NeMo's
@@ -91,7 +113,9 @@ Phases, each printing one JSON line:
           finite logits, two captured layer inputs held against the plain
           version; reports prefill and per-token decode wall, tokens/s,
           peak memory and the card's busy share under the profiler.
-  cli     the launcher's default command, its tiered int8 command and
+  cli     the launcher's default command, its tiered int8 command, its
+          flush-path commands (--engine batch; batch+stream --ragged;
+          stream --wall-clock --deadline-ms 50 --speed 5) and
           python -m repro_torch.launch.llm_generate, on the card.
 
 The last lines are the card's name and power limit as nvidia-smi prints
@@ -384,6 +408,20 @@ def phase_kernel():
     rows["bertbase"] = kernel_case(
         "bertbase", B=8, Sq=128, Sk=128, H=12, KV=12, D=64,
         lengths=[128] * 8, fused_qkv=True, seed=4)
+    # the flush path's shapes: a bucketed batch of 16 rows at the 32- and
+    # 64-token text buckets, each row its own length; and the packed
+    # buffer of the batch phase's 16 text rows (8-aligned, with gaps)
+    for S in (32, 64):
+        lens = rng.integers(1, S + 1, 16)
+        lens[0] = S
+        rows[f"batch16_s{S}"] = kernel_case(
+            f"tinybert_batch16_s{S}", B=16, Sq=S, Sk=S, H=12, KV=12, D=26,
+            lengths=lens.tolist(), fused_qkv=True, seed=7 + S)
+    seg = packed_text_segments()
+    rows["ragged"] = kernel_case(
+        "tinybert_ragged_packed", B=1, Sq=seg.numel(), Sk=seg.numel(), H=12,
+        KV=12, D=26, segments=[seg.tolist()], block=8, fused_qkv=True,
+        seed=8)
     return rows
 
 
@@ -413,16 +451,18 @@ def run_episodes(splits, params, payloads, table, device, *, cached=True,
     return out
 
 
-def device_time(fn, kernel_name):
+def device_time(fn, kernel_name, *, host_ops=True):
     """(the card's busy microseconds, the kernel's share of them, the
     profiled wall microseconds) over one call of ``fn``, from
     torch.profiler; (None, None, wall) where the trace holds no device
-    time."""
+    time. ``host_ops=False`` traces the card alone, which keeps a run of
+    ~10^5 small launches quick to reduce."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = ([ProfilerActivity.CPU] if host_ops else []) + \
+        [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -867,7 +907,7 @@ def int8_counters():
 
 def reset_counts():
     from repro_torch.kernels import flash_attention as FA
-    FA.flash_attention.launches = 0
+    FA.flash_attention.launches = FA.flash_attention.calls = 0
     for k in int8_counters():
         k.launches = k.calls = 0
 
@@ -1048,6 +1088,424 @@ def phase_tiered():
          offloaded_int8_feature_bytes={"fp32": raw_b, "int8": packed_b},
          wire_shrink_x=(raw_b / packed_b if packed_b else None),
          links=eng.fabric.stats())
+    return launches
+
+
+# ----------------------------------------------------------------- batch
+
+BATCH_SESSIONS = 16
+BATCH_SEED = 0
+
+
+def batch_payloads(cfg, n=BATCH_SESSIONS, seed=BATCH_SEED):
+    """Each session's own payloads, drawn with numpy: text of 8-64
+    tokens, vitals of 5-30 steps, a scene vector. Several length buckets
+    are live and the packed buffers have gaps."""
+    rng = np.random.default_rng(seed)
+    text_len = rng.integers(8, cfg.max_text_len + 1, n)
+    vitals_len = rng.integers(5, cfg.vitals_len + 1, n)
+    return {f"s{i}": {
+        "text": rng.integers(1, cfg.vocab_size,
+                             (1, int(text_len[i]))).astype(np.int32),
+        "vitals": rng.normal(size=(1, int(vitals_len[i]),
+                                   cfg.n_vitals)).astype(np.float32),
+        "scene": rng.integers(0, 2, (1, cfg.scene_dim)).astype(np.float32)}
+        for i in range(n)}
+
+
+def packed_text_segments():
+    """Row ids of the buffer the ragged layout packs from the batch
+    phase's 16 text rows (rows at 8-aligned offsets, gaps and tail -1)."""
+    from repro_torch.configs.emsnet import config
+    from repro_torch.core import RaggedBatch
+    cfg = config(text_encoder="tinybert", vocab_size=2048)
+    rows = [p["text"] for p in batch_payloads(cfg).values()]
+    return RaggedBatch(max_lengths={"text": cfg.max_text_len}).pack(
+        "text", rows)["row_ids"]
+
+
+def counted_encoders(splits, modality):
+    """Wrap every model's ``modality`` encoder with a call counter (the
+    engine's encoder calls of that modality); returns the counter."""
+    calls = [0]
+    for sm in splits.values():
+        if modality in sm.encoders:
+            def enc(p, x, f=sm.encoders[modality]):
+                calls[0] += 1
+                return f(p, x)
+            sm.encoders[modality] = enc
+    return calls
+
+
+def flush_engine(spec, splits, params, device, cfg, **kw):
+    """A flush-mode engine as the launcher builds one: its bucket grid,
+    ``batch_bucket_min = min(8, sessions)``, session-level cache keys for
+    stream specs."""
+    from repro_torch.core import Bucketer
+    from repro_torch.serving.api import build_engine
+    return build_engine(
+        splits, params, spec, device=device, max_history=None,
+        bucketer=Bucketer(max_buckets={"vitals": cfg.vitals_len,
+                                       "text": cfg.max_text_len}),
+        batch_bucket_min=min(8, BATCH_SESSIONS),
+        share_encoders="stream" in spec, **kw)
+
+
+def count_syncs(fn):
+    """Run ``fn`` under PyTorch's sync debug mode; the synchronising CUDA
+    calls it warned about, as {"file:line" of the caller: count} (an
+    explicit torch.cuda.synchronize is not among them)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    import linecache
+    sites = {}
+    for w in caught:
+        line = linecache.getline(w.filename, w.lineno).strip()
+        # turning the mode on is itself reported once, as a sync
+        if "synchroniz" in str(w.message) and "sync_debug_mode" not in line:
+            site = f"{os.path.basename(w.filename)}:{w.lineno} {line}"
+            sites[site] = sites.get(site, 0) + 1
+    return sites
+
+
+def _pred_rows(eng):
+    return [p for f in eng.flushes for p in f.predictions]
+
+
+def compare_flushes(a_eng, b_eng, what, tol=TOL, *, counts=True):
+    """Flush for flush: the same counts (events, encoder and tail calls;
+    events only without ``counts``) and the same (sid, step, model, kind)
+    for every prediction; outputs within ``tol``. Returns the max
+    |diff|."""
+    check(a_eng.flushes_total == b_eng.flushes_total,
+          f"{what}: {a_eng.flushes_total} != {b_eng.flushes_total} flushes")
+    diff = 0.0
+    for fa, fb in zip(a_eng.flushes, b_eng.flushes):
+        ca = (fa.n_events, fa.n_encoder_calls, fa.n_tail_calls)
+        cb = (fb.n_events, fb.n_encoder_calls, fb.n_tail_calls)
+        if not counts:
+            ca, cb = ca[:1], cb[:1]
+        check(ca == cb, f"{what}: flush {fa.flush_id} counts {ca} != {cb}")
+        ka = [(p.sid, p.step, p.model, p.kind) for p in fa.predictions]
+        kb = [(p.sid, p.step, p.model, p.kind) for p in fb.predictions]
+        check(ka == kb, f"{what}: flush {fa.flush_id} predictions differ")
+        for pa, pb in zip(fa.predictions, fb.predictions):
+            for k in pa.outputs:
+                x, y = pa.outputs[k], pb.outputs[k].to(pa.outputs[k].device)
+                check(bool(torch.isfinite(x).all()), f"{what}: non-finite")
+                diff = max(diff, float((x - y).abs().max()))
+    check(diff <= tol, f"{what}: outputs differ by {diff} > {tol}")
+    return diff
+
+
+def run_flush(build, drive, *, syncs=False):
+    """Drive a fresh engine from ``build()`` with every counter at 0
+    first; returns the engine, the kernels' launches and calls, the text
+    encoder calls and the synchronising calls counted (``syncs``)."""
+    from repro_torch.kernels import flash_attention as FA
+    eng, text_calls = build()
+    reset_counts()                          # the path starts here
+    sync_sites = count_syncs(lambda: drive(eng)) if syncs else None
+    if not syncs:
+        drive(eng)
+    counts = {"flash_attention": (FA.flash_attention.launches,
+                                  FA.flash_attention.calls)}
+    for k in int8_counters():
+        counts[k.__name__] = (k.launches, k.calls)
+    return eng, counts, text_calls[0], sync_sites   # ... and ends here
+
+
+def _percentiles(xs):
+    ms = sorted(1e3 * x for x in xs)
+    return {"p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99))} if ms else None
+
+
+def compare_stream_tiered(a_eng, b_eng, what):
+    """stream+tiered card vs CPU: record and glass-partial placement and
+    timelines (t_emit within 1e-9), outputs within 1e-4, or INT8_TOL where
+    the fusion read an int8 feature; the sessions' prediction streams the
+    same model, step and kind. Returns (max diffs, glass partials)."""
+    a_recs, b_recs = a_eng.records, b_eng.records
+    check(len(a_recs) == len(b_recs), f"{what}: record counts differ")
+    diff = {"fp32": 0.0, "int8": 0.0}
+    latest, partials = {}, 0
+
+    def cls_of(sid, mods):
+        return ("int8" if any(latest.get((sid, m)) == "int8" for m in mods)
+                else "fp32")
+
+    def out_diff(cls, a_out, b_out):
+        for k in a_out:
+            x, y = a_out[k], b_out[k].to(a_out[k].device)
+            check(bool(torch.isfinite(x).all()), f"{what}: non-finite {k}")
+            diff[cls] = max(diff[cls], float((x - y).abs().max()))
+
+    for a, b in zip(a_recs, b_recs):
+        check(_rec_key(a) == _rec_key(b),
+              f"{what}: {_rec_key(a)} != {_rec_key(b)}")
+        check(abs(a.t_emit - b.t_emit) <= 1e-9
+              and abs(a.t_start - b.t_start) <= 1e-9,
+              f"{what}: timeline differs at {_rec_key(a)}")
+        check((a.glass_partial is None) == (b.glass_partial is None),
+              f"{what}: glass partial presence differs at {_rec_key(a)}")
+        if a.glass_partial is not None:
+            ga, gb = a.glass_partial, b.glass_partial
+            check((ga.model, ga.step, ga.kind) == (gb.model, gb.step, gb.kind)
+                  and abs(ga.t_emit - gb.t_emit) <= 1e-9,
+                  f"{what}: glass partial differs at {_rec_key(a)}")
+            out_diff(cls_of(a.sid, ga.modalities), ga.outputs, gb.outputs)
+            partials += 1
+        latest[(a.sid, a.modality)] = a.precision
+        check((a.outputs is None) == (b.outputs is None),
+              f"{what}: output presence differs")
+        if a.outputs is not None:
+            out_diff(cls_of(a.sid, a_eng.models[a.model].modalities()),
+                     a.outputs, b.outputs)
+    for sid in a_eng.sessions:
+        ka = [(p.model, p.step, p.kind) for p in a_eng.sessions[sid].predictions]
+        kb = [(p.model, p.step, p.kind) for p in b_eng.sessions[sid].predictions]
+        check(ka == kb, f"{what}: {sid}'s predictions differ")
+    check(diff["fp32"] <= TOL, f"{what}: fp32 outputs differ by "
+          f"{diff['fp32']} > {TOL}")
+    check(diff["int8"] <= INT8_TOL, f"{what}: int8 outputs differ by "
+          f"{diff['int8']} > {INT8_TOL}")
+    return diff, partials
+
+
+def flush_walls(build, payloads, modality, *, reps=5):
+    """Median wall (ms, synchronised) of a flush in which every session
+    submits one ``modality`` payload, after one warm flush."""
+    from repro_torch.core import Event
+    eng = build()
+    walls = []
+    for r in range(reps + 1):
+        for sid, pay in payloads.items():
+            eng.submit(sid, Event(r, modality, float(r)), pay[modality])
+        walls.append(eng.flush().wall_s)
+    return 1e3 * statistics.median(walls[1:])
+
+
+def phase_batch():
+    """The flush path at the launcher's TinyBERT-GRU-FC width, on the card
+    and on the CPU: (i) 'batch', 16 sessions of Table-6 episodes; (ii) the
+    same, ragged; (iii) 'batch+stream' over the mix scenario, 16
+    sessions, sim_window 0.05 s, bucketed and ragged (grouped tails);
+    (iv) 'stream+tiered', 4 sessions of mix on glass/ph1/edge64x with
+    ph1=int8,edge64x=int8."""
+    from repro_torch.configs.emsnet import config
+    from repro_torch.core import ProfileTable, profile, table6
+    from repro_torch.launch.serve import (build_models, build_zoo,
+                                          sample_payloads, scenario_episodes)
+
+    cfg = config(text_encoder="tinybert", vocab_size=2048)
+    n_layers = cfg.text_dims[0]
+    pay = batch_payloads(cfg)
+
+    def payload_fn(sid, ev):
+        return pay[sid][ev.modality]
+
+    table_eps = {f"s{i}": table6()[1 + i % 3] for i in range(BATCH_SESSIONS)}
+    mix_eps = scenario_episodes(BATCH_SESSIONS, "mix")
+
+    def builder(spec, device, models, **kw):
+        def build():
+            splits, params = models(cfg, seed=0, device=device)
+            calls = counted_encoders(splits, "text")
+            return flush_engine(spec, splits, params, device, cfg, **kw), calls
+        return build
+
+    runs = {
+        "batch": ("batch", build_models, False,
+                  lambda e: e.run_episodes(table_eps, payload_fn)),
+        "ragged": ("batch", build_models, True,
+                   lambda e: e.run_episodes(table_eps, payload_fn)),
+        "batch_stream": ("batch+stream", build_zoo, False,
+                         lambda e: e.run_arrivals(mix_eps, payload_fn,
+                                                  sim_window=0.05)),
+        "batch_stream_ragged": ("batch+stream", build_zoo, True,
+                                lambda e: e.run_arrivals(
+                                    mix_eps, payload_fn, sim_window=0.05)),
+    }
+    out, engines, launches = {}, {}, {}
+    for name, (spec, models, ragged, drive) in runs.items():
+        kw = {"deadline_s": None} if "stream" in spec else {}
+        t0 = time.perf_counter()
+        eng, counts, text_calls, sync_sites = run_flush(
+            builder(spec, "cuda", models, ragged=ragged, **kw), drive,
+            syncs=True)
+        t1 = time.perf_counter()
+        cpu, cpu_counts, cpu_text_calls, _ = run_flush(
+            builder(spec, "cpu", models, ragged=ragged, **kw), drive)
+        run_s = {"cuda": t1 - t0, "cpu": time.perf_counter() - t1}
+        fl, fc = counts["flash_attention"]
+        check(fl == fc, f"{name}: flash launches {fl} != calls {fc}")
+        check(cpu_counts["flash_attention"] == (0, fl),
+              f"{name}: card launched flash {fl} times, the CPU run called "
+              f"it {cpu_counts['flash_attention'][1]} times (and launched "
+              f"{cpu_counts['flash_attention'][0]})")
+        check(text_calls == cpu_text_calls and fl == n_layers * text_calls,
+              f"{name}: flash launches {fl} != {n_layers} layers x "
+              f"{text_calls} text encoder calls (CPU {cpu_text_calls})")
+        check(fl > 0, f"{name}: no flash launch")
+        # the flush's one explicit torch.cuda.synchronize is not flagged;
+        # nothing else may wait for the card
+        check(not sync_sites, f"{name}: synchronising calls besides the "
+              f"flush's own sync: {sync_sites}")
+        diff = compare_flushes(cpu, eng, f"{name}: cpu vs cuda")
+        if ragged:
+            check(max(f.n_encoder_calls for f in eng.flushes)
+                  <= 3 * len(eng.models), f"{name}: more than one packed call "
+                  "per modality and model")
+        engines[name] = eng
+        launches[name] = fl
+        flush_s = [f.wall_s for f in eng.flushes]
+        out[name] = {
+            "spec": spec, "ragged": ragged, "flushes": eng.flushes_total,
+            "events": eng.events_total,
+            "predictions": len(_pred_rows(eng)),
+            "finals": sum(p.kind == "final" for p in _pred_rows(eng)),
+            "encoder_calls": eng.encoder_calls_total(),
+            "tail_calls": eng.tail_calls_total(),
+            "text_encoder_calls": text_calls, "flash_launches": fl,
+            "sync_calls_flagged": sync_sites, "cpu_max_abs_diff": diff,
+            "run_seconds": run_s,
+            "flush_ms": _percentiles(flush_s),
+            "arrival_ms": _percentiles(eng.event_latencies()),
+            "total_flush_wall_s": eng.total_wall_s(),
+            "padded_flop_frac": float(np.mean([f.padded_flop_frac
+                                               for f in eng.flushes])),
+            "shapes": (eng.ragged.n_shapes() if ragged
+                       else eng.bucketer.n_buckets()),
+            "shape_histogram": {str(k): v for k, v in (
+                eng.ragged.histogram if ragged
+                else eng.bucketer.histogram).items()}}
+        emit("batch", name=name, **out[name])
+
+    # ragged against bucketed on the card: the same predictions, 1e-4
+    for a, b in (("batch", "ragged"), ("batch_stream", "batch_stream_ragged")):
+        d = compare_flushes(engines[a], engines[b], f"{a} vs {b} on the card",
+                            counts=False)
+        out[b]["vs_bucketed_max_abs_diff"] = d
+    check(any(f.n_tail_calls == 1 and len(f.predictions) > 1
+              for f in engines["batch_stream_ragged"].flushes),
+          "no grouped tail fused more than one session")
+
+    # flush walls of one modality across all 16 sessions, bucketed against
+    # ragged (the ragged vitals scan runs its packed steps one by one)
+    def walls_build(ragged):
+        def build():
+            splits, params = build_models(cfg, seed=0, device="cuda")
+            return flush_engine("batch", splits, params, "cuda", cfg,
+                                ragged=ragged)
+        return build
+    t_walls = time.perf_counter()
+    out["one_modality_flush_ms"] = {
+        m: {"bucketed": flush_walls(walls_build(False), pay, m),
+            "ragged": flush_walls(walls_build(True), pay, m)}
+        for m in ("text", "vitals")}
+    t_walls = time.perf_counter() - t_walls
+
+    # the card's busy share over a window of (i) and (ii): the first 6
+    # ticks (a text flush, then vitals and scene flushes) of a fresh
+    # engine, the card's kernels traced alone; the wall it is read
+    # against is the same window's flushes unprofiled
+    window = {sid: evs[:6] for sid, evs in table_eps.items()}
+    t_prof = time.perf_counter()
+    for name in ("batch", "ragged"):
+        spec, models, ragged, _drive = runs[name]
+        eng, _ = builder(spec, "cuda", models, ragged=ragged)()
+        eng.run_episodes(window, payload_fn)
+        plain_wall_s = eng.total_wall_s()
+        eng, _ = builder(spec, "cuda", models, ragged=ragged)()
+        busy_us, share, prof_wall_us = device_time(
+            lambda: eng.run_episodes(window, payload_fn), "flash_fwd_kernel",
+            host_ops=False)
+        out[name].update(
+            gpu_busy_us=busy_us, flash_share_of_gpu_time=share,
+            gpu_busy_share_of_profiled_wall=(busy_us / prof_wall_us
+                                             if busy_us else None),
+            gpu_busy_share_of_wall=(busy_us / (1e6 * plain_wall_s)
+                                    if busy_us else None),
+            profiled_seconds=time.perf_counter() - t_prof)
+    seconds = {"one_modality_flushes": t_walls,
+               "profiled_runs": time.perf_counter() - t_prof}
+    t_iv = time.perf_counter()
+
+    # (iv) stream+tiered: glass partials, int8 flights, card vs CPU
+    full = "text+vitals+scene"
+    splits, params = build_zoo(cfg, seed=0, device="cuda")
+    table = ProfileTable(base=profile(splits[full], params[full],
+                                      sample_payloads(cfg), device="cuda"),
+                         host_tier="edge64x")
+    eps4 = scenario_episodes(4, "mix")
+
+    def tiered_build(device):
+        def build():
+            from repro_torch.core import BandwidthTrace, nlos_bandwidth
+            from repro_torch.serving.api import build_engine
+            sp, pr = build_zoo(cfg, seed=0, device=device)
+            calls = counted_encoders(sp, "text")
+            return build_engine(
+                sp, pr, "stream+tiered", share_encoders=True,
+                max_history=None, device=device, profile=table,
+                tiers=("glass", "ph1", "edge64x"),
+                trace=BandwidthTrace.static(nlos_bandwidth(28.0)),
+                tier_traces={"ph1": BandwidthTrace.static(
+                    nlos_bandwidth(0.0))},
+                precision=TIERED_PRECISION), calls
+        return build
+
+    def drive4(eng):
+        eng.run_arrivals(eps4, lambda sid, ev: pay[sid][ev.modality])
+
+    eng, counts, text_calls, _ = run_flush(tiered_build("cuda"), drive4)
+    cpu, cpu_counts, cpu_text_calls, _ = run_flush(tiered_build("cpu"),
+                                                   drive4)
+    for k, (launched, called) in counts.items():
+        check(launched == called == cpu_counts[k][1]
+              and cpu_counts[k][0] == 0,
+              f"stream_tiered: {k} launched {launched} times, called "
+              f"{called}, the CPU run called it {cpu_counts[k][1]} times")
+    check(counts["flash_attention"][0] == n_layers * text_calls
+          and text_calls == cpu_text_calls,
+          f"stream_tiered: flash {counts['flash_attention'][0]} != "
+          f"{n_layers} x {text_calls} text encodes")
+    check(counts["int8_matmul"][0] > 0, "stream_tiered: no int8 flight")
+    diff, partials = compare_stream_tiered(cpu, eng, "stream_tiered: cpu "
+                                           "vs cuda")
+    check(partials >= 1, "stream_tiered: no glass partial")
+    launches["stream_tiered"] = counts["flash_attention"][0]
+    out["stream_tiered"] = {
+        "sessions": 4, "arrivals": len(eng.records),
+        "glass_partials": partials,
+        "predictions": sum(len(s.predictions) for s in eng.sessions.values()),
+        "launches": {k: v[0] for k, v in counts.items()},
+        "cpu_max_abs_diff": diff,
+        "precision_counts": {p: sum(r.precision == p for r in eng.records)
+                             for p in ("fp32", "int8")},
+        "placement": eng.placement_counts()}
+    emit("batch", name="stream_tiered", **out["stream_tiered"])
+    emit("batch_summary", config="tinybert-gru-fc vocab 2048",
+         sessions=BATCH_SESSIONS,
+         one_modality_flush_ms=out["one_modality_flush_ms"],
+         profiled={name: {k: out[name][k] for k in (
+             "gpu_busy_us", "flash_share_of_gpu_time",
+             "gpu_busy_share_of_profiled_wall", "gpu_busy_share_of_wall",
+             "profiled_seconds")}
+             for name in ("batch", "ragged")},
+         seconds={**seconds, "stream_tiered": time.perf_counter() - t_iv},
+         ragged_vs_bucketed_flush_wall_s={
+             k: (out[r]["total_flush_wall_s"], out[b]["total_flush_wall_s"])
+             for k, b, r in (("batch", "batch", "ragged"),
+                             ("batch_stream", "batch_stream",
+                              "batch_stream_ragged"))})
     return launches
 
 
@@ -1626,6 +2084,26 @@ def phase_cli():
           f"unexpected tiered cli output {tiered[-1:]}")
     check(any("[int8]" in ln for ln in tiered), "tiered cli ran no int8 "
           "flight")
+    # the flush path's commands: bucketed batch, ragged batch+stream with
+    # grouped tails, and a stream replayed on the wall clock (the mix
+    # scenario's ~9 s of episode time at 5x)
+    flush_cli = {}
+    for key, argv, head in (
+            ("batch", ["--engine", "batch", "--sessions", "8"], "8 sessions"),
+            ("batch_stream_ragged", ["--engine", "batch+stream", "--sessions",
+                                     "8", "--ragged"], "ragged flush:"),
+            ("stream_wall_clock", ["--engine", "stream", "--sessions", "4",
+                                   "--wall-clock", "--deadline-ms", "50",
+                                   "--speed", "5"], "4 sessions")):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        out = buf.getvalue().strip().splitlines()
+        check(out[-1].startswith(head) and out[-1].endswith("on cuda"),
+              f"unexpected {' '.join(argv)} output {out[-1:]}")
+        flush_cli[key] = {"lines": len(out), "last": out[-1],
+                          "seconds": time.perf_counter() - t0}
     from repro_torch.launch.llm_generate import main as llm_main
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -1636,7 +2114,7 @@ def phase_cli():
         f"unexpected llm_generate output {llm}")
     emit("cli", lines=len(lines), last=lines[-1], tiered_lines=len(tiered),
          tiered_int8_records=sum("[int8]" in ln for ln in tiered),
-         tiered_last=tiered[-1], llm_generate=llm)
+         tiered_last=tiered[-1], llm_generate=llm, flush_path=flush_cli)
 
 
 KERNELS = {
@@ -1663,11 +2141,16 @@ def _line(name, source, replaces, launches, row, **extra):
             **extra}
 
 
+def _brief(row):
+    return {k: row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")}
+
+
 PHASES = {"kernel": phase_kernel, "int8": phase_int8,
           "decode_kernel": phase_decode_kernel,
           "rwkv_kernel": phase_rwkv_kernel, "serve": phase_serve,
-          "bertbase": phase_bertbase,
-          "tiered": phase_tiered, "llm": phase_llm, "cli": phase_cli}
+          "bertbase": phase_bertbase, "tiered": phase_tiered,
+          "batch": phase_batch, "llm": phase_llm, "cli": phase_cli}
 
 
 def main():
@@ -1684,18 +2167,27 @@ def main():
             PHASES[name]()
         return
     t0 = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    rows = phase_kernel()
-    int8_rows = phase_int8()
-    decode_rows = phase_decode_kernel()
-    rwkv_rows = phase_rwkv_kernel()
-    serve_launches = phase_serve()
-    bertbase_launches = phase_bertbase()
-    tiered_launches = phase_tiered()
-    llm_rows = phase_llm()
-    phase_cli()
-    emit("done", seconds=time.perf_counter() - t0)
+    seconds = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    rows = timed("kernel", phase_kernel)
+    int8_rows = timed("int8", phase_int8)
+    decode_rows = timed("decode_kernel", phase_decode_kernel)
+    rwkv_rows = timed("rwkv_kernel", phase_rwkv_kernel)
+    serve_launches = timed("serve", phase_serve)
+    bertbase_launches = timed("bertbase", phase_bertbase)
+    tiered_launches = timed("tiered", phase_tiered)
+    batch_launches = timed("batch", phase_batch)
+    llm_rows = timed("llm", phase_llm)
+    timed("cli", phase_cli)
+    emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds)
     print(smi)
     kernels = [_line("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:98",
@@ -1703,12 +2195,26 @@ def main():
                      launches_by_path={
                          "serve": serve_launches,
                          "tiered": tiered_launches["flash_attention"],
-                         "bertbase": bertbase_launches}),
+                         "bertbase": bertbase_launches, **batch_launches}),
                _line("flash_attention_bertbase",
                      "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:98",
                      bertbase_launches, rows["bertbase_per_event"],
-                     shape=rows["bertbase_per_event"]["shape"])]
+                     shape=rows["bertbase_per_event"]["shape"]),
+               # the flush path: kv_lengths over bucketed batches, and the
+               # segment mode over the packed ragged buffer
+               _line("flash_attention_batch",
+                     "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:98",
+                     batch_launches["batch"] + batch_launches["batch_stream"],
+                     rows["batch16_s64"], shape=rows["batch16_s64"]["shape"],
+                     s32=_brief(rows["batch16_s32"])),
+               _line("flash_attention_ragged",
+                     "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:98",
+                     batch_launches["ragged"]
+                     + batch_launches["batch_stream_ragged"],
+                     rows["ragged"], shape=rows["ragged"]["shape"])]
     for name, (source, replaces, row) in KERNELS.items():
         floor = ({"floor_ms": int8_rows["launch_floor"]["ms"]}
                  if name != "int8_matmul" else {})

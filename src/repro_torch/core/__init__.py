@@ -1,7 +1,8 @@
 """The paper's primary contribution: EMSServe — modality-aware model
 splitting, per-modality feature caching, and adaptive edge offloading
 for asynchronously-arriving multimodal EMS data."""
-from .bucketing import Bucketer, bucket_length, next_pow2  # noqa: F401
+from .bucketing import (Bucketer, RaggedBatch, bucket_length,  # noqa: F401
+                        next_pow2, stack_bucketed)
 from .engine import EMSServe, EventRecord  # noqa: F401
 from .episodes import (Event, LAG_SCENARIOS, async_episode,  # noqa: F401
                        horizon, merge_arrivals, random_episode, table6)

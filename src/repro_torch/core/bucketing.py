@@ -14,18 +14,26 @@ Padding must not change the math:
     ``models.emsnet.vitals_encoder``), so the final state equals the
     unpadded run's.
 
+  * batch axis (multi-session coalescing): rows above ``n`` are
+    zero/PAD rows the caller slices away.
+
 Inputs longer than ``max_bucket`` are cropped to it: vitals keep their
 most recent steps (a sliding window), text keeps its leading tokens
 (the valid prefix).
 
-A copy of the per-event half of ``repro.core.bucketing``; batch
-stacking and the ragged packed layout join with the batch engine.
+:class:`RaggedBatch` is the other layout of a flush: rows of different
+lengths packed back to back into one buffer, one encoder call per
+modality. Both layouts are built on the host from the sessions' host
+inputs and reach the card with one copy per key (:func:`to_device`).
+
+The port of ``repro.core.bucketing``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -100,4 +108,154 @@ class Bucketer:
         return x
 
     def n_buckets(self) -> int:
+        return len(self.histogram)
+
+
+def to_device(tree, device):
+    """Stage a payload (a tensor or a dict of tensors) on ``device``: one
+    host-to-device copy per tensor, from pinned memory and without
+    waiting on the card, so a flush that stages its batches keeps its
+    one host sync. CPU targets get the tensors as they are."""
+    device = torch.device(device)
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if device.type == "cpu" or tree.device == device:
+        return tree
+    return tree.pin_memory().to(device, non_blocking=True)
+
+
+def stack_bucketed(payloads, batch_bucket: int):
+    """Coalesce per-session payloads (each batch dim 1, same bucketed
+    length) into one batch of ``batch_bucket`` rows; surplus rows are
+    zero/PAD padding (zero ``len`` for masked-vitals dicts, so padded
+    rows encode to the zero initial state). Returns the stacked payload,
+    on the payloads' device; row i -> session i for the first
+    ``len(payloads)`` rows."""
+    if isinstance(payloads[0], dict):
+        keys = payloads[0].keys()
+        for i, p in enumerate(payloads[1:], start=1):
+            if p.keys() != keys:
+                raise ValueError(
+                    f"stack_bucketed: payload 0 has keys {sorted(keys)} but "
+                    f"payload {i} has {sorted(p.keys())}; refusing to drop "
+                    "mismatched keys")
+        return {k: pad_axis(torch.cat([p[k] for p in payloads], dim=0),
+                            batch_bucket, axis=0)
+                for k in keys}
+    return pad_axis(torch.cat(list(payloads), dim=0), batch_bucket, axis=0)
+
+
+@dataclass
+class RaggedBatch:
+    """Concatenated ragged layout: rows of different natural lengths
+    packed back to back into ONE flat buffer, so a flush issues a single
+    encoder call per modality however many length buckets are live
+    (against one call per ``(modality, bucket)`` for :class:`Bucketer`).
+
+    ``pack`` returns the payload dict the ragged-aware encoders consume.
+    For ``text`` (rows of (1, S_i) int):
+
+      * ``tokens``  (1, T) int32 — rows concatenated, PAD=0 between and
+        after; each row starts at a multiple of ``align`` (the flash
+        kernel's segment block);
+      * ``row_ids`` (T,) int32 — position -> row index, -1 on padding
+        AND on a row's interior PAD tokens (so the segment mask equals
+        the per-row ``tokens > 0`` key mask);
+      * ``pos``     (T,) int32 — position within the row (for the
+        positional embedding gather);
+      * ``offsets`` (R,) int32 / ``lengths`` (R,) int32 — row i occupies
+        ``[offsets[i], offsets[i] + lengths[i])``; surplus rows (R is
+        padded to a power of two) have length 0 and offset == the total
+        packed extent, so the segments tile the buffer exactly.
+
+    For ``vitals`` (rows of (1, S_i, n) float): ``x`` (1, T, n) packed
+    with ``align=1`` (the scan has no cross-length reduction), plus
+    ``reset`` (T, 1, 1) bool marking each row's first step, and the same
+    ``offsets``/``lengths``.
+
+    T and R are padded to powers of two (T floored at ``min_total``, R
+    at ``min_rows``), so the packed shapes stay O(log^2 total) like the
+    bucketer's. Rows longer than ``max_lengths[modality]`` are cropped
+    exactly like ``Bucketer.fit`` (text keeps its head, vitals its
+    tail). ``histogram`` counts packed ``(modality, (R, T))`` shapes
+    served.
+    """
+    align: int = 8
+    min_total: int = 8
+    min_rows: int = 1
+    max_lengths: Dict[str, int] = field(default_factory=dict)
+    histogram: Dict[tuple, int] = field(default_factory=dict)
+
+    def _crop(self, modality: str, x):
+        cap = self.max_lengths.get(modality)
+        if cap is not None and x.shape[1] > cap:
+            x = pad_axis(x, cap, axis=1,
+                         keep="head" if modality == "text" else "tail")
+        return x
+
+    def _layout(self, lengths, align: int):
+        offs, o = [], 0
+        for n in lengths:
+            offs.append(o)
+            if n:
+                o += -(-n // align) * align
+        total = o
+        T = max(self.min_total, next_pow2(max(total, 1)))
+        R = max(self.min_rows, next_pow2(max(len(lengths), 1)))
+        return offs, total, T, R
+
+    @staticmethod
+    def _index_vectors(offs, lens, total, R):
+        offsets = np.full((R,), total, np.int32)
+        lengths = np.zeros((R,), np.int32)
+        offsets[:len(offs)] = offs
+        lengths[:len(lens)] = lens
+        return offsets, lengths
+
+    def pack(self, modality: str, payloads, device="cpu"):
+        """payloads: list of (1, S_i, ...) host tensors or arrays (one per
+        session row). The layout is built on the host; the returned
+        tensors lie on ``device``, one copy per key."""
+        rows = [np.asarray(self._crop(modality, torch.as_tensor(p)))
+                for p in payloads]
+        lens = [int(r.shape[1]) for r in rows]
+        if modality == "text":
+            offs, total, T, R = self._layout(lens, self.align)
+            toks = np.zeros((1, T), np.int32)
+            seg = np.full((T,), -1, np.int32)
+            pos = np.zeros((T,), np.int32)
+            for i, (r, o, n) in enumerate(zip(rows, offs, lens)):
+                rv = r[0].astype(np.int32)
+                toks[0, o:o + n] = rv
+                seg[o:o + n] = np.where(rv > 0, i, -1)
+                pos[o:o + n] = np.arange(n)
+            offsets, lengths = self._index_vectors(offs, lens, total, R)
+            self._count(modality, (R, T))
+            out = {"tokens": toks, "row_ids": seg, "pos": pos,
+                   "offsets": offsets, "lengths": lengths}
+        elif modality == "vitals":
+            offs, total, T, R = self._layout(lens, 1)
+            n_feat = int(rows[0].shape[2])
+            x = np.zeros((1, T, n_feat), np.float32)
+            reset = np.zeros((T, 1, 1), bool)
+            for r, o, n in zip(rows, offs, lens):
+                if n:
+                    x[0, o:o + n] = r[0]
+                    reset[o] = True
+            offsets, lengths = self._index_vectors(offs, lens, total, R)
+            self._count(modality, (R, T))
+            out = {"x": x, "reset": reset, "offsets": offsets,
+                   "lengths": lengths}
+        else:
+            raise ValueError(f"RaggedBatch.pack: no ragged layout for "
+                             f"modality {modality!r} (fixed-size payloads "
+                             "stack on the batch axis instead)")
+        return to_device({k: torch.from_numpy(v) for k, v in out.items()},
+                         device)
+
+    def _count(self, modality: str, shape):
+        key = (modality, shape)
+        self.histogram[key] = self.histogram.get(key, 0) + 1
+
+    def n_shapes(self) -> int:
         return len(self.histogram)

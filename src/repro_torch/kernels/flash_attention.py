@@ -11,7 +11,9 @@ same function with ``flash_attention_plain``. Nothing falls back from
 one to the other.
 
 ``flash_attention.launches`` counts kernel launches, so a run can show
-that its attention went through the kernel.
+that its attention went through the kernel; ``flash_attention.calls``
+counts every call on any device, so a CPU run gives the count a card run
+must launch.
 """
 from __future__ import annotations
 
@@ -174,6 +176,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     CUDA tensors launch the kernel (float32, head dims up to 128); CPU
     tensors take ``flash_attention_plain``.
     """
+    flash_attention.calls += 1
     if causal and (kv_lengths is not None or segment_ids is not None):
         raise NotImplementedError(
             "kv_lengths/segment_ids require causal=False (per-row causal "
@@ -208,4 +211,5 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     return out[:, :S]
 
 
+flash_attention.calls = 0
 flash_attention.launches = 0

@@ -14,8 +14,9 @@ Functions, parameter keys and semantics follow ``repro.models.emsnet``;
 text attention goes through ``kernels.ops.flash_attention`` when
 ``cfg.use_flash_text`` is set (the port's default).
 
-The ragged packed forms (one dict payload for many rows) belong to the
-batch engine, which this port does not have yet; they raise.
+The text and vitals encoders also take the ragged packed payload of
+``core.bucketing.RaggedBatch`` (many rows in one buffer, one call) and
+return one feature row per packed row.
 """
 from __future__ import annotations
 
@@ -29,12 +30,6 @@ from ..kernels import ops
 from . import layers as L
 
 ALL_MODALITIES = ("text", "vitals", "scene")
-
-
-def _no_ragged(what):
-    raise NotImplementedError(
-        f"the ragged packed {what} payload belongs to the batch engine, "
-        "which this port does not have yet")
 
 
 # ----------------------------------------------------------------------
@@ -66,7 +61,8 @@ def _bert_block(p, x, mask, heads, *, kv_lengths=None, segments=None):
     """``kv_lengths`` (B,) routes attention through the flash kernel's
     key-padding mode, ``segments=(seg_ids, block)`` through its segment
     mode; with neither, the materialised einsum attention runs over
-    ``mask``. All three see the same qkv/wo projections."""
+    ``mask``: (B, S) key mask, or (B, S, S) (query, key) pair mask. All
+    three see the same qkv/wo projections."""
     B, S, d = x.shape
     hd = d // heads
     h = L.layernorm(p["ln1"], x)
@@ -81,7 +77,8 @@ def _bert_block(p, x, mask, heads, *, kv_lengths=None, segments=None):
                                   kv_lengths=kv_lengths)
     else:
         s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
-        s = torch.where(mask[:, None, None, :], s, torch.full_like(s, -1e30))
+        m = mask[:, None] if mask.dim() == 3 else mask[:, None, None, :]
+        s = torch.where(m, s, torch.full_like(s, -1e30))
         w = torch.softmax(s.float(), dim=-1).to(x.dtype)
         att = torch.einsum("bhqk,bkhd->bqhd", w, v)
     x = x + L.dense(p["wo"], att.reshape(B, S, d))
@@ -96,7 +93,10 @@ def _pool(x, mask):
 
 
 def text_encoder(p, cfg: EMSNetConfig, tokens):
-    """tokens: (B, S) int, 0 = PAD. Returns F_T (B, d_text).
+    """tokens: (B, S) int, 0 = PAD, or a ragged payload dict from
+    ``RaggedBatch.pack("text", ...)`` (keys tokens/row_ids/pos/offsets/
+    lengths). Returns F_T (B, d_text); for the ragged form, one feature
+    row per packed row.
 
     The flash path assumes PAD-only suffixes (valid tokens first), which
     both the tokenizer layout and the bucketer's right-padding
@@ -105,7 +105,7 @@ def text_encoder(p, cfg: EMSNetConfig, tokens):
     kernel, S padded to a ``cfg.flash_block`` multiple and positions
     clamped to the positional table."""
     if isinstance(tokens, dict):
-        _no_ragged("text")
+        return _text_encoder_ragged(p, cfg, tokens)
     _, _, heads, _ = cfg.text_dims
     if cfg.use_flash_text and cfg.flash_segments:
         b = cfg.flash_block
@@ -129,6 +129,40 @@ def text_encoder(p, cfg: EMSNetConfig, tokens):
     return _pool(L.layernorm(p["ln"], x), mask)
 
 
+def _text_encoder_ragged(p, cfg: EMSNetConfig, packed):
+    """Concatenated ragged text: ONE call encodes every pending row.
+
+    Attention is segment-masked by the pack's row ids (the flash
+    kernel's segment mode at ``cfg.flash_block``, or a materialised
+    pair mask without ``cfg.use_flash_text``), the positional table is
+    gathered at each position's within-row index, and pooling gathers a
+    ``max_text_len`` window at each row's offset: the masked mean over
+    valid tokens, as the natural path pools. Gap and tail positions
+    carry id -1, so they are masked as keys in every block and left out
+    of every pool."""
+    _, _, heads, _ = cfg.text_dims
+    toks = packed["tokens"]                         # (1, T)
+    seg = packed["row_ids"][None, :]                # (1, T)
+    T = toks.shape[1]
+    mask = seg >= 0
+    x = L.embed(p["tok"], toks) + p["pos"]["emb"][packed["pos"]][None]
+    if cfg.use_flash_text:
+        attn_mask, kw = mask, {"segments": (seg, cfg.flash_block)}
+    else:
+        attn_mask = (seg[:, :, None] == seg[:, None, :]) & mask[:, None, :]
+        kw = {}
+    for blk in p["blocks"]:
+        x = _bert_block(blk, x, attn_mask, heads, **kw)
+    x = L.layernorm(p["ln"], x)
+    offsets, lengths = packed["offsets"], packed["lengths"]
+    cap = min(cfg.max_text_len, T)
+    win = torch.arange(cap, device=toks.device)
+    idx = torch.clamp(offsets[:, None].long() + win[None, :], 0, T - 1)
+    xw = x[0][idx]                                  # (R, cap, d)
+    mw = (win[None, :] < lengths[:, None]) & (toks[0][idx] > 0)
+    return _pool(xw, mw)
+
+
 # ----------------------------------------------------------------------
 # Vitals encoder (RNN / LSTM / GRU)
 # ----------------------------------------------------------------------
@@ -143,18 +177,22 @@ def vitals_encoder_init(gen, cfg: EMSNetConfig, *, device):
 
 
 def vitals_encoder(p, cfg: EMSNetConfig, vitals):
-    """vitals: (B, T, n_vitals) float, or a bucketed payload
+    """vitals: (B, T, n_vitals) float, a bucketed payload
     ``{"x": (B, T_b, n_vitals), "len": (B,) int}`` zero-padded to a
-    length bucket, whose padded steps leave the carry as it was.
-    Returns F_V (B, vitals_hidden).
+    length bucket, whose padded steps leave the carry as it was, or a
+    ragged payload from ``RaggedBatch.pack("vitals", ...)`` (keys
+    x/reset/offsets/lengths: many series concatenated along time, B=1),
+    whose ``reset`` zeroes the carry at each row's first step. Returns
+    F_V (B, vitals_hidden); for the ragged form, one row per packed row,
+    the state after the row's last step (zeros for an empty row).
 
     The scan is a loop over T in the reference's own gate conventions
     (GRU reset gate applied before the recurrent product, LSTM forget
     gate biased by +1), which are not those of ``nn.GRU``/``nn.LSTM``."""
-    length = None
-    if isinstance(vitals, dict):
-        if "offsets" in vitals:
-            _no_ragged("vitals")
+    length = reset = None
+    if isinstance(vitals, dict) and "offsets" in vitals:
+        x, reset = vitals["x"], vitals["reset"]
+    elif isinstance(vitals, dict):
         x, length = vitals["x"], vitals["len"]
     else:
         x = vitals
@@ -190,7 +228,12 @@ def vitals_encoder(p, cfg: EMSNetConfig, vitals):
     if length is not None:
         valid = (torch.arange(T, device=x.device)[:, None]
                  < length.to(x.device)[None, :])[..., None]
+    hs = []                                          # ragged: h after each step
     for t in range(T):
+        if reset is not None:
+            # a packed row's first step starts from the zero state
+            carry = (tuple(torch.where(reset[t], h0, c_) for c_ in carry)
+                     if kind == "lstm" else torch.where(reset[t], h0, carry))
         new = step(carry, x_proj[:, t])
         if valid is None:
             carry = new
@@ -199,6 +242,14 @@ def vitals_encoder(p, cfg: EMSNetConfig, vitals):
                           for n_, c_ in zip(new, carry))
         else:
             carry = torch.where(valid[t], new, carry)
+        if reset is not None:
+            hs.append(carry[0] if kind == "lstm" else carry)
+    if reset is not None:
+        offsets, lengths = vitals["offsets"], vitals["lengths"]
+        idx = torch.clamp(offsets.long() + lengths.long() - 1, 0, T - 1)
+        hfin = torch.stack(hs)[idx, 0]                # (R, h)
+        return torch.where((lengths > 0)[:, None], hfin,
+                           torch.zeros_like(hfin))
     return carry[0] if kind == "lstm" else carry
 
 

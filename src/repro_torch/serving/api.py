@@ -1,10 +1,18 @@
-"""One EMSServe: the unified session engine, tiered half.
+"""One EMSServe: the unified session-engine API.
 
 :class:`EMSServeEngine` serves many concurrent sessions over a
-``SplitModel`` zoo. This port carries its tiered placement path, the
-paper's own glass/phone/edge serving: every arrival is placed on a tier
-per submodule on simulated tier clocks, through
+``SplitModel`` zoo. Its behaviour is assembled from composable policy
+objects:
 
+  * :class:`BatchPolicy` — cross-session coalescing: shape-bucketed
+    inputs (``core.bucketing.Bucketer``) stacked into power-of-two batch
+    rows, or with ``ragged=True`` every pending row of a modality packed
+    into one buffer (``core.bucketing.RaggedBatch``) and every pending
+    fusion in one grouped tail call; one host sync per flush;
+  * :class:`StreamPolicy` — progressive partial->final predictions,
+    flush deadlines, cross-incident session eviction (idle timeout + LRU
+    cap), and, under tiered placement, on-glass provisional partials
+    while a remote tier computes the refreshed result;
   * :class:`PlacementPolicy` — N tier hosts on simulated busy-clocks
     (the legacy glass<->edge pair, or an ordered ``tiers`` list like
     ``("glass", "ph1", "edge64x")``), live per-arrival decisions through
@@ -20,32 +28,52 @@ per submodule on simulated tier clocks, through
     ``{"q", "scale"}`` feature, which the consuming tier dequantizes at
     gather time.
 
-The simulated clock decides placement; the tensors are computed for real
-on the engine's device (``cuda`` unless the caller asks for the CPU).
+Engines are built from a spec by :func:`build_engine`::
 
-Built from a spec by :func:`build_engine`::
-
+    eng = build_engine(models, params, "batch+stream", share_encoders=True,
+                       deadline_s=0.05)
     eng = build_engine(models, params, "tiered", profile=table,
                        trace=trace, tiers=("glass", "ph1", "edge64x"),
                        precision={"ph1": "int8", "edge64x": "int8"},
                        share_encoders=True)
 
-Not here yet, each raising ``NotImplementedError`` that names its
-ROADMAP queue-1 item: the flush path (``batch``/``stream`` specs,
-``flush``/``poll``/``drain``/``run_episodes``, ragged batching, glass
-provisional partials — item 4) and chaos schedules (item 7). The other
-robustness rungs of item 7, speculative dual placement and mid-flight
-re-dispatch, have no option here until they are ported.
+Semantics of composition:
+
+  * ``batch`` alone — caller-driven flushes, one batched encoder call per
+    (modality, bucket) per consuming model, one batched tail per
+    selected model, ``FlushReport.recommendations`` per touched session;
+  * ``stream`` adds deadline-driven flushing, ``partial``/``final``
+    tagging on every emitted :class:`Prediction`, and eviction;
+  * ``tiered`` switches intake to per-arrival placement on the simulated
+    tier clocks (the bucketer, when one is given, still bounds the
+    encoder shapes);
+  * ``stream+tiered`` — when an arrival offloads, the glasses re-fuse the
+    cached (<=1-step stale, asserted live) features into an on-glass
+    provisional partial while the remote tier computes the refresh.
+
+A flush-mode engine keeps the sessions' inputs on the host and stages
+each stacked or packed batch on the engine's device with one copy per
+key; the tensors are computed on that device (``cuda`` unless the caller
+asks for the CPU), and a flush waits for the card once, at its end. The
+simulated clock decides placement in tiered mode; the tensors are
+computed for real there too.
+
+Not here yet: chaos schedules, speculative dual placement and
+mid-flight re-dispatch (ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
 import math
+import time
+from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from .. import device as _device
+from ..core.bucketing import (Bucketer, RaggedBatch, next_pow2,
+                              stack_bucketed, to_device)
 from ..core.episodes import Event, merge_arrivals
 from ..core.feature_cache import FeatureCache
 from ..core.offload import (INT8_COMPUTE_SCALE, BandwidthTrace,
@@ -57,13 +85,11 @@ from ..obs import Metrics, Tracer
 from .transport import TierFabric, payload_nbytes
 
 __all__ = [
-    "SessionView", "TieredRecord", "TierHost", "PlacementPolicy",
+    "Arrival", "Prediction", "FlushReport", "SessionView", "TieredRecord",
+    "TierHost", "BatchPolicy", "StreamPolicy", "PlacementPolicy",
     "EngineSpec", "EMSServeEngine", "build_engine", "parse_spec",
     "spec_tokens",
 ]
-
-_FLUSH_PATH = ("the flush path (batch/stream specs) is ROADMAP queue 1 "
-               "item 4, not ported yet")
 
 # the legacy two-tier pair's ProfileTable keys, the heartbeat period the
 # monitors quantize bandwidth to (the paper samples every second), and
@@ -71,6 +97,17 @@ _FLUSH_PATH = ("the flush path (batch/stream specs) is ROADMAP queue 1 "
 LEGACY_TIERS = ("glass", "edge4c")
 HB_PERIOD_S = 1.0
 LINK_LATENCY_S = 0.005
+# the variable-length modalities a RaggedBatch packs
+RAGGED_MODALITIES = ("text", "vitals")
+
+
+def _numel(tree) -> int:
+    """Elements in a parameter dict/list tree (shapes only)."""
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_numel(v) for v in tree)
+    return tree.numel() if isinstance(tree, torch.Tensor) else 0
 
 
 def _later(what: str, item: str):
@@ -82,14 +119,93 @@ def _later(what: str, item: str):
 # Exchange types
 # ======================================================================
 
+@dataclass(frozen=True)
+class Arrival:
+    """One datum entering the engine: which session, which event, what
+    payload. ``EMSServeEngine.ingest`` consumes these; ``submit`` is the
+    unpacked form the drivers use."""
+    sid: str
+    event: Event
+    payload: Any = None
+
+    @property
+    def modality(self) -> str:
+        return self.event.modality
+
+    @property
+    def arrival_time(self) -> float:
+        return self.event.arrival_time
+
+    @property
+    def index(self) -> int:
+        return self.event.index
+
+
+@dataclass
+class Prediction:
+    """One progressive prediction emitted for a session.
+
+    Flush-mode predictions carry the flush that produced them in
+    ``flush_id``; tiered-mode (per-arrival) predictions carry ``-1``
+    there and stamp ``t_emit`` on the simulated tier clock instead of
+    the engine's ``time_fn``."""
+    sid: str
+    step: int                       # session step it reflects
+    model: str                      # selected model name
+    modalities: Tuple[str, ...]     # fused subset, canonical order
+    kind: str                       # "partial" | "final"
+    outputs: dict                   # head outputs (batch row for sid)
+    flush_id: int
+    t_emit: float
+
+
+@dataclass
+class FlushReport:
+    """What one flush did: arrivals drained, encoder and tail calls, the
+    wall time up to and including its one host sync, per-arrival
+    latencies, and the emissions — ``predictions`` (tagged
+    partial/final) and the last fused head outputs per touched session
+    in ``recommendations`` (the same rows, indexed by session)."""
+    flush_id: int
+    n_events: int
+    n_encoder_calls: int
+    n_tail_calls: int
+    wall_s: float
+    latencies: Dict[Tuple[str, int], float]     # (sid, event idx) -> s
+    predictions: List[Prediction] = field(default_factory=list)
+    recommendations: Dict[str, dict] = field(default_factory=dict)
+    # padding-tax accounting: weighted position counts this flush's calls
+    # spent on real data vs bucket/batch padding (weights are each
+    # submodule's parameter count — a MAC-proportional estimate, not a
+    # hardware FLOP counter)
+    flops_useful: float = 0.0
+    flops_padded: float = 0.0
+
+    @property
+    def padded_flop_frac(self) -> float:
+        total = self.flops_useful + self.flops_padded
+        return self.flops_padded / total if total else 0.0
+
+
 @dataclass
 class SessionView:
-    """Per-session state on the simulated episode clock."""
+    """Per-session state, one shape for every composition. Flush-mode
+    engines use the intake/prediction fields; tiered placement adds the
+    simulated-clock fields (``ready_at``, ``records``, ``t_*_emit``)."""
     sid: str
     inputs: Dict[str, object] = field(default_factory=dict)
     input_step: Dict[str, int] = field(default_factory=dict)
     step: int = 0
-    t_last_activity: Optional[float] = None   # last emission
+    dirty: set = field(default_factory=set)   # modalities changed since flush
+    events_seen: int = 0
+    last_recommendation: Optional[dict] = None
+    predictions: List["Prediction"] = field(default_factory=list)
+    finalized: bool = False                   # has emitted a final prediction
+    t_first_submit: Optional[float] = None    # time_fn clock
+    t_first_prediction: Optional[float] = None
+    t_final_prediction: Optional[float] = None
+    t_last_activity: Optional[float] = None   # last submit or emission
+    # ---- tiered placement (simulated episode clock)
     ready_at: float = 0.0                     # per-session in-order processing
     records: List["TieredRecord"] = field(default_factory=list)
     t_first_arrival: Optional[float] = None   # survives record trimming
@@ -165,6 +281,9 @@ class TieredRecord:
     enc_tier: Optional[str] = None
     tail_tier: Optional[str] = None             # None: no fusion ran
     tail_decision: Optional[TierDecision] = None
+    # stream x tiered composition: the on-glass provisional prediction
+    # emitted from cached features while this arrival's refresh was away
+    glass_partial: Optional[Prediction] = None
     # numeric precision the encoder flight ran at ("fp32" | "int8"): int8
     # means the sidecar-quantized encoder computed the feature and the
     # cache/wire carry its packed {"q", "scale"} form
@@ -176,8 +295,59 @@ class TieredRecord:
 
 
 # ======================================================================
-# Placement policy + spec
+# Composable policies
 # ======================================================================
+
+_AUTO = "auto"      # BatchPolicy.bucketer sentinel: derive from the models
+
+
+@dataclass
+class BatchPolicy:
+    """Cross-session coalescing knobs.
+
+    ``bucketer="auto"`` derives per-modality length caps from the
+    models' declared ``max_lengths`` (so padding never exceeds e.g. a
+    positional table); pass an explicit :class:`Bucketer` to control the
+    grid, or ``None`` to disable shape bucketing (tiered default).
+    ``batch_bucket_min`` floors the coalesced batch axis so a steady
+    session count serves ONE batch shape.
+
+    ``ragged=True`` switches variable-length modalities (text, vitals)
+    from per-bucket stacked calls to the concatenated ragged layout
+    (``core.bucketing.RaggedBatch``): ONE encoder call per modality per
+    flush however many length buckets are live, and ONE grouped fusion
+    tail across all pending sessions and modality subsets (when the zoo
+    shares one parameter dict — ``share_encoders`` zoos; engines with
+    per-model parameters keep the per-model tail loop). ``ragged_align``
+    must equal the model's text ``flash_block``: packed rows start on
+    the segment kernel's block boundaries. Packed rows agree with the
+    bucketed ones to float32 rounding, not bit for bit: the kernel and
+    the GEMMs sum a row in another order inside a longer buffer. Defaults
+    OFF: the bucketed path stays the default."""
+    bucketer: Union[Bucketer, None, str] = _AUTO
+    max_coalesce: int = 64
+    batch_bucket_min: int = 1
+    ragged: bool = False
+    ragged_align: int = 8
+
+
+@dataclass
+class StreamPolicy:
+    """Progressive-prediction and liveness knobs.
+
+    ``deadline_s``: 0 flushes on every submit, > 0 buffers arrivals until
+    the oldest pending one is that old, None leaves flushing entirely to
+    the caller. ``idle_timeout_s``/``max_sessions`` drive cross-incident
+    eviction — swept after every flush and ``poll()`` (wall clock), or
+    after every arrival under tiered placement (simulated clock, where
+    the wall-clock ``poll()`` must not sweep). ``glass_partials``
+    (tiered composition only): emit an on-glass provisional partial
+    from cached features while an offloaded arrival is in flight."""
+    deadline_s: Optional[float] = 0.0
+    idle_timeout_s: Optional[float] = None
+    max_sessions: Optional[int] = None
+    glass_partials: bool = True
+
 
 @dataclass
 class PlacementPolicy:
@@ -216,10 +386,19 @@ class PlacementPolicy:
 
 @dataclass
 class EngineSpec:
-    """A typed engine recipe, produced by :func:`parse_spec`."""
-    placement: PlacementPolicy
+    """A typed engine recipe — which policies are on, plus the
+    engine-wide options — produced by :func:`parse_spec`."""
+    batch: Optional[BatchPolicy] = None
+    stream: Optional[StreamPolicy] = None
+    placement: Optional[PlacementPolicy] = None
     share_encoders: bool = False
     max_history: Optional[int] = 256
+
+    def enabled(self) -> Tuple[str, ...]:
+        return tuple(name for name, pol in (("batch", self.batch),
+                                            ("stream", self.stream),
+                                            ("tiered", self.placement))
+                     if pol is not None)
 
 
 # ======================================================================
@@ -227,38 +406,47 @@ class EngineSpec:
 # ======================================================================
 
 class EMSServeEngine:
-    """The multi-session serving runtime over a ``SplitModel`` zoo, with
-    tiered placement.
+    """The multi-session serving runtime over a ``SplitModel`` zoo.
 
     ``models``/``params`` are shared across sessions (one weight copy);
-    params must already live on ``device``, and payloads are moved there.
-    ``share_encoders=True`` is for zoos built by ``core.modular
-    .emsnet_zoo`` whose subset models share one parameter dict: a
-    feature is encoded once in total (cache keys are session-level)
-    instead of once per consuming model (``"{sid}:{model}"`` keys).
+    params must already live on ``device``. Behaviour composes from the
+    policy objects (module docstring). ``share_encoders=True`` is for
+    zoos built by ``core.modular.emsnet_zoo`` whose subset models share
+    one parameter dict: a feature is encoded once in total (cache keys
+    are session-level) instead of once per consuming model
+    (``"{sid}:{model}"`` keys). ``time_fn`` is injectable so tests drive
+    a fake wall clock; tiered placement runs on the simulated episode
+    clock instead.
     """
 
     def __init__(self, models: Dict[str, SplitModel],
                  params: Dict[str, dict], *,
+                 batch: Optional[BatchPolicy] = None,
+                 stream: Optional[StreamPolicy] = None,
                  placement: Optional[PlacementPolicy] = None,
                  share_encoders: bool = False,
                  max_history: Optional[int] = 256,
+                 time_fn: Callable[[], float] = time.perf_counter,
                  tracer: Optional[Tracer] = None, device="cuda"):
-        if placement is None:
-            raise NotImplementedError(_FLUSH_PATH)
-        pp = placement
         self.device = _device.resolve(device)
         self.models = models
         self.params = params
-        self.placement_policy = pp
+        self.batch_policy = batch or BatchPolicy()
+        self.stream_policy = stream
+        self.placement_policy = placement
         self.share_encoders = share_encoders
         self.max_history = max_history
+        self.time_fn = time_fn
 
         # ---- observability: one metrics registry for the whole stack
         # (engine + cache + transport), and a span tracer defaulting to
         # the falsy no-op
         self.metrics = Metrics()
         self.tracer = tracer if tracer is not None else Tracer.disabled
+        if self.tracer and placement is None and self.tracer.clock is None:
+            # flush-mode engines run on the injected wall clock; tiered
+            # engines call set_time() at each simulated-clock arrival
+            self.tracer.clock = self.time_fn
         self.metrics.gauge_fn("engine.sessions_live",
                               lambda: len(self.sessions))
         self.metrics.gauge_fn("cache.entries", lambda: len(self.cache))
@@ -266,10 +454,35 @@ class EMSServeEngine:
         # the fuse trace point (tracer-gated; {} when tracing is off)
         self._last_consumed: dict = {}
 
-        # ---- cross-incident eviction knobs (set by the stream policy,
-        # ROADMAP item 4; None here keeps every session)
-        self.idle_timeout_s: Optional[float] = None
-        self.max_sessions: Optional[int] = None
+        # ---- batch policy -> coalescing state
+        bucketer = self.batch_policy.bucketer
+        if bucketer == _AUTO:
+            # a default grid only for flush-mode engines; tiered placement
+            # runs unbucketed unless a bucketer is given
+            bucketer = (self._derive_bucketer(models)
+                        if placement is None else None)
+        self.bucketer: Optional[Bucketer] = bucketer
+        self.max_coalesce = self.batch_policy.max_coalesce
+        self.batch_bucket_min = self.batch_policy.batch_bucket_min
+        self.ragged: Optional[RaggedBatch] = None
+        if self.batch_policy.ragged:
+            self.ragged = RaggedBatch(
+                align=self.batch_policy.ragged_align,
+                min_rows=self.batch_policy.batch_bucket_min,
+                max_lengths=self._length_caps(models))
+        # per-(model, subtree) parameter counts, the flop-estimate weights
+        # of FlushReport's padding-tax accounting; and the zero feature
+        # rows a grouped tail fuses for modalities outside a row's subset
+        self._flop_w: Dict[Tuple[str, str], float] = {}
+        self._zero_rows: Dict[str, torch.Tensor] = {}
+
+        # ---- stream policy -> deadline / eviction state
+        sp = stream
+        self.deadline_s = sp.deadline_s if sp is not None else None
+        self.idle_timeout_s = sp.idle_timeout_s if sp is not None else None
+        self.max_sessions = sp.max_sessions if sp is not None else None
+        self.glass_partials = bool(sp is not None and sp.glass_partials
+                                   and placement is not None)
 
         # ---- shared session/cache state
         self.cache = FeatureCache(max_staleness=1, metrics=self.metrics,
@@ -279,10 +492,20 @@ class EMSServeEngine:
         # them cannot be refined further -> tagged "final"
         self.full_set = frozenset(m for sm in models.values()
                                   for m in sm.modalities())
+        self._pending: List[Tuple[str, int, float]] = []  # (sid, idx, t_submit)
+        self.flushes: List[FlushReport] = []              # bounded window
         self.events_total = 0
+        self.flushes_total = 0
+        self._enc_calls_total = 0
+        self._tail_calls_total = 0
 
-        # ---- placement policy -> tier hosts, link fabric, fault state
         self.records: List[TieredRecord] = []
+        if placement is not None:
+            self._init_placement(placement)
+
+    def _init_placement(self, pp: PlacementPolicy):
+        """Placement policy -> tier hosts, link fabric, fault state."""
+        models = self.models
         self.profile = pp.profile
         multi = pp.tiers is not None
         # host names double as ProfileTable factor keys in N-tier mode;
@@ -373,6 +596,27 @@ class EMSServeEngine:
         return {n: int(self.metrics.get(f"placement.tail.{n}"))
                 for n in self._host_names}
 
+    # ------------------------------------------------------------ setup
+
+    @staticmethod
+    def _length_caps(models: Dict[str, SplitModel]) -> Dict[str, int]:
+        """Hard length caps from the models (e.g. the text positional
+        table), the tightest over the zoo."""
+        limits: Dict[str, int] = {}
+        for sm in models.values():
+            for m, n in sm.module.max_lengths.items():
+                limits[m] = min(limits.get(m, n), n)
+        return limits
+
+    @classmethod
+    def _derive_bucketer(cls, models: Dict[str, SplitModel]) -> Bucketer:
+        """A bucket grid that never pads past what the models accept."""
+        return Bucketer(max_buckets=cls._length_caps(models))
+
+    @property
+    def tiered(self) -> bool:
+        return self.placement_policy is not None
+
     # ------------------------------------------------------------ intake
 
     def session(self, sid: str) -> SessionView:
@@ -381,38 +625,471 @@ class EMSServeEngine:
             st = self.sessions[sid] = SessionView(sid)
         return st
 
-    def submit(self, sid: str, event: Event, payload, *,
-               aggregate=None) -> "TieredRecord":
-        """Record one arriving datum (a tensor or numpy array, moved to
-        the engine's device) and process it end to end on the decided
-        tiers; returns its :class:`TieredRecord`. ``aggregate(old, new)
-        -> input`` merges it into the modality's aggregated input
-        (default: replace)."""
-        return self._submit_tiered(sid, event, payload, aggregate=aggregate)
+    def ingest(self, arrival: Arrival, *, aggregate=None):
+        """Canonical-typed intake: unpacks an :class:`Arrival`."""
+        return self.submit(arrival.sid, arrival.event, arrival.payload,
+                           aggregate=aggregate)
+
+    def submit(self, sid: str, event: Event, payload, *, aggregate=None):
+        """Record one arriving datum (a tensor or numpy array).
+        ``aggregate(old, new) -> input`` merges it into the modality's
+        aggregated input (default: replace).
+
+        Flush mode (no placement): buffers the arrival on the host and
+        flushes if the deadline policy says so — returns the
+        :class:`FlushReport` when one ran, else None. Tiered placement:
+        moves the payload to the engine's device, processes the arrival
+        end to end on the decided tiers and returns its
+        :class:`TieredRecord`."""
+        if self.tiered:
+            return self._submit_tiered(sid, event, payload,
+                                       aggregate=aggregate)
+        now = self.time_fn()
+        st = self._intake(sid, event, payload, aggregate)
+        st.t_last_activity = now
+        if st.t_first_submit is None:
+            st.t_first_submit = now
+        if self.tracer:
+            self.tracer.instant("arrival", "arrival", now,
+                                track=f"session:{sid}", sid=sid,
+                                index=event.index,
+                                modality=event.modality, step=st.step)
+        self._pending.append((sid, event.index, now))
+        if self.deadline_s is None:
+            return None
+        if self.deadline_s <= 0.0:
+            return self.flush()
+        if now - self._pending[0][2] >= self.deadline_s:
+            return self.flush()
+        return None
 
     def _intake(self, sid: str, event: Event, payload,
                 aggregate) -> SessionView:
+        """Input-aggregation bookkeeping shared by both modes. Tiered
+        intake computes on the arrival, so its payload goes to the
+        device; flush-mode intake keeps it on the host, where a flush
+        stacks or packs it with the other sessions' rows."""
         st = self.session(sid)
         st.step += 1
         m = event.modality
-        payload = torch.as_tensor(payload, device=self.device)
+        payload = torch.as_tensor(
+            payload, device=self.device if self.tiered else "cpu")
         old = st.inputs.get(m)
         st.inputs[m] = aggregate(old, payload) if aggregate else payload
         st.input_step[m] = st.step
+        st.dirty.add(m)
+        st.events_seen += 1
         self.events_total += 1
         return st
 
-    def flush(self, *args, **kwargs):
-        raise NotImplementedError(_FLUSH_PATH)
+    def poll(self, now: Optional[float] = None) -> Optional[FlushReport]:
+        """Flush if the oldest pending arrival has exceeded the deadline;
+        also the idle hook where session eviction runs. A no-op under
+        tiered placement (nothing buffers there)."""
+        if self.tiered:
+            return None
+        now = self.time_fn() if now is None else now
+        if self._pending and self.deadline_s is not None \
+                and now - self._pending[0][2] >= self.deadline_s:
+            return self.flush()
+        self.evict_sessions(now)
+        return None
 
-    poll = drain = run_episodes = flush
+    def drain(self) -> Optional[FlushReport]:
+        """Flush whatever is pending, deadline or not."""
+        if self.tiered:
+            return None
+        return self.flush() if self._pending else None
+
+    def pending_count(self) -> int:
+        """Arrivals buffered but not yet flushed (the event-loop driver
+        pumps poll() until this reaches zero)."""
+        return len(self._pending)
+
+    # ------------------------------------------------------------- flush
 
     def _cache_key(self, sid: str, model_name: str) -> str:
         return sid if self.share_encoders else f"{sid}:{model_name}"
 
+    def _bucket_rows(self, n: int) -> int:
+        return max(self.batch_bucket_min, next_pow2(n))
+
     def _consumers(self, m: str):
         return [(n, sm) for n, sm in self.models.items()
                 if m in sm.modalities()]
+
+    def _bucketed(self, m: str, x):
+        return self.bucketer.fit(m, x) if self.bucketer else x
+
+    def _encode_groups(self, sids):
+        """Dirty (session, modality) work grouped by identical post-bucket
+        shape: each group is one stacked encoder call. Modalities no model
+        consumes are skipped BEFORE the bucketer sees them, so the bucket
+        histogram counts served groups only."""
+        groups = defaultdict(list)  # (modality, shape) -> [(sid, payload, nat)]
+        for sid in sids:
+            st = self.sessions[sid]
+            for m in sorted(st.dirty):
+                if not self._consumers(m):
+                    continue
+                p = self._bucketed(m, st.inputs[m])
+                shape = (tuple(p["x"].shape) if isinstance(p, dict)
+                         else tuple(p.shape))
+                groups[(m, shape)].append(
+                    (st.sid, p, self._nat_len(st.inputs[m])))
+        return groups
+
+    @staticmethod
+    def _nat_len(x) -> int:
+        """Real (pre-padding) sequence length of a raw modality input:
+        axis 1 for (B, S, ...) payloads, 1 for fixed-size vectors."""
+        return int(x.shape[1]) if x.dim() >= 2 else 1
+
+    def _weight(self, name: str, key: str) -> float:
+        """Parameter count of ``params[name][key]`` — the per-position
+        weight of the padding-tax estimate in :class:`FlushReport` (1.0
+        when the subtree is not addressable). Counted once per (model,
+        subtree): shapes only, no device read."""
+        k = (name, key)
+        w = self._flop_w.get(k)
+        if w is None:
+            p = self.params.get(name)
+            sub = p.get(key) if isinstance(p, dict) else None
+            w = float(_numel(sub)) or 1.0
+            self._flop_w[k] = w
+        return w
+
+    def _run_encoder_chunk(self, m, sids, batch, upos, total_pos):
+        """Run every consuming model's encoder over one prepared batch
+        (stacked or packed, on the device), scatter rows into the feature
+        cache, and account the padding tax. Returns (n_calls, useful,
+        padded)."""
+        runners = (self._consumers(m)[:1] if self.share_encoders
+                   else self._consumers(m))
+        n, useful, padded = 0, 0.0, 0.0
+        for name, sm in runners:
+            feats = sm.encoders[m](self.params[name], batch)
+            n += 1
+            w = self._weight(name, m)
+            useful += w * upos
+            padded += w * (total_pos - upos)
+            for i, sid in enumerate(sids):
+                st = self.sessions[sid]
+                self.cache.put(self._cache_key(sid, name), m,
+                               feats[i:i + 1], step=st.step, tier="glass")
+        return n, useful, padded
+
+    def _flush_encode(self, touched):
+        """Bucketed encode: one stacked call per (modality, bucket[,
+        chunk]) per consuming model."""
+        n_enc, useful, padded = 0, 0.0, 0.0
+        for (m, _shape), items in self._encode_groups(touched).items():
+            for c0 in range(0, len(items), self.max_coalesce):
+                chunk = items[c0:c0 + self.max_coalesce]
+                stacked = stack_bucketed([p for _, p, _ in chunk],
+                                         self._bucket_rows(len(chunk)))
+                lead = stacked["x"] if isinstance(stacked, dict) else stacked
+                plen = lead.shape[1] if lead.dim() >= 2 else 1
+                upos = sum(min(nat, plen) for _, _, nat in chunk)
+                c, u, pd = self._run_encoder_chunk(
+                    m, [sid for sid, _, _ in chunk],
+                    to_device(stacked, self.device), upos,
+                    lead.shape[0] * plen)
+                n_enc += c
+                useful += u
+                padded += pd
+        return n_enc, useful, padded
+
+    def _flush_encode_ragged(self, touched):
+        """Ragged encode: ONE packed call per variable-length modality
+        (per chunk, per consuming model) however many length buckets are
+        live; fixed-size modalities keep the stacked path."""
+        n_enc, useful, padded = 0, 0.0, 0.0
+        ragged_mods = defaultdict(list)      # m -> [(sid, raw, nat)]
+        fixed = defaultdict(list)            # (m, shape) -> [(sid, raw, nat)]
+        for sid in touched:
+            st = self.sessions[sid]
+            for m in sorted(st.dirty):
+                if not self._consumers(m):
+                    continue
+                x = st.inputs[m]
+                if m in RAGGED_MODALITIES:
+                    ragged_mods[m].append((st.sid, x, self._nat_len(x)))
+                else:
+                    fixed[(m, tuple(x.shape))].append(
+                        (st.sid, x, self._nat_len(x)))
+        for m, items in sorted(ragged_mods.items()):
+            cap = self.ragged.max_lengths.get(m)
+            for c0 in range(0, len(items), self.max_coalesce):
+                chunk = items[c0:c0 + self.max_coalesce]
+                packed = self.ragged.pack(m, [x for _, x, _ in chunk],
+                                          device=self.device)
+                total = (packed["tokens"] if m == "text"
+                         else packed["x"]).shape[1]
+                upos = sum(nat if cap is None else min(nat, cap)
+                           for _, _, nat in chunk)
+                c, u, pd = self._run_encoder_chunk(
+                    m, [sid for sid, _, _ in chunk], packed, upos, total)
+                n_enc += c
+                useful += u
+                padded += pd
+        for (m, _shape), items in sorted(fixed.items()):
+            for c0 in range(0, len(items), self.max_coalesce):
+                chunk = items[c0:c0 + self.max_coalesce]
+                stacked = stack_bucketed([x for _, x, _ in chunk],
+                                         self._bucket_rows(len(chunk)))
+                rows = (stacked["x"] if isinstance(stacked, dict)
+                        else stacked).shape[0]
+                c, u, pd = self._run_encoder_chunk(
+                    m, [sid for sid, _, _ in chunk],
+                    to_device(stacked, self.device), len(chunk), rows)
+                n_enc += c
+                useful += u
+                padded += pd
+        return n_enc, useful, padded
+
+    def _flush_tails(self, tail_groups):
+        """One batched tail call per selected model (per chunk)."""
+        n_tail, useful, padded = 0, 0.0, 0.0
+        emitted = []      # (sid, name, modalities, outputs, step)
+        for name, items in tail_groups.items():
+            sm = self.models[name]
+            mods = sm.modalities()
+            w = self._weight(name, "heads")
+            for c0 in range(0, len(items), self.max_coalesce):
+                chunk = items[c0:c0 + self.max_coalesce]
+                sids = [sid for sid, _ in chunk]
+                stacked = {mm: stack_bucketed([f[mm] for _, f in chunk],
+                                              self._bucket_rows(len(chunk)))
+                           for mm in mods}
+                outs = sm.tail(self.params[name], stacked)
+                n_tail += 1
+                rows = next(iter(stacked.values())).shape[0]
+                useful += w * len(chunk)
+                padded += w * (rows - len(chunk))
+                for i, sid in enumerate(sids):
+                    st = self.sessions[sid]
+                    row = {k: v[i:i + 1] for k, v in outs.items()}
+                    emitted.append((sid, name, tuple(mods), row, st.step))
+                    for mm in mods:   # the result carries the cache back
+                        self.cache.touch(self._cache_key(sid, name), mm,
+                                         st.step)
+        return n_tail, emitted, useful, padded
+
+    def _grouped_tail_target(self, tail_groups) -> Optional[str]:
+        """The ONE grouped tail is legal when a full-fusion model exists,
+        declares its feature widths, and every pending model shares its
+        parameter dict (``share_encoders`` zoos): subset heads are then
+        row-slices of the full heads, so a zero-filled slice for a missing
+        modality contributes exactly zero to the fusion GEMM and the full
+        tail computes every subset tail. Returns the full model's name,
+        or None to keep the per-model loop."""
+        full_name = next((n for n, sm in self.models.items()
+                          if frozenset(sm.modalities()) == self.full_set),
+                         None)
+        if full_name is None:
+            return None
+        dims = self.models[full_name].module.feature_dims
+        if not all(m in dims for m in self.full_set):
+            return None
+        if not all(self.params[n] is self.params[full_name]
+                   for n in tail_groups):
+            return None
+        return full_name
+
+    def _zero_row(self, m: str, width: int) -> torch.Tensor:
+        z = self._zero_rows.get(m)
+        if z is None:
+            z = self._zero_rows[m] = torch.zeros(
+                (1, width), dtype=torch.float32, device=self.device)
+        return z
+
+    def _flush_tails_grouped(self, tail_groups, full_name):
+        """ONE stacked tail call for every pending (session, subset): a
+        flush then issues O(modalities) + 1 calls instead of
+        O(modalities x buckets) + O(subsets). Each row is the full-width
+        F_C with zeros in the slices of modalities outside that row's
+        subset; the padding-tax account charges those zero slices as
+        padding."""
+        full_sm = self.models[full_name]
+        full_mods = full_sm.modalities()
+        dims = full_sm.module.feature_dims
+        fullw = float(sum(dims[m] for m in full_mods))
+        w = self._weight(full_name, "heads")
+        rows = [(sid, name, f)
+                for name, items in tail_groups.items()
+                for sid, f in items]
+        n_tail, useful, padded = 0, 0.0, 0.0
+        emitted = []
+        for c0 in range(0, len(rows), self.max_coalesce):
+            chunk = rows[c0:c0 + self.max_coalesce]
+            nb = self._bucket_rows(len(chunk))
+            stacked = {
+                m: stack_bucketed(
+                    [f.get(m, self._zero_row(m, dims[m]))
+                     for _, _, f in chunk], nb)
+                for m in full_mods}
+            outs = full_sm.tail(self.params[full_name], stacked)
+            n_tail += 1
+            subw = sum(sum(dims[m] for m in self.models[name].modalities())
+                       for _, name, _ in chunk) / fullw
+            useful += w * subw
+            padded += w * (nb - subw)
+            for i, (sid, name, _f) in enumerate(chunk):
+                st = self.sessions[sid]
+                row = {k: v[i:i + 1] for k, v in outs.items()}
+                mods = self.models[name].modalities()
+                emitted.append((sid, name, tuple(mods), row, st.step))
+                for mm in mods:
+                    self.cache.touch(self._cache_key(sid, name), mm, st.step)
+        return n_tail, emitted, useful, padded
+
+    def _flush_compute(self, touched):
+        """The device work of a flush, queued without waiting: the
+        batched encodes (bucketed or ragged), then the re-fusion of every
+        dirty session whose selected model's features are all cached."""
+        # ---- batched encode + scatter rows into the feature cache
+        if self.ragged is not None:
+            n_enc, enc_u, enc_p = self._flush_encode_ragged(touched)
+        else:
+            n_enc, enc_u, enc_p = self._flush_encode(touched)
+
+        # ---- progressive re-fusion: batched tails per selected model
+        tail_groups = defaultdict(list)    # model name -> [(sid, feats)]
+        consumed_meta: Dict[Tuple[str, str], dict] = {}
+        for sid in touched:
+            st = self.sessions[sid]
+            if not st.dirty:
+                continue
+            st.dirty.clear()
+            name = select_model(self.models, st.inputs)
+            if name is None:
+                continue
+            sm = self.models[name]
+            feats = self.cache.features(self._cache_key(st.sid, name),
+                                        sm.modalities(),
+                                        input_steps=st.input_step)
+            if feats is not None:
+                tail_groups[name].append((st.sid, feats))
+                if self.tracer:
+                    # snapshot source steps BEFORE the tail path re-stamps
+                    # them via cache.touch
+                    key = self._cache_key(st.sid, name)
+                    consumed_meta[(st.sid, name)] = {
+                        m: [self.cache.peek(key, m).step,
+                            st.input_step.get(m, 0)]
+                        for m in sm.modalities()}
+
+        full_name = (self._grouped_tail_target(tail_groups)
+                     if self.ragged is not None and tail_groups else None)
+        if full_name is not None:
+            n_tail, emitted, tail_u, tail_p = self._flush_tails_grouped(
+                tail_groups, full_name)
+        else:
+            n_tail, emitted, tail_u, tail_p = self._flush_tails(tail_groups)
+
+        return (n_enc, enc_u, enc_p, n_tail, emitted, tail_u, tail_p,
+                consumed_meta)
+
+    def flush(self) -> FlushReport:
+        """Run all pending work: one batched encoder call per (modality,
+        bucket[, chunk]) per consuming model (ONE in total with
+        ``share_encoders``), scatter rows into the feature cache, one
+        batched tail per selected model, emit progressive predictions,
+        and wait for the card ONCE. Nothing before that wait reads a
+        device value; ``wall_s`` includes it."""
+        if self.tiered:
+            raise RuntimeError(
+                "flush() is a flush-mode operation; tiered placement "
+                "processes each arrival in submit()")
+        t0 = self.time_fn()
+        # every dirty marking comes with a _pending entry, so only the
+        # pending sessions can have work
+        touched = sorted({sid for sid, _, _ in self._pending})
+
+        with torch.inference_mode():
+            (n_enc, enc_u, enc_p, n_tail, emitted, tail_u, tail_p,
+             consumed_meta) = self._flush_compute(touched)
+
+        # ---- the ONE host sync of this flush
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t1 = self.time_fn()
+
+        flush_id = self.flushes_total
+        predictions, recommendations = [], {}
+        for sid, name, mods, row, step in emitted:
+            kind = "final" if frozenset(mods) == self.full_set else "partial"
+            pred = Prediction(sid=sid, step=step, model=name,
+                              modalities=mods, kind=kind, outputs=row,
+                              flush_id=flush_id, t_emit=t1)
+            st = self.sessions[sid]
+            self._record_prediction(st, pred)
+            predictions.append(pred)
+            recommendations[sid] = row
+            if self.tracer:
+                key = self._cache_key(sid, name)
+                self.tracer.instant(
+                    "fuse", "fusion", t1, track=f"session:{sid}",
+                    sid=sid, key=key, model=name, step=step,
+                    consumed=consumed_meta.get((sid, name), {}))
+                self.tracer.instant(
+                    "emit", "predict", t1, track=f"session:{sid}",
+                    sid=sid, key=key, model=name, step=step, kind=kind,
+                    modalities=sorted(mods))
+
+        # keyed by arrival with the EARLIEST submit kept: a duplicate
+        # submission of the same (sid, idx) counts once
+        arrived: Dict[Tuple[str, int], float] = {}
+        for sid, idx, ts in self._pending:
+            arrived.setdefault((sid, idx), ts)
+        latencies = {key: t1 - ts for key, ts in arrived.items()}
+        report = FlushReport(
+            flush_id=flush_id, n_events=len(arrived),
+            n_encoder_calls=n_enc, n_tail_calls=n_tail, wall_s=t1 - t0,
+            latencies=latencies, predictions=predictions,
+            recommendations=recommendations,
+            flops_useful=enc_u + tail_u, flops_padded=enc_p + tail_p)
+        if self.tracer:
+            for (sid, idx), ts in arrived.items():
+                self.tracer.span("queue.wait", "queue", ts, t0,
+                                 track=f"session:{sid}", sid=sid,
+                                 index=idx)
+            self.tracer.span("flush", "flush", t0, t1, track="engine",
+                             flush_id=flush_id, n_events=len(arrived),
+                             n_encoder_calls=n_enc, n_tail_calls=n_tail)
+        self.metrics.inc("engine.flushes")
+        self.metrics.inc("engine.flush_events", len(arrived))
+        self.metrics.observe("flush.wall_s", t1 - t0)
+        for lat in latencies.values():
+            self.metrics.observe("serve.latency_s", lat)
+        self._pending.clear()
+        self.flushes.append(report)
+        if self.max_history is not None:
+            del self.flushes[:-self.max_history]
+        self.flushes_total += 1
+        self._enc_calls_total += n_enc
+        self._tail_calls_total += n_tail
+        self.evict_sessions(t1)
+        return report
+
+    def _record_prediction(self, st: SessionView, pred: Prediction):
+        """Session-side bookkeeping shared by flush- and tiered-mode
+        emissions."""
+        st.predictions.append(pred)
+        if self.max_history is not None:
+            del st.predictions[:-self.max_history]
+        st.last_recommendation = pred.outputs
+        st.t_last_activity = pred.t_emit if self.tiered else self.time_fn()
+        if pred.kind == "final":
+            st.finalized = True
+            if st.t_final_prediction is None:
+                st.t_final_prediction = pred.t_emit
+        if st.t_first_prediction is None:
+            st.t_first_prediction = pred.t_emit
+            if not self.tiered and st.t_first_submit is not None:
+                self.metrics.observe("serve.ttfp_s",
+                                     pred.t_emit - st.t_first_submit)
 
     # ---------------------------------------------------------- eviction
 
@@ -421,41 +1098,53 @@ class EMSServeEngine:
                 else [f"{sid}:{n}" for n in self.models])
         for key in keys:
             self.cache.drop_session(key)
-        # forget every tier replica's versions too: a re-created session
-        # restarts its version counters at 0, and a stale high-water mark
-        # would wrongly skip re-shipping features
-        dropped = set(keys)
-        for versions in self._replica_versions.values():
-            for k in [k for k in versions if k[0] in dropped]:
-                del versions[k]
+        if self.tiered:
+            # forget every tier replica's versions too: a re-created
+            # session restarts its version counters at 0, and a stale
+            # high-water mark would wrongly skip re-shipping features
+            dropped = set(keys)
+            for versions in self._replica_versions.values():
+                for k in [k for k in versions if k[0] in dropped]:
+                    del versions[k]
         del self.sessions[sid]
         self.metrics.inc("engine.evicted_sessions")
         if self.tracer:
             self.tracer.instant("evict", "session", track="engine",
                                 sid=sid, keys=keys)
 
-    def evict_sessions(self, now: float) -> int:
-        """Cross-incident eviction sweep on the simulated clock; returns
-        how many sessions left. Idle timeout first, then LRU down to
-        ``max_sessions``: least-recently-active leaves first. Per-arrival
-        serving leaves nothing pending, so every session is evictable."""
+    def evict_sessions(self, now: Optional[float] = None) -> int:
+        """Cross-incident eviction sweep; returns how many sessions left.
+        A session is evictable only when it has no pending arrivals and
+        no un-flushed dirty modalities — eviction never drops work. Idle
+        timeout first, then LRU down to ``max_sessions``:
+        least-recently-active leaves first, so a finalized incident that
+        is still streaming updates outlives an abandoned partial one
+        (finalized only breaks activity ties). ``now`` is the engine's
+        ``time_fn`` clock in flush mode, the simulated clock in tiered
+        mode."""
         if self.idle_timeout_s is None and self.max_sessions is None:
             return 0
-        evictable = list(self.sessions.values())
+        now = self.time_fn() if now is None else now
+        pending_sids = {sid for sid, _, _ in self._pending}
+        evictable = [st for sid, st in self.sessions.items()
+                     if sid not in pending_sids and not st.dirty]
         n0 = self.evicted_count
         if self.idle_timeout_s is not None:
             for st in list(evictable):
-                last = st.t_last_activity
+                last = (st.t_last_activity if st.t_last_activity is not None
+                        else st.t_first_submit)
                 if last is not None and now - last >= self.idle_timeout_s:
                     self._evict(st.sid)
                     evictable.remove(st)
         if self.max_sessions is not None \
                 and len(self.sessions) > self.max_sessions:
-            evictable.sort(key=lambda st: st.t_last_activity or 0.0)
+            evictable.sort(key=lambda st: (st.t_last_activity or 0.0,
+                                           not st.finalized))
             excess = len(self.sessions) - self.max_sessions
             for st in evictable[:excess]:
                 self._evict(st.sid)
         return self.evicted_count - n0
+
 
     # ==================================================================
     # Tiered placement path (per-arrival on the simulated tier clocks)
@@ -637,7 +1326,7 @@ class EMSServeEngine:
         if not consumers:
             return {}
         runners = consumers[:1] if self.share_encoders else consumers
-        enc_in = st.inputs[m]
+        enc_in = self._bucketed(m, st.inputs[m])
         with torch.inference_mode():
             if precision == "int8":
                 return {name: quantize_feature(sm.encoders[m](
@@ -697,8 +1386,13 @@ class EMSServeEngine:
     def _submit_tiered(self, sid: str, event: Event, payload, *,
                        aggregate=None) -> TieredRecord:
         """Process one arriving datum end to end: decide a tier per
-        submodule, encode there, transport, re-fuse, emit on glass."""
+        submodule, encode there, transport, re-fuse, emit on glass. With
+        the stream policy's ``glass_partials``, an offloaded arrival also
+        yields an immediate on-glass provisional partial from cached
+        features."""
+        prev_observed = set(self.session(sid).inputs)
         st = self._intake(sid, event, payload, aggregate)
+        st.dirty.clear()        # per-arrival mode: nothing buffers
         t_a = event.arrival_time
         if st.t_first_arrival is None:
             st.t_first_arrival = t_a
@@ -733,14 +1427,19 @@ class EMSServeEngine:
                                 tier=dec.tier, best_remote=dec.best_remote,
                                 **extra)
 
+        partial = None
+        if dec.tier != self.local_name and self.glass_partials:
+            partial = self._glass_provisional(st, prev_observed, now)
         if self.tail_placement:
             rec = self._placed_event(st, event, model_name, payload_b, now,
-                                     dec, avail, queues)
+                                     dec, avail, queues, prev_observed)
         elif dec.tier != self.local_name:
             rec = self._remote_event(st, event, model_name, payload_b, now,
                                      dec, dec.tier)
         else:
             rec = self._glass_event(st, event, model_name, now, dec)
+        if partial is not None:
+            rec.glass_partial = partial
 
         st.ready_at = rec.t_emit
         st.t_last_activity = rec.t_emit        # simulated clock
@@ -761,8 +1460,9 @@ class EMSServeEngine:
         if rec.outputs is not None:
             if st.t_first_emit is None:
                 st.t_first_emit = rec.t_emit
-                self.metrics.observe("serve.ttfp_s",
-                                     rec.t_emit - st.t_first_arrival)
+                if st.t_first_arrival is not None:
+                    self.metrics.observe("serve.ttfp_s",
+                                         rec.t_emit - st.t_first_arrival)
             if rec.kind == "final" and st.t_final_emit is None:
                 st.t_final_emit = rec.t_emit
             if self.tracer:
@@ -775,8 +1475,67 @@ class EMSServeEngine:
                     "emit", "predict", rec.t_emit, track=sess, sid=sid,
                     key=key, model=rec.model, step=st.step, kind=rec.kind,
                     modalities=sorted(self.models[rec.model].modalities()))
+            if self.stream_policy is not None:
+                self._record_prediction(st, Prediction(
+                    sid=st.sid, step=st.step, model=rec.model,
+                    modalities=tuple(self.models[rec.model].modalities()),
+                    kind=rec.kind, outputs=rec.outputs, flush_id=-1,
+                    t_emit=rec.t_emit))
+        # cross-incident eviction on the SIMULATED clock (every activity
+        # timestamp in this mode is a t_emit, so the wall-clock poll()
+        # must not sweep here)
         self.evict_sessions(rec.t_emit)
         return rec
+
+    def _glass_provisional(self, st: SessionView, prev_observed: set,
+                           now: float) -> Optional[Prediction]:
+        """Stream x tiered composition: while a remote tier refreshes the
+        arriving modality, the glasses immediately re-fuse what they
+        already hold — every feature read from the cache with the
+        <=1-step staleness invariant asserted (the arriving modality's
+        cached feature is exactly one step behind its input now, the
+        paper's tolerated bound). Tagged ``partial`` always: it never
+        reflects the newest datum. No cache touch — provisional serving
+        must not mask real staleness from later reads."""
+        name = select_model(self.models, prev_observed)
+        if name is None:
+            return None
+        sm = self.models[name]
+        feats = self.cache.features(self._cache_key(st.sid, name),
+                                    sm.modalities(),
+                                    input_steps=st.input_step)
+        if feats is None:
+            return None
+        with torch.inference_mode():
+            feats = {mm: dequantize_feature(f) for mm, f in feats.items()}
+            outputs = sm.tail(self.params[name], feats)
+        _start, done = self.glass.occupy(self.glass.time("tail"), now,
+                                         label="tail@glass:provisional")
+        pred = Prediction(sid=st.sid, step=st.step, model=name,
+                          modalities=tuple(sm.modalities()), kind="partial",
+                          outputs=outputs, flush_id=-1, t_emit=done)
+        self._record_prediction(st, pred)
+        if self.tracer:
+            key = self._cache_key(st.sid, name)
+            sess = f"session:{st.sid}"
+            consumed = {mm: [self.cache.peek(key, mm).step,
+                             st.input_step.get(mm, 0)]
+                        for mm in sm.modalities()}
+            self.tracer.instant("fuse", "fusion", done, track=sess,
+                                sid=st.sid, key=key, model=name,
+                                step=st.step, consumed=consumed,
+                                provisional=True)
+            self.tracer.instant("emit", "predict", done, track=sess,
+                                sid=st.sid, key=key, model=name,
+                                step=st.step, kind="partial",
+                                modalities=sorted(sm.modalities()),
+                                provisional=True)
+        if st.t_first_emit is None or done < st.t_first_emit:
+            if st.t_first_emit is None and st.t_first_arrival is not None:
+                self.metrics.observe("serve.ttfp_s",
+                                     done - st.t_first_arrival)
+            st.t_first_emit = done
+        return pred
 
     def _kind(self, model_name: Optional[str]) -> str:
         if model_name is None:
@@ -930,8 +1689,8 @@ class EMSServeEngine:
 
     def _placed_event(self, st: SessionView, event: Event,
                       model_name: Optional[str], payload_b: int,
-                      now: float, dec: TierDecision, avail,
-                      queues) -> TieredRecord:
+                      now: float, dec: TierDecision, avail, queues,
+                      prev_observed: set) -> TieredRecord:
         """Per-submodule placement: the encoder goes to ``dec.tier``;
         when a fusion will run, the tail gets its OWN argmin placement
         (possibly a third host), paying the feature hop between the two
@@ -968,6 +1727,12 @@ class EMSServeEngine:
         dtail = self.policy.decide_tail(feat_b, out_b, A, now,
                                         queues=queues, available=avail)
         T = dtail.tier
+        partial = None
+        if A == self.local_name and T != A and self.glass_partials:
+            # the split shape pays a remote round trip even though the
+            # encoder stayed home: the EMT still gets an immediate
+            # provisional from cached features while the tail travels
+            partial = self._glass_provisional(st, prev_observed, now)
         if T == A:
             if A == self.local_name:
                 rec = self._glass_event(st, event, model_name, now, dec,
@@ -980,6 +1745,8 @@ class EMSServeEngine:
             rec = self._split_event(st, event, model_name, payload_b, now,
                                     dec, A, T, feats, outputs, feat_b, out_b)
         rec.tail_decision = dtail
+        if partial is not None:
+            rec.glass_partial = partial
         return rec
 
     def _split_event(self, st: SessionView, event: Event, model_name: str,
@@ -1126,41 +1893,120 @@ class EMSServeEngine:
     # --------------------------------------------------------- episodes
 
     def run_arrivals(self, episodes: Dict[str, List[Event]], payload_fn,
-                     *, aggregate=None, crash_at: Optional[float] = None,
+                     *, aggregate=None, sim_window: Optional[float] = None,
+                     crash_at: Optional[float] = None,
                      rejoin_at: Optional[float] = None, schedule=None):
         """Drive sessions through their episodes in GLOBAL arrival-time
-        order (``core.episodes.merge_arrivals``), one arrival at a time,
-        optionally killing the fastest remote at simulated time
-        ``crash_at`` (restarted at ``rejoin_at``); returns the records.
+        order (``core.episodes.merge_arrivals``). ``payload_fn(sid, event)
+        -> payload``.
+
+        Tiered placement: per arrival, optionally killing the fastest
+        remote at simulated time ``crash_at`` (restarted at
+        ``rejoin_at``); returns the records. Flush mode: with
+        ``sim_window=None`` the engine's wall-clock deadline policy
+        applies; with ``sim_window`` set, the deadline rule runs on
+        EPISODE time instead: after each submit, flush iff the oldest
+        pending arrival's episode time is >= ``sim_window`` seconds
+        behind the current one (``sim_window=0`` flushes per arrival). A
+        final ``drain`` runs either way; returns the flush reports."""
+        arrivals = merge_arrivals(episodes)
+        if self.tiered:
+            if schedule is not None:
+                self.inject_schedule(schedule)
+            if crash_at is not None:
+                self.inject_crash(crash_at, rejoin_at=rejoin_at)
+            elif rejoin_at is not None:
+                raise ValueError("rejoin_at requires crash_at")
+            for _t, sid, ev in arrivals:
+                self.submit(sid, ev, payload_fn(sid, ev),
+                            aggregate=aggregate)
+            return self.records
+        if crash_at is not None or rejoin_at is not None \
+                or schedule is not None:
+            raise ValueError("crash_at/rejoin_at/schedule require tiered "
+                             "placement")
+        if sim_window is None:
+            for _t, sid, ev in arrivals:
+                self.submit(sid, ev, payload_fn(sid, ev),
+                            aggregate=aggregate)
+        else:
+            saved, self.deadline_s = self.deadline_s, None
+            try:
+                oldest = None
+                for t, sid, ev in arrivals:
+                    self.submit(sid, ev, payload_fn(sid, ev),
+                                aggregate=aggregate)
+                    oldest = t if oldest is None else oldest
+                    if t - oldest >= sim_window:
+                        self.flush()
+                        oldest = None
+            finally:
+                self.deadline_s = saved
+        self.drain()
+        return self.flushes
+
+    def run_episodes(self, episodes: Dict[str, List[Event]], payload_fn,
+                     *, aggregate=None, events_per_flush: int = 1):
+        """Tick-driven batch serving: at tick t every session submits its
+        t-th event; flush every ``events_per_flush`` ticks.
         ``payload_fn(sid, event) -> payload``."""
-        if schedule is not None:
-            self.inject_schedule(schedule)
-        if crash_at is not None:
-            self.inject_crash(crash_at, rejoin_at=rejoin_at)
-        elif rejoin_at is not None:
-            raise ValueError("rejoin_at requires crash_at")
-        for _t, sid, ev in merge_arrivals(episodes):
-            self.submit(sid, ev, payload_fn(sid, ev), aggregate=aggregate)
-        return self.records
+        if self.tiered:
+            raise RuntimeError("run_episodes is a flush-mode driver; "
+                               "tiered placement uses run_arrivals")
+        horizon = max((len(ev) for ev in episodes.values()), default=0)
+        for t in range(horizon):
+            for sid, evs in episodes.items():
+                if t < len(evs):
+                    self.submit(sid, evs[t], payload_fn(sid, evs[t]),
+                                aggregate=aggregate)
+            if (t + 1) % events_per_flush == 0:
+                self.flush()
+        if self._pending:
+            self.flush()
+        return self.flushes
 
     # ------------------------------------------------------------- stats
 
     def compile_count(self) -> int:
         return sum(sm.compile_count() for sm in self.models.values())
 
+    def encoder_calls_total(self) -> int:
+        return self._enc_calls_total
+
+    def tail_calls_total(self) -> int:
+        return self._tail_calls_total
+
+    def event_latencies(self) -> List[float]:
+        return [lat for f in self.flushes for lat in f.latencies.values()]
+
+    def total_wall_s(self) -> float:
+        return sum(f.wall_s for f in self.flushes)
+
     def time_to_first_prediction(self, sid: str) -> Optional[float]:
-        """Simulated seconds from a session's first arrival to its first
-        emission."""
+        """Flush mode: wall seconds from first submit to first emitted
+        prediction. Tiered: simulated seconds from first arrival to the
+        first emission (a glass provisional counts — it IS the first
+        thing the EMT sees)."""
         st = self.sessions[sid]
-        if st.t_first_emit is None or st.t_first_arrival is None:
+        if self.tiered:
+            if st.t_first_emit is None or st.t_first_arrival is None:
+                return None
+            return st.t_first_emit - st.t_first_arrival
+        if st.t_first_prediction is None or st.t_first_submit is None:
             return None
-        return st.t_first_emit - st.t_first_arrival
+        return st.t_first_prediction - st.t_first_submit
 
     def time_to_final_prediction(self, sid: str) -> Optional[float]:
         st = self.sessions[sid]
-        if st.t_final_emit is None or st.t_first_arrival is None:
+        if self.tiered:
+            if st.t_final_emit is None or st.t_first_arrival is None:
+                return None
+            return st.t_final_emit - st.t_first_arrival
+        if st.t_final_prediction is None or st.t_first_submit is None:
             return None
-        return st.t_final_emit - st.t_first_arrival
+        return st.t_final_prediction - st.t_first_submit
+
+    # ----- tiered stats (meaningful only with placement enabled)
 
     def total_latency_s(self) -> float:
         """Cumulative serving latency (sum of per-arrival t_emit -
@@ -1198,6 +2044,12 @@ _SPEC_TOKENS = {
     "tiered": "tiered", "tier": "tiered", "placement": "tiered",
 }
 _ENGINE_KEYS = ("share_encoders", "max_history")
+# canonical sections -> (policy class, EngineSpec field)
+_SECTIONS = {
+    "batch": (BatchPolicy, "batch"),
+    "stream": (StreamPolicy, "stream"),
+    "tiered": (PlacementPolicy, "placement"),
+}
 
 
 def spec_tokens(spec: str) -> Tuple[str, ...]:
@@ -1217,13 +2069,18 @@ def spec_tokens(spec: str) -> Tuple[str, ...]:
 def parse_spec(spec, **overrides) -> EngineSpec:
     """Normalise an engine spec into a typed :class:`EngineSpec`.
 
-    ``spec`` is a string of '+'-joined policy tokens, a dict with a
-    ``tiered`` section (True or a kwargs dict) plus engine-wide keys
-    ``share_encoders``/``max_history``, or an :class:`EngineSpec`
-    (returned as-is). ``overrides`` go to the engine or to
-    :class:`PlacementPolicy` by name and beat the same key in a dict
-    section. Tiered specs REQUIRE ``profile`` and ``trace``. The
-    ``batch`` and ``stream`` policies raise ``NotImplementedError``."""
+    ``spec`` is a string of '+'-joined policy tokens (``"batch"``,
+    ``"batch+stream"``, ``"stream+tiered"``, ...; aliases
+    batched/streaming/tier/placement), a dict with sections ``batch`` /
+    ``stream`` / ``tiered`` (each True or a kwargs dict) plus the
+    engine-wide keys ``share_encoders``/``max_history``, or an
+    :class:`EngineSpec` (returned as-is). ``overrides`` are routed by
+    name: policy fields go to their policy (``deadline_s`` ->
+    StreamPolicy, ``profile``/``trace`` -> PlacementPolicy, ``bucketer``
+    -> BatchPolicy, which every flush-mode engine has, so its knobs need
+    no ``batch`` token), engine keys to the engine; an override beats the
+    same key in a dict section. Tiered specs REQUIRE ``profile`` and
+    ``trace``."""
     if isinstance(spec, EngineSpec):
         if overrides:
             raise ValueError("overrides are not applied to a pre-built "
@@ -1250,37 +2107,46 @@ def parse_spec(spec, **overrides) -> EngineSpec:
     if not sections:
         raise ValueError("empty engine spec: enable at least one of "
                          "batch/stream/tiered")
-    if set(sections) - {"tiered"}:
-        raise NotImplementedError(_FLUSH_PATH)
 
-    fields = set(PlacementPolicy.__dataclass_fields__)
-    kw = sections["tiered"]
+    fields_of = {sec: set(cls.__dataclass_fields__)
+                 for sec, (cls, _) in _SECTIONS.items()}
     for k, v in overrides.items():
         if k in _ENGINE_KEYS:
             engine_kw[k] = v
-        elif k in fields:
-            kw[k] = v                 # overrides WIN over dict-spec values
-        else:
+            continue
+        owner = next((sec for sec in sections if k in fields_of[sec]), None)
+        if owner is None and k in fields_of["batch"]:
+            owner = "batch"
+            sections.setdefault("batch", {})
+        if owner is None:
             raise ValueError(f"override {k!r} does not match any enabled "
-                             "policy (tiered)")
-    unknown = set(kw) - fields
-    if unknown:
-        raise ValueError(f"unknown tiered policy option(s): "
-                         f"{sorted(unknown)}")
-    if not {"profile", "trace"} <= set(kw):
-        raise ValueError("tiered placement requires 'profile' "
-                         "(ProfileTable) and 'trace' (BandwidthTrace)")
-    return EngineSpec(placement=PlacementPolicy(**kw), **engine_kw)
+                             f"policy ({'+'.join(sections)})")
+        sections[owner][k] = v        # overrides WIN over dict-spec values
+    policies: Dict[str, Any] = {}
+    for sec, kw in sections.items():
+        cls, target = _SECTIONS[sec]
+        unknown = set(kw) - fields_of[sec]
+        if unknown:
+            raise ValueError(f"unknown {sec} policy option(s): "
+                             f"{sorted(unknown)}")
+        if cls is PlacementPolicy and not {"profile", "trace"} <= set(kw):
+            raise ValueError("tiered placement requires 'profile' "
+                             "(ProfileTable) and 'trace' (BandwidthTrace)")
+        policies[target] = cls(**kw)
+    return EngineSpec(**policies, **engine_kw)
 
 
 def build_engine(models: Dict[str, SplitModel], params: Dict[str, dict],
-                 spec, *, tracer: Optional[Tracer] = None, device="cuda",
+                 spec, *, time_fn: Callable[[], float] = time.perf_counter,
+                 tracer: Optional[Tracer] = None, device="cuda",
                  **overrides) -> EMSServeEngine:
     """THE factory: assemble an :class:`EMSServeEngine` from a spec (see
-    :func:`parse_spec`). ``tracer`` turns on full-lifecycle span tracing;
-    ``device`` is where the params live and the tensors are computed."""
+    :func:`parse_spec`). ``time_fn`` is the flush-mode wall clock,
+    ``tracer`` turns on full-lifecycle span tracing, and ``device`` is
+    where the params live and the tensors are computed."""
     es = parse_spec(spec, **overrides)
-    return EMSServeEngine(models, params, placement=es.placement,
+    return EMSServeEngine(models, params, batch=es.batch, stream=es.stream,
+                          placement=es.placement,
                           share_encoders=es.share_encoders,
-                          max_history=es.max_history, tracer=tracer,
-                          device=device)
+                          max_history=es.max_history, time_fn=time_fn,
+                          tracer=tracer, device=device)

@@ -228,13 +228,27 @@ def test_scene_encoder_matches_reference():
 
 
 def test_ragged_payloads_wait_for_the_batch_engine():
+    """The ragged packed payloads the batch engine builds go through the
+    ragged forms of both encoders: one feature row per packed row, as
+    the reference computes them from its own pack."""
+    from repro.core.bucketing import RaggedBatch as JR
+    from repro_torch.core.bucketing import RaggedBatch
     cfg = tiny()
-    _, tp = _params(jax_tiny())
-    with pytest.raises(NotImplementedError, match="ragged"):
-        E.text_encoder(tp["text"], cfg, {"tokens": torch.zeros((1, 8))})
-    with pytest.raises(NotImplementedError, match="ragged"):
-        E.vitals_encoder(tp["vitals"], cfg, {"x": torch.zeros((1, 8, 6)),
-                                             "offsets": None})
+    jp, tp = _params(jax_tiny())
+    rng = np.random.default_rng(3)
+    toks = [rng.integers(1, cfg.vocab_size, (1, n)).astype(np.int32)
+            for n in (3, 9)]
+    vit = [rng.normal(size=(1, n, cfg.n_vitals)).astype(np.float32)
+           for n in (2, 5)]
+    for m, rows, enc, jenc in (("text", toks, E.text_encoder,
+                                JE.text_encoder),
+                               ("vitals", vit, E.vitals_encoder,
+                                JE.vitals_encoder)):
+        got = enc(tp[m], cfg, RaggedBatch().pack(m, rows))
+        want = jenc(jp[m], jax_tiny(),
+                    JR().pack(m, [jnp.asarray(r) for r in rows]))
+        assert got.shape == (2, cfg.feature_dims[m])
+        _close(got, want)
 
 
 # ---------------------------------------------------------- whole model

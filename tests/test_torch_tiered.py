@@ -231,9 +231,10 @@ def test_bad_precision_maps_raise_the_reference_messages(zoos):
 
 def test_later_slices_raise_not_implemented(zoos):
     (_, _), (psplits, pparams), _ = zoos
-    for spec in ("batch", "stream+tiered", {"stream": True}):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            PA.parse_spec(spec)
+    # the flush path (item 4) is ported: its specs parse, and a tiered
+    # engine refuses the flush-mode drivers as the reference does
+    assert PA.parse_spec("batch").enabled() == ("batch",)
+    assert PA.parse_spec({"stream": True}).enabled() == ("stream",)
     # speculation and re-dispatch have no option until item 7 ports them
     for knob in ({"speculation": object()}, {"redispatch": True}):
         with pytest.raises(ValueError, match="does not match"):
@@ -241,8 +242,11 @@ def test_later_slices_raise_not_implemented(zoos):
     eng = _engine(P, PA, psplits, pparams)
     with pytest.raises(NotImplementedError, match="item 7"):
         eng.inject_schedule([])
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(RuntimeError, match="flush-mode"):
         eng.flush()
+    with pytest.raises(RuntimeError, match="flush-mode driver"):
+        eng.run_episodes({}, None)
+    assert eng.poll() is None and eng.drain() is None
     with pytest.raises(ValueError, match="requires 'profile'"):
         PA.parse_spec("tiered")
     with pytest.raises(ValueError, match="does not match"):
@@ -383,9 +387,16 @@ def test_launcher_serves_tiered_int8_on_cpu(capsys):
     (["--engine", "tiered", "--speculate"], "item 7"),
     (["--engine", "tiered", "--redispatch"], "item 7"),
     (["--engine", "tiered", "--chaos-seed", "3"], "item 7"),
-    (["--engine", "tiered", "--wall-clock"], "item 4"),
-    (["--engine", "stream"], "item 4"),
-    (["--engine", "batch+tiered"], "item 4"),
+    (["--engine", "batch", "--wall-clock"],
+     "--wall-clock requires a stream or tiered spec"),
+    (["--engine", "batch", "--deadline-ms", "5"],
+     "--deadline-ms requires a stream spec"),
+    (["--engine", "stream+tiered", "--ragged"],
+     "--ragged requires a flush-mode spec"),
+    (["--engine", "batch", "--trace", "t.json"], "item 8"),
+    (["--engine", "batch", "--metrics-out", "m.prom"], "item 8"),
+    (["--batched", "4"], "item 10"),
+    (["--stream", "4"], "item 10"),
     (["--fleet", "4"], "item 9"),
     (["--engine", "tiered+warp"], "unknown engine spec token 'warp'"),
     (["--engine", "+"], "empty spec"),
