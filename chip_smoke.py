@@ -77,7 +77,7 @@ Phases, each printing one JSON line:
           read an int8 feature; t_emit within 1e-9 in (iv)). Flash
           launches == the CPU run's calls == layers x text encoder calls;
           the int8 kernels' launches == the CPU run's calls; at most one
-          synchronising call flagged per flush; ragged within 1e-4 of
+          synchronising call flagged per warm flush; ragged within 1e-4 of
           bucketed on the card; a grouped tail fusing several sessions;
           at least one glass partial in (iv). Reports per-flush wall and
           per-arrival latency p50/p99, the card's busy share, the padded
@@ -110,13 +110,29 @@ Phases, each printing one JSON line:
           each), one cold 520-token request, cache_len 1024: 4/4 hits, the
           stats the mix implies, decode attention launched layers x decode
           steps and the scan layers x (prefills + decode steps) times,
-          finite logits, two captured layer inputs held against the plain
-          version; reports prefill and per-token decode wall, tokens/s,
-          peak memory and the card's busy share under the profiler.
+          finite logits; an eager server (the system prompt and its first
+          hit) gives the same tokens, and two of its layer inputs are held
+          against the plain version; reports prefill and per-token decode
+          wall, graphed and eager, tokens/s, peak memory and the card's
+          busy share under the profiler.
   cli     the launcher's default command, its tiered int8 command, its
           flush-path commands (--engine batch; batch+stream --ragged;
-          stream --wall-clock --deadline-ms 50 --speed 5) and
-          python -m repro_torch.launch.llm_generate, on the card.
+          stream --wall-clock --deadline-ms 50 --speed 5), each printing a
+          CUDA graph count, and python -m repro_torch.launch.llm_generate
+          (one decode graph an arch), on the card.
+
+Graphs: the path phases (serve, bertbase, tiered, batch, llm) serve
+through the graphed pieces (``split(jit=True)``, the LLMServer's captured
+decode step) and also check, for each drive: compile_count() on the card
+== the CPU run's; a second pass of the drive captures nothing (its
+flushes, and only they, counted for synchronising calls, since capturing
+synchronises); every piece ran in Python only for its warm-up and its
+capture; an eager run on the card (``jit=False``, an uncaptured server)
+bit-equal to the graphed replays; the first pass's cached features byte
+for byte unchanged after the second pass. Each reports eager and graphed
+walls side by side, the captures, the seconds spent capturing and
+torch.cuda.memory_reserved() before and after. The tiered cells' profile
+tables are profiled from the eager pieces (``tier_table``).
 
 The last lines are the card's name and power limit as nvidia-smi prints
 them, the kernels' summary, and {"ok": true, "device": {...}}. Any failed
@@ -129,6 +145,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -453,10 +470,11 @@ def run_episodes(splits, params, payloads, table, device, *, cached=True,
 
 def device_time(fn, kernel_name, *, host_ops=True):
     """(the card's busy microseconds, the kernel's share of them, the
-    profiled wall microseconds) over one call of ``fn``, from
-    torch.profiler; (None, None, wall) where the trace holds no device
-    time. ``host_ops=False`` traces the card alone, which keeps a run of
-    ~10^5 small launches quick to reduce."""
+    profiled wall microseconds, the 6 largest device entries' shares of
+    the busy time) over one call of ``fn``, from torch.profiler; (None,
+    None, wall, {}) where the trace holds no device time.
+    ``host_ops=False`` traces the card alone, which keeps a run of ~10^5
+    small launches quick to reduce."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -468,6 +486,7 @@ def device_time(fn, kernel_name, *, host_ops=True):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     total = kern = 0.0
+    by_key = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -475,11 +494,137 @@ def device_time(fn, kernel_name, *, host_ops=True):
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0.0)
         total += t
+        by_key[e.key[:80]] = by_key.get(e.key[:80], 0.0) + t
         if kernel_name in e.key:
             kern += t
     if total <= 0:
-        return None, None, wall_us
-    return total, kern / total, wall_us
+        return None, None, wall_us, {}
+    top = dict(sorted(((k, t / total) for k, t in by_key.items()),
+                      key=lambda kv: -kv[1])[:6])
+    return total, kern / total, wall_us, top
+
+
+# ---------------------------------------------------------------- graphs
+#
+# Every path phase runs the graphed pieces (``split(jit=True)``, the
+# LLMServer's captured decode step) and holds them to: the card's
+# compile_count() == the CPU run's of the same drive; a second pass of
+# the drive captures nothing; an eager run on the card (``jit=False``)
+# bit-equal to the graphed replays; a feature the first pass committed
+# byte for byte unchanged after the second pass's replays.
+
+class Counted:
+    """An encoder piece that counts its calls (the engine's encoder calls
+    of one modality); its compile count reads through to the piece."""
+
+    def __init__(self, fn, calls):
+        self.fn, self.calls = fn, calls
+
+    def __call__(self, p, x):
+        self.calls[0] += 1
+        return self.fn(p, x)
+
+    def compile_count(self):
+        from repro_torch.graphs import compile_count
+        return compile_count(self.fn)
+
+
+def graphed_pieces(splits):
+    """The ``Graphed`` pieces of a {name: SplitModel} zoo."""
+    from repro_torch.graphs import Graphed
+    fns = [fn.fn if isinstance(fn, Counted) else fn
+           for sm in splits.values()
+           for fn in (*sm.encoders.values(), sm.tail, sm.full)]
+    return [fn for fn in fns if isinstance(fn, Graphed)]
+
+
+def captures(fns):
+    """(graphs captured, host seconds spent capturing) over graphed
+    pieces on the card."""
+    return (sum(f.compile_count() for f in fns),
+            sum(f.capture_s for f in fns))
+
+
+def count_runs(g):
+    """Count the Python runs of a ``Graphed`` piece's function in
+    ``g.runs``: its warm-up and its capture, never a replay."""
+    inner = g.fn
+
+    def run(*a):
+        g.runs += 1
+        return inner(*a)
+    g.runs, g.fn = 0, run
+    return g
+
+
+def fresh(splits, *, jit=True):
+    """New pieces over the same modules, their Python runs counted: a
+    path's own signatures counted from zero, or (``jit=False``) the eager
+    pieces."""
+    from repro_torch.core import split
+    out = {k: split(sm.module, jit=jit) for k, sm in splits.items()}
+    for g in graphed_pieces(out):
+        count_runs(g)
+    return out
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [tree]
+
+
+def cache_snapshot(cache):
+    """A copy of every feature a feature cache holds."""
+    return {k: [t.clone() for t in _tensors(e.feature)]
+            for k, e in cache.entries()}
+
+
+def check_cache_unchanged(cache, snap, what):
+    """Every feature of ``snap`` still in ``cache``, byte for byte."""
+    for (sess, m), want in snap.items():
+        got = _tensors(cache.peek(sess, m).feature)
+        check(len(got) == len(want)
+              and all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{what}: cached feature {(sess, m)} changed after replays")
+    return len(snap)
+
+
+def graph_row(count, cpu_count, fns, first, mem_before, **extra):
+    """Checks the compile count, the plateau (nothing captured since
+    ``first``, the pieces' ``captures`` after the first pass) and that no
+    piece ran in Python but for its warm-up and its capture; the row the
+    phase emits."""
+    n, _ = captures(fns)
+    runs = sum(f.runs for f in fns)
+    check(count == cpu_count and count > 0, f"compile_count {count} on the "
+          f"card != {cpu_count} on the CPU (or 0)")
+    check(n == first[0], f"a second pass of the drive captured "
+          f"{n - first[0]} graphs")
+    check(runs == 2 * n, f"the pieces ran {runs} times in Python for {n} "
+          "captures: a piece ran eagerly after its warm-up")
+    return dict(compile_count=count, cpu_compile_count=cpu_count,
+                captures=first[0], capture_s=first[1],
+                second_pass_captures=n - first[0], python_runs=runs,
+                memory_reserved={"before": mem_before,
+                                 "after": torch.cuda.memory_reserved()},
+                **extra)
+
+
+def same_records(a_recs, b_recs, what):
+    """Per-event records: the same model, tier and cache hits; outputs bit
+    for bit."""
+    check(len(a_recs) == len(b_recs), f"{what}: record counts differ")
+    for a, b in zip(a_recs, b_recs):
+        check((a.model, a.tier, a.cache_hits) == (b.model, b.tier,
+                                                  b.cache_hits),
+              f"{what}: event {a.index} placed differently")
+        check((a.recommendation is None) == (b.recommendation is None),
+              f"{what}: recommendation presence differs")
+        if a.recommendation is not None:
+            for k in a.recommendation:
+                check(torch.equal(a.recommendation[k], b.recommendation[k]),
+                      f"{what}: event {a.index} {k} not bit-equal")
 
 
 def phase_serve():
@@ -494,10 +639,13 @@ def phase_serve():
     payloads = sample_payloads(cfg)
     table = ProfileTable(base=profile(splits["m3"], params["m3"], payloads,
                                       device="cuda"))
+    splits = fresh(splits)                      # the path's own graphs
+    mem0 = torch.cuda.memory_reserved()
 
     FA.flash_attention.launches = 0             # the main path starts here
     gpu = run_episodes(splits, params, payloads, table, "cuda")
     launches = FA.flash_attention.launches      # ... and ends here
+    caps = captures(graphed_pieces(splits))
 
     n_layers = cfg.text_dims[0]
     text_models = sum("text" in sm.modalities() for sm in splits.values())
@@ -544,28 +692,52 @@ def phase_serve():
                     max_diff = max(max_diff, d)
     check(max_diff <= TOL, f"cuda vs cpu outputs differ by {max_diff} > {TOL}")
 
+    # a second pass replays every graph and captures none; the first
+    # pass's cached features stay as they were; episode 1 eagerly on the
+    # card (jit=False) is bit-equal to its graphed replay
+    snap = cache_snapshot(gpu[0]["engine"].cache)
+    warm = run_episodes(splits, params, payloads, table, "cuda")
+    check_cache_unchanged(gpu[0]["engine"].cache, snap, "serve")
+    eager_splits = fresh(splits, jit=False)
+    eager = [run_episodes(eager_splits, params, payloads, table, "cuda",
+                          episodes=(1,))[0] for _ in range(2)]
+    for run in eager:
+        same_records(warm[0]["engine"].records, run["engine"].records,
+                     "serve: graphed vs eager")
+    graphs = graph_row(
+        sum(sm.compile_count() for sm in splits.values()),
+        sum(sm.compile_count() for sm in cpu_splits.values()),
+        graphed_pieces(splits), caps, mem0, cached_features_checked=len(snap),
+        episode1_event_ms={"graphed": _percentiles(warm[0]["event_s"]),
+                           "eager": _percentiles(eager[1]["event_s"]),
+                           "eager_first": _percentiles(eager[0]["event_s"])})
+
     # the same three episodes once more under the profiler; the busy share
-    # is taken against the unprofiled run's wall time (the profiler slows
-    # the host) and against the profiled run's own
-    busy_us, share, prof_wall_us = device_time(
+    # is taken against the unprofiled warm run's wall time (the profiler
+    # slows the host) and against the profiled run's own
+    busy_us, share, prof_wall_us, top = device_time(
         lambda: run_episodes(splits, params, payloads, table, "cuda"),
         "flash_fwd_kernel")
-    gpu_wall_us = 1e6 * sum(run["wall_s"] for run in gpu)
+    gpu_wall_us = 1e6 * sum(run["wall_s"] for run in warm)
     direct = run_episodes(splits, params, payloads, table, "cuda",
                           cached=False)
-    ev_ms = sorted(1e3 * s for run in gpu for s in run["event_s"])
+    ev_ms = sorted(1e3 * s for run in warm for s in run["event_s"])
     sim = {c: sum(run["engine"].cumulative_time() for run in runs)
-           for c, runs in (("cached", gpu), ("direct", direct))}
+           for c, runs in (("cached", warm), ("direct", direct))}
     wall = {c: sum(run["wall_s"] for run in runs)
-            for c, runs in (("cached", gpu), ("direct", direct))}
+            for c, runs in (("cached", warm), ("direct", direct))}
     emit("serve", config="tinybert-gru-fc vocab 2048", launches=launches,
          expected_launches=expected, text_events=text_events,
          recommendations=n_recs, cpu_max_abs_diff=max_diff,
          profile_s=table.base,
-         episode_wall_s={run["episode"]: run["wall_s"] for run in gpu},
+         episode_wall_s={run["episode"]: run["wall_s"] for run in warm},
          event_ms_p50=float(np.percentile(ev_ms, 50)),
          event_ms_p99=float(np.percentile(ev_ms, 99)),
+         first_pass_event_ms=_percentiles([t for run in gpu
+                                           for t in run["event_s"]]),
+         graphs=graphs,
          flash_share_of_gpu_time=share, gpu_busy_us=busy_us,
+         top_device_shares=top,
          gpu_busy_share_of_wall=(busy_us / gpu_wall_us if busy_us else None),
          gpu_busy_share_of_profiled_wall=(busy_us / prof_wall_us
                                           if busy_us else None),
@@ -579,7 +751,8 @@ def phase_bertbase():
     """One Table-6 episode served per event with the BERT-base text
     encoder (12 layers, d=768, 12 heads of 64), as --text-encoder
     bertbase serves it: the flash kernel's launches counted on that path,
-    every recommendation finite."""
+    every recommendation finite, the compile count equal to a CPU run's,
+    a second pass capturing nothing, an eager run bit-equal."""
     from repro_torch.configs.emsnet import config
     from repro_torch.core import ProfileTable, profile
     from repro_torch.kernels import flash_attention as FA
@@ -590,10 +763,13 @@ def phase_bertbase():
     payloads = sample_payloads(cfg)
     table = ProfileTable(base=profile(splits["m3"], params["m3"], payloads,
                                       device="cuda"))
+    splits = fresh(splits)
+    mem0 = torch.cuda.memory_reserved()
     FA.flash_attention.launches = 0             # the path starts here
     runs = run_episodes(splits, params, payloads, table, "cuda",
                         episodes=(1,))
     launches = FA.flash_attention.launches      # ... and ends here
+    caps = captures(graphed_pieces(splits))
     n_layers = cfg.text_dims[0]
     text_models = sum("text" in sm.modalities() for sm in splits.values())
     text_events = sum(r.modality == "text" for r in runs[0]["engine"].records)
@@ -609,13 +785,32 @@ def phase_bertbase():
             for k, t in r.recommendation.items():
                 check(bool(torch.isfinite(t).all()), f"bertbase: non-finite {k}")
     check(n_recs > 0, "bertbase: no recommendation was served")
-    ev_ms = sorted(1e3 * t for t in runs[0]["event_s"])
+    snap = cache_snapshot(runs[0]["engine"].cache)
+    warm = run_episodes(splits, params, payloads, table, "cuda",
+                        episodes=(1,))
+    check_cache_unchanged(runs[0]["engine"].cache, snap, "bertbase")
+    eager = run_episodes(fresh(splits, jit=False), params, payloads, table,
+                         "cuda", episodes=(1,))
+    same_records(warm[0]["engine"].records, eager[0]["engine"].records,
+                 "bertbase: graphed vs eager")
+    # the compile count of the same drive on the CPU (its weights drawn
+    # there from the same seed)
+    cpu_splits, cpu_params = build_models(cfg, seed=0, device="cpu")
+    run_episodes(cpu_splits, cpu_params, payloads, table, "cpu",
+                 episodes=(1,))
+    graphs = graph_row(
+        sum(sm.compile_count() for sm in splits.values()),
+        sum(sm.compile_count() for sm in cpu_splits.values()),
+        graphed_pieces(splits), caps, mem0, cached_features_checked=len(snap))
+    ev_ms = sorted(1e3 * t for t in warm[0]["event_s"])
     emit("bertbase", config="bertbase-gru-fc vocab 2048", launches=launches,
          expected_launches=expected, text_events=text_events,
-         recommendations=n_recs, episode_wall_s=runs[0]["wall_s"],
+         recommendations=n_recs, episode_wall_s=warm[0]["wall_s"],
          event_ms_p50=float(np.percentile(ev_ms, 50)),
-         event_ms_p99=float(np.percentile(ev_ms, 99)))
-    del splits, params
+         event_ms_p99=float(np.percentile(ev_ms, 99)),
+         first_pass_event_ms=_percentiles(runs[0]["event_s"]),
+         eager_event_ms=_percentiles(eager[0]["event_s"]), graphs=graphs)
+    del splits, params, cpu_splits, cpu_params
     torch.cuda.empty_cache()
     return launches
 
@@ -816,18 +1011,39 @@ def phase_int8():
 TIERED_PRECISION = {"ph1": "int8", "edge64x": "int8"}
 
 
-def tiered_engine(splits, params, table, device, precision):
+def tiered_engine(splits, params, table, device, precision, *,
+                  spec="tiered", sidecar_of=None):
     """The slice's path as the launcher builds it: three tiers, the phone
     on a near-field tether, the glass<->edge link at 28 m NLOS (the
-    low-uplink regime where quantized transport pays)."""
+    low-uplink regime where quantized transport pays). ``sidecar_of``: an
+    engine over the same weights whose int8 sidecar this one serves
+    (a graph reads the sidecar's addresses, so a sidecar derived anew is
+    a new signature)."""
     from repro_torch.core import BandwidthTrace, nlos_bandwidth
     from repro_torch.serving.api import build_engine
-    return build_engine(
-        splits, params, "tiered", share_encoders=True, max_history=None,
+    eng = build_engine(
+        splits, params, spec, share_encoders=True, max_history=None,
         device=device, profile=table, tiers=("glass", "ph1", "edge64x"),
         trace=BandwidthTrace.static(nlos_bandwidth(28.0)),
         tier_traces={"ph1": BandwidthTrace.static(nlos_bandwidth(0.0))},
         precision=precision)
+    if sidecar_of is not None:
+        eng._qparams_cache.update(sidecar_of._qparams_cache)
+    return eng
+
+
+def tier_table(sm, params, payloads):
+    """The tiered cells' profile table. The card stands for the fastest
+    edge box (TIER_FACTORS 1.0): glass and phone times are the card's
+    scaled by 107x and 23x. Profiled from the eager pieces, as the cells
+    were defined: TIER_FACTORS scale an eager edge box to the paper's
+    glass and phone. The graphed replays encode text ~5x faster, and at
+    28 m NLOS every text flight then stays on the glass in float32, so
+    the cell would no longer run the int8 text encoder (PERF.md §4)."""
+    from repro_torch.core import ProfileTable, profile, split
+    return ProfileTable(base=profile(split(sm.module, jit=False), params,
+                                     payloads, device="cuda"),
+                        host_tier="edge64x")
 
 
 def serve_arrivals(eng, eps, payloads, *, crash_at=None):
@@ -914,7 +1130,6 @@ def reset_counts():
 
 def phase_tiered():
     from repro_torch.configs.emsnet import config
-    from repro_torch.core import ProfileTable, profile
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import quantized as Q
     from repro_torch.launch.serve import (build_zoo, sample_payloads,
@@ -927,10 +1142,8 @@ def phase_tiered():
     splits, params = build_zoo(cfg, seed=0, device="cuda")
     cpu_splits, cpu_params = build_zoo(cfg, seed=0, device="cpu")
     payloads = sample_payloads(cfg)
-    # the card stands for the fastest edge box (TIER_FACTORS 1.0): glass
-    # and phone times are the card's scaled by 107x and 23x
-    table = ProfileTable(base=profile(splits[full], params[full], payloads,
-                                      device="cuda"), host_tier="edge64x")
+    table = tier_table(splits[full], params[full], payloads)
+    splits = fresh(splits)
     eps = scenario_episodes(4, "mix")
 
     # the crash instant: inside an edge64x flight in the middle of the
@@ -947,13 +1160,14 @@ def phase_tiered():
     flight = min(flights, key=lambda r: abs(r.t_start - mid))
     crash_at = (flight.t_start + flight.t_emit) / 2
 
+    mem0 = torch.cuda.memory_reserved()
     reset_counts()                              # the main path starts here
     eng = tiered_engine(splits, params, table, "cuda", TIERED_PRECISION)
-    walls = serve_arrivals(eng, eps, payloads, crash_at=crash_at)
+    first_walls = serve_arrivals(eng, eps, payloads, crash_at=crash_at)
     launches = {k.__name__: k.launches for k in int8_counters()}
     calls = {k.__name__: k.calls for k in int8_counters()}
     launches["flash_attention"] = FA.flash_attention.launches
-    wall_s = sum(walls)                         # ... and ends here
+    caps = captures(graphed_pieces(splits))                     # ... and ends here
 
     recs = eng.records
     n_layers = cfg.text_dims[0]
@@ -981,9 +1195,10 @@ def phase_tiered():
                 check(bool(torch.isfinite(t).all()), f"non-finite {k}")
 
     # the same episodes on the CPU (plain versions, the same weights drawn
-    # on the CPU from the same seed, the ONE profile table)
+    # on the CPU from the same seed, the ONE profile table; pieces of their
+    # own, so the probe's signatures stay out of the count)
     reset_counts()
-    cpu = tiered_engine(cpu_splits, cpu_params, table, "cpu",
+    cpu = tiered_engine(fresh(cpu_splits), cpu_params, table, "cpu",
                         TIERED_PRECISION)
     serve_arrivals(cpu, eps, payloads, crash_at=crash_at)
     cpu_calls = {k.__name__: k.calls for k in int8_counters()}
@@ -992,6 +1207,28 @@ def phase_tiered():
     check(cpu_calls == calls, f"card launches {calls} != CPU calls "
           f"{cpu_calls}")
     diff = compare_runs(cpu, eng, "cpu vs cuda")
+
+    # a second pass over the same weights (and the first engine's int8
+    # sidecar) replays every graph and captures none; the first engine's
+    # cached features stay as they were; an eager run on the card is bit
+    # for bit the graphed replay
+    snap = cache_snapshot(eng.cache)
+    warm = tiered_engine(splits, params, table, "cuda", TIERED_PRECISION,
+                         sidecar_of=eng)
+    walls = serve_arrivals(warm, eps, payloads, crash_at=crash_at)
+    wall_s = sum(walls)
+    check_cache_unchanged(eng.cache, snap, "tiered")
+    eager_splits = fresh(splits, jit=False)
+    eager = tiered_engine(eager_splits, params, table, "cuda",
+                          TIERED_PRECISION, sidecar_of=eng)
+    eager_walls = serve_arrivals(eager, eps, payloads, crash_at=crash_at)
+    compare_runs(warm, eager, "tiered: graphed vs eager", exact=True)
+    graphs = graph_row(eng.compile_count(), cpu.compile_count(),
+                       graphed_pieces(splits), caps, mem0,
+                       cached_features_checked=len(snap),
+                       arrival_ms={"graphed": _percentiles(walls),
+                                   "eager": _percentiles(eager_walls),
+                                   "first_pass": _percentiles(first_walls)})
 
     # precision off vs an all-fp32 map, on the card: bit-identical
     off = tiered_engine(splits, params, table, "cuda", None)
@@ -1042,18 +1279,21 @@ def phase_tiered():
 
     # reported, not asserted: busy share of the card over one more int8
     # run, enc:text wall fp32 vs int8, the feature wire's shrink
-    busy_us, _share, prof_wall_us = device_time(
+    busy_us, _share, prof_wall_us, top = device_time(
         lambda: serve_arrivals(tiered_engine(splits, params, table, "cuda",
-                                             TIERED_PRECISION),
+                                             TIERED_PRECISION, sidecar_of=eng),
                                eps, payloads, crash_at=crash_at),
         "int8_matmul_kernel")
     sm = splits[full]
     x = torch.as_tensor(payloads["text"], device="cuda")
     qparams = eng._quantized_params(full)
+    text_ms = {}
     with torch.inference_mode():
-        text_fp32_ms = call_ms(lambda: sm.encoders["text"](params[full], x))
-        text_int8_ms = call_ms(lambda: quantize_feature(
-            sm.encoders["text"](qparams, x)))
+        for how, enc in (("graphed", sm.encoders["text"]),
+                         ("eager", eager_splits[full].encoders["text"])):
+            text_ms[how] = {
+                "fp32": call_ms(lambda: enc(params[full], x)),
+                "int8": call_ms(lambda: quantize_feature(enc(qparams, x)))}
         raw = {m: payload_nbytes(sm.encoders[m](
                    params[full], torch.as_tensor(payloads[m], device="cuda")))
                for m in ("text", "vitals", "scene")}
@@ -1078,12 +1318,12 @@ def phase_tiered():
          wall_s=wall_s, fp32_run_wall_s=sum(off_walls),
          sim_total_latency_s={"int8": eng.total_latency_s(),
                               "fp32": off.total_latency_s()},
-         gpu_busy_us=busy_us,
+         gpu_busy_us=busy_us, top_device_shares=top,
          gpu_busy_share_of_wall=(busy_us / (1e6 * wall_s)
                                  if busy_us else None),
          gpu_busy_share_of_profiled_wall=(busy_us / prof_wall_us
                                           if busy_us else None),
-         enc_text_call_ms={"fp32": text_fp32_ms, "int8": text_int8_ms},
+         enc_text_call_ms=text_ms, graphs=graphs,
          feature_bytes={"raw": raw, "packed": packed},
          offloaded_int8_feature_bytes={"fp32": raw_b, "int8": packed_b},
          wire_shrink_x=(raw_b / packed_b if packed_b else None),
@@ -1130,10 +1370,7 @@ def counted_encoders(splits, modality):
     calls = [0]
     for sm in splits.values():
         if modality in sm.encoders:
-            def enc(p, x, f=sm.encoders[modality]):
-                calls[0] += 1
-                return f(p, x)
-            sm.encoders[modality] = enc
+            sm.encoders[modality] = Counted(sm.encoders[modality], calls)
     return calls
 
 
@@ -1204,12 +1441,10 @@ def compare_flushes(a_eng, b_eng, what, tol=TOL, *, counts=True):
     return diff
 
 
-def run_flush(build, drive, *, syncs=False):
-    """Drive a fresh engine from ``build()`` with every counter at 0
-    first; returns the engine, the kernels' launches and calls, the text
-    encoder calls and the synchronising calls counted (``syncs``)."""
+def run_flush(eng, drive, *, syncs=False):
+    """Drive ``eng`` with every counter at 0 first; returns the kernels'
+    launches and calls and the synchronising calls counted (``syncs``)."""
     from repro_torch.kernels import flash_attention as FA
-    eng, text_calls = build()
     reset_counts()                          # the path starts here
     sync_sites = count_syncs(lambda: drive(eng)) if syncs else None
     if not syncs:
@@ -1218,7 +1453,7 @@ def run_flush(build, drive, *, syncs=False):
                                   FA.flash_attention.calls)}
     for k in int8_counters():
         counts[k.__name__] = (k.launches, k.calls)
-    return eng, counts, text_calls[0], sync_sites   # ... and ends here
+    return counts, sync_sites               # ... and ends here
 
 
 def _percentiles(xs):
@@ -1227,11 +1462,12 @@ def _percentiles(xs):
             "p99": float(np.percentile(ms, 99))} if ms else None
 
 
-def compare_stream_tiered(a_eng, b_eng, what):
+def compare_stream_tiered(a_eng, b_eng, what, *, exact=False):
     """stream+tiered card vs CPU: record and glass-partial placement and
     timelines (t_emit within 1e-9), outputs within 1e-4, or INT8_TOL where
-    the fusion read an int8 feature; the sessions' prediction streams the
-    same model, step and kind. Returns (max diffs, glass partials)."""
+    the fusion read an int8 feature, or bit-equal with ``exact``; the
+    sessions' prediction streams the same model, step and kind. Returns
+    (max diffs, glass partials)."""
     a_recs, b_recs = a_eng.records, b_eng.records
     check(len(a_recs) == len(b_recs), f"{what}: record counts differ")
     diff = {"fp32": 0.0, "int8": 0.0}
@@ -1245,6 +1481,8 @@ def compare_stream_tiered(a_eng, b_eng, what):
         for k in a_out:
             x, y = a_out[k], b_out[k].to(a_out[k].device)
             check(bool(torch.isfinite(x).all()), f"{what}: non-finite {k}")
+            if exact:
+                check(torch.equal(x, y), f"{what}: {k} not bit-identical")
             diff[cls] = max(diff[cls], float((x - y).abs().max()))
 
     for a, b in zip(a_recs, b_recs):
@@ -1279,11 +1517,10 @@ def compare_stream_tiered(a_eng, b_eng, what):
     return diff, partials
 
 
-def flush_walls(build, payloads, modality, *, reps=5):
+def flush_walls(eng, payloads, modality, *, reps=5):
     """Median wall (ms, synchronised) of a flush in which every session
     submits one ``modality`` payload, after one warm flush."""
     from repro_torch.core import Event
-    eng = build()
     walls = []
     for r in range(reps + 1):
         for sid, pay in payloads.items():
@@ -1298,9 +1535,11 @@ def phase_batch():
     same, ragged; (iii) 'batch+stream' over the mix scenario, 16
     sessions, sim_window 0.05 s, bucketed and ragged (grouped tails);
     (iv) 'stream+tiered', 4 sessions of mix on glass/ph1/edge64x with
-    ph1=int8,edge64x=int8."""
+    ph1=int8,edge64x=int8. Each drive runs twice on the card over the
+    same graphed pieces (the second pass captures nothing and flushes
+    with no synchronising call but its own) and once eagerly."""
     from repro_torch.configs.emsnet import config
-    from repro_torch.core import ProfileTable, profile, table6
+    from repro_torch.core import table6
     from repro_torch.launch.serve import (build_models, build_zoo,
                                           sample_payloads, scenario_episodes)
 
@@ -1314,13 +1553,6 @@ def phase_batch():
     table_eps = {f"s{i}": table6()[1 + i % 3] for i in range(BATCH_SESSIONS)}
     mix_eps = scenario_episodes(BATCH_SESSIONS, "mix")
 
-    def builder(spec, device, models, **kw):
-        def build():
-            splits, params = models(cfg, seed=0, device=device)
-            calls = counted_encoders(splits, "text")
-            return flush_engine(spec, splits, params, device, cfg, **kw), calls
-        return build
-
     runs = {
         "batch": ("batch", build_models, False,
                   lambda e: e.run_episodes(table_eps, payload_fn)),
@@ -1333,16 +1565,28 @@ def phase_batch():
                                 lambda e: e.run_arrivals(
                                     mix_eps, payload_fn, sim_window=0.05)),
     }
-    out, engines, launches = {}, {}, {}
+    out, engines, launches, built = {}, {}, {}, {}
     for name, (spec, models, ragged, drive) in runs.items():
         kw = {"deadline_s": None} if "stream" in spec else {}
+
+        def engine(splits, params, device, spec=spec, ragged=ragged, kw=kw):
+            return flush_engine(spec, splits, params, device, cfg,
+                                ragged=ragged, **kw)
+
+        splits, params = models(cfg, seed=0, device="cuda")
+        splits = fresh(splits)
+        text = counted_encoders(splits, "text")
+        built[name] = (splits, params, engine)
+        mem0 = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
-        eng, counts, text_calls, sync_sites = run_flush(
-            builder(spec, "cuda", models, ragged=ragged, **kw), drive,
-            syncs=True)
+        eng = engine(splits, params, "cuda")
+        counts, _ = run_flush(eng, drive)
+        text_calls, caps = text[0], captures(graphed_pieces(splits))
         t1 = time.perf_counter()
-        cpu, cpu_counts, cpu_text_calls, _ = run_flush(
-            builder(spec, "cpu", models, ragged=ragged, **kw), drive)
+        cpu_splits, cpu_params = models(cfg, seed=0, device="cpu")
+        cpu_text = counted_encoders(cpu_splits, "text")
+        cpu = engine(cpu_splits, cpu_params, "cpu")
+        cpu_counts, _ = run_flush(cpu, drive)
         run_s = {"cuda": t1 - t0, "cpu": time.perf_counter() - t1}
         fl, fc = counts["flash_attention"]
         check(fl == fc, f"{name}: flash launches {fl} != calls {fc}")
@@ -1350,22 +1594,46 @@ def phase_batch():
               f"{name}: card launched flash {fl} times, the CPU run called "
               f"it {cpu_counts['flash_attention'][1]} times (and launched "
               f"{cpu_counts['flash_attention'][0]})")
-        check(text_calls == cpu_text_calls and fl == n_layers * text_calls,
+        check(text_calls == cpu_text[0] and fl == n_layers * text_calls,
               f"{name}: flash launches {fl} != {n_layers} layers x "
-              f"{text_calls} text encoder calls (CPU {cpu_text_calls})")
+              f"{text_calls} text encoder calls (CPU {cpu_text[0]})")
         check(fl > 0, f"{name}: no flash launch")
-        # the flush's one explicit torch.cuda.synchronize is not flagged;
-        # nothing else may wait for the card
-        check(not sync_sites, f"{name}: synchronising calls besides the "
-              f"flush's own sync: {sync_sites}")
         diff = compare_flushes(cpu, eng, f"{name}: cpu vs cuda")
         if ragged:
             check(max(f.n_encoder_calls for f in eng.flushes)
                   <= 3 * len(eng.models), f"{name}: more than one packed call "
                   "per modality and model")
-        engines[name] = eng
+
+        # the second pass: every graph replays, none is captured; the
+        # flush's one explicit torch.cuda.synchronize is not flagged and
+        # nothing else may wait for the card (capturing synchronises, so
+        # only warm flushes are counted); the first pass's cached features
+        # unchanged; an eager run bit-equal to the replays
+        snap = cache_snapshot(eng.cache)
+        warm = engine(splits, params, "cuda")
+        warm_counts, sync_sites = run_flush(warm, drive, syncs=True)
+        check(warm_counts == counts, f"{name}: the second pass launched "
+              f"{warm_counts}, the first {counts}")
+        check(not sync_sites, f"{name}: synchronising calls besides the "
+              f"flush's own sync: {sync_sites}")
+        check_cache_unchanged(eng.cache, snap, name)
+        eager = engine(fresh(splits, jit=False), params, "cuda")
+        run_flush(eager, drive)
+        compare_flushes(warm, eager, f"{name}: graphed vs eager", tol=0.0)
+        graphs = graph_row(
+            eng.compile_count(), cpu.compile_count(),
+            graphed_pieces(splits), caps, mem0,
+            cached_features_checked=len(snap),
+            flush_ms={"graphed": _percentiles([f.wall_s for f in warm.flushes]),
+                      "eager": _percentiles([f.wall_s for f in eager.flushes]),
+                      "first_pass": _percentiles([f.wall_s
+                                                  for f in eng.flushes])},
+            arrival_ms={"graphed": _percentiles(warm.event_latencies()),
+                        "eager": _percentiles(eager.event_latencies())},
+            total_flush_wall_s={"graphed": warm.total_wall_s(),
+                                "eager": eager.total_wall_s()})
+        engines[name] = warm
         launches[name] = fl
-        flush_s = [f.wall_s for f in eng.flushes]
         out[name] = {
             "spec": spec, "ragged": ragged, "flushes": eng.flushes_total,
             "events": eng.events_total,
@@ -1376,16 +1644,17 @@ def phase_batch():
             "text_encoder_calls": text_calls, "flash_launches": fl,
             "sync_calls_flagged": sync_sites, "cpu_max_abs_diff": diff,
             "run_seconds": run_s,
-            "flush_ms": _percentiles(flush_s),
-            "arrival_ms": _percentiles(eng.event_latencies()),
-            "total_flush_wall_s": eng.total_wall_s(),
+            "flush_ms": _percentiles([f.wall_s for f in warm.flushes]),
+            "arrival_ms": _percentiles(warm.event_latencies()),
+            "total_flush_wall_s": warm.total_wall_s(),
             "padded_flop_frac": float(np.mean([f.padded_flop_frac
                                                for f in eng.flushes])),
             "shapes": (eng.ragged.n_shapes() if ragged
                        else eng.bucketer.n_buckets()),
             "shape_histogram": {str(k): v for k, v in (
                 eng.ragged.histogram if ragged
-                else eng.bucketer.histogram).items()}}
+                else eng.bucketer.histogram).items()},
+            "graphs": graphs}
         emit("batch", name=name, **out[name])
 
     # ragged against bucketed on the card: the same predictions, 1e-4
@@ -1398,37 +1667,39 @@ def phase_batch():
           "no grouped tail fused more than one session")
 
     # flush walls of one modality across all 16 sessions, bucketed against
-    # ragged (the ragged vitals scan runs its packed steps one by one)
-    def walls_build(ragged):
-        def build():
-            splits, params = build_models(cfg, seed=0, device="cuda")
-            return flush_engine("batch", splits, params, "cuda", cfg,
-                                ragged=ragged)
-        return build
+    # ragged (the ragged vitals scan runs its packed steps one by one),
+    # graphed (the first flush captures, the median is over replays) and
+    # eager
     t_walls = time.perf_counter()
-    out["one_modality_flush_ms"] = {
-        m: {"bucketed": flush_walls(walls_build(False), pay, m),
-            "ragged": flush_walls(walls_build(True), pay, m)}
-        for m in ("text", "vitals")}
+    out["one_modality_flush_ms"] = {}
+    for m in ("text", "vitals"):
+        row = {}
+        for name, key in (("batch", "bucketed"), ("ragged", "ragged")):
+            splits, params, engine = built[name]
+            row[key] = flush_walls(engine(splits, params, "cuda"), pay, m)
+            row[f"{key}_eager"] = flush_walls(
+                engine(fresh(splits, jit=False), params, "cuda"), pay, m)
+        out["one_modality_flush_ms"][m] = row
     t_walls = time.perf_counter() - t_walls
 
     # the card's busy share over a window of (i) and (ii): the first 6
     # ticks (a text flush, then vitals and scene flushes) of a fresh
-    # engine, the card's kernels traced alone; the wall it is read
-    # against is the same window's flushes unprofiled
+    # engine over the warm graphs, the card's kernels traced alone; the
+    # wall it is read against is the same window's flushes unprofiled
     window = {sid: evs[:6] for sid, evs in table_eps.items()}
     t_prof = time.perf_counter()
     for name in ("batch", "ragged"):
-        spec, models, ragged, _drive = runs[name]
-        eng, _ = builder(spec, "cuda", models, ragged=ragged)()
+        splits, params, engine = built[name]
+        eng = engine(splits, params, "cuda")
         eng.run_episodes(window, payload_fn)
         plain_wall_s = eng.total_wall_s()
-        eng, _ = builder(spec, "cuda", models, ragged=ragged)()
-        busy_us, share, prof_wall_us = device_time(
+        eng = engine(splits, params, "cuda")
+        busy_us, share, prof_wall_us, top = device_time(
             lambda: eng.run_episodes(window, payload_fn), "flash_fwd_kernel",
             host_ops=False)
         out[name].update(
             gpu_busy_us=busy_us, flash_share_of_gpu_time=share,
+            top_device_shares=top,
             gpu_busy_share_of_profiled_wall=(busy_us / prof_wall_us
                                              if busy_us else None),
             gpu_busy_share_of_wall=(busy_us / (1e6 * plain_wall_s)
@@ -1436,51 +1707,69 @@ def phase_batch():
             profiled_seconds=time.perf_counter() - t_prof)
     seconds = {"one_modality_flushes": t_walls,
                "profiled_runs": time.perf_counter() - t_prof}
+    del built
     t_iv = time.perf_counter()
 
     # (iv) stream+tiered: glass partials, int8 flights, card vs CPU
     full = "text+vitals+scene"
     splits, params = build_zoo(cfg, seed=0, device="cuda")
-    table = ProfileTable(base=profile(splits[full], params[full],
-                                      sample_payloads(cfg), device="cuda"),
-                         host_tier="edge64x")
+    table = tier_table(splits[full], params[full], sample_payloads(cfg))
+    splits = fresh(splits)
     eps4 = scenario_episodes(4, "mix")
 
-    def tiered_build(device):
-        def build():
-            from repro_torch.core import BandwidthTrace, nlos_bandwidth
-            from repro_torch.serving.api import build_engine
-            sp, pr = build_zoo(cfg, seed=0, device=device)
-            calls = counted_encoders(sp, "text")
-            return build_engine(
-                sp, pr, "stream+tiered", share_encoders=True,
-                max_history=None, device=device, profile=table,
-                tiers=("glass", "ph1", "edge64x"),
-                trace=BandwidthTrace.static(nlos_bandwidth(28.0)),
-                tier_traces={"ph1": BandwidthTrace.static(
-                    nlos_bandwidth(0.0))},
-                precision=TIERED_PRECISION), calls
-        return build
+    def tiered(sp, pr, device, sidecar_of=None):
+        return tiered_engine(sp, pr, table, device, TIERED_PRECISION,
+                             spec="stream+tiered", sidecar_of=sidecar_of)
+
+    walls4 = {}                         # id(engine) -> wall s per arrival
 
     def drive4(eng):
-        eng.run_arrivals(eps4, lambda sid, ev: pay[sid][ev.modality])
+        from repro_torch.core import merge_arrivals
+        walls = walls4[id(eng)] = []
+        for _t, sid, ev in merge_arrivals(eps4):
+            t0 = time.perf_counter()
+            eng.submit(sid, ev, pay[sid][ev.modality])
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
 
-    eng, counts, text_calls, _ = run_flush(tiered_build("cuda"), drive4)
-    cpu, cpu_counts, cpu_text_calls, _ = run_flush(tiered_build("cpu"),
-                                                   drive4)
+    text = counted_encoders(splits, "text")
+    mem0 = torch.cuda.memory_reserved()
+    eng = tiered(splits, params, "cuda")
+    counts, _ = run_flush(eng, drive4)
+    text_calls, caps = text[0], captures(graphed_pieces(splits))
+    cpu_splits, cpu_params = build_zoo(cfg, seed=0, device="cpu")
+    cpu_text = counted_encoders(cpu_splits, "text")
+    cpu = tiered(cpu_splits, cpu_params, "cpu")
+    cpu_counts, _ = run_flush(cpu, drive4)
     for k, (launched, called) in counts.items():
         check(launched == called == cpu_counts[k][1]
               and cpu_counts[k][0] == 0,
               f"stream_tiered: {k} launched {launched} times, called "
               f"{called}, the CPU run called it {cpu_counts[k][1]} times")
     check(counts["flash_attention"][0] == n_layers * text_calls
-          and text_calls == cpu_text_calls,
+          and text_calls == cpu_text[0],
           f"stream_tiered: flash {counts['flash_attention'][0]} != "
           f"{n_layers} x {text_calls} text encodes")
     check(counts["int8_matmul"][0] > 0, "stream_tiered: no int8 flight")
     diff, partials = compare_stream_tiered(cpu, eng, "stream_tiered: cpu "
                                            "vs cuda")
     check(partials >= 1, "stream_tiered: no glass partial")
+    snap = cache_snapshot(eng.cache)
+    warm = tiered(splits, params, "cuda", sidecar_of=eng)
+    run_flush(warm, drive4)
+    check_cache_unchanged(eng.cache, snap, "stream_tiered")
+    eager = tiered(fresh(splits, jit=False), params, "cuda", sidecar_of=eng)
+    run_flush(eager, drive4)
+    compare_stream_tiered(warm, eager, "stream_tiered: graphed vs eager",
+                          exact=True)
+    graphs = graph_row(
+        eng.compile_count(), cpu.compile_count(), graphed_pieces(splits),
+        caps, mem0,
+        cached_features_checked=len(snap),
+        arrival_ms={"graphed": _percentiles(walls4[id(warm)]),
+                    "eager": _percentiles(walls4[id(eager)]),
+                    "first_pass": _percentiles(walls4[id(eng)])})
     launches["stream_tiered"] = counts["flash_attention"][0]
     out["stream_tiered"] = {
         "sessions": 4, "arrivals": len(eng.records),
@@ -1490,13 +1779,13 @@ def phase_batch():
         "cpu_max_abs_diff": diff,
         "precision_counts": {p: sum(r.precision == p for r in eng.records)
                              for p in ("fp32", "int8")},
-        "placement": eng.placement_counts()}
+        "placement": eng.placement_counts(), "graphs": graphs}
     emit("batch", name="stream_tiered", **out["stream_tiered"])
     emit("batch_summary", config="tinybert-gru-fc vocab 2048",
          sessions=BATCH_SESSIONS,
          one_modality_flush_ms=out["one_modality_flush_ms"],
          profiled={name: {k: out[name][k] for k in (
-             "gpu_busy_us", "flash_share_of_gpu_time",
+             "gpu_busy_us", "flash_share_of_gpu_time", "top_device_shares",
              "gpu_busy_share_of_profiled_wall", "gpu_busy_share_of_wall",
              "profiled_seconds")}
              for name in ("batch", "ragged")},
@@ -1813,11 +2102,12 @@ def two_layers(cfg):
 
 
 class Recorder:
-    """Wraps a server's prefill and decode callables: counts the calls,
+    """Wraps a server's prefill and decode steps: counts the calls,
     keeps each call's logits on the host (``keep``), and times each
     prefill, and each decode step while ``time_decode`` is set, with the
     card synchronised after it (otherwise decode steps queue without a
-    sync, as the server runs them)."""
+    sync, as the server runs them). ``_prefill`` returns (logits, cache),
+    ``_decode`` the logits of a step over the server's static cache."""
 
     def __init__(self, srv, *, keep=False, timed=False):
         self.calls = {"prefill": 0, "decode": 0}
@@ -1831,7 +2121,8 @@ class Recorder:
     def _wrap(self, kind, fn, keep, timed):
         def call(*a, **kw):
             t0 = time.perf_counter()
-            logits, cache = fn(*a, **kw)
+            out = fn(*a, **kw)
+            logits = out[0] if kind == "prefill" else out
             if timed and (kind == "prefill" or self.time_decode):
                 torch.cuda.synchronize()
                 self.ms[kind].append((time.perf_counter() - t0) * 1e3)
@@ -1840,7 +2131,7 @@ class Recorder:
             self.calls[kind] += 1
             if keep:
                 self.logits.append(logits.float().cpu())
-            return logits, cache
+            return out
         return call
 
 
@@ -1859,7 +2150,9 @@ def llm_mix(srv, request_cls):
 def llm_reduced(arch):
     """(i) the reduced 2-layer float32 model served on the card and on the
     CPU: the same tokens and stats, logits of every call within
-    LLM_LOGIT_TOL; a prefix hit's tokens equal a cold server's."""
+    LLM_LOGIT_TOL; a prefix hit's tokens equal a cold server's; one
+    decode graph on the card and one signature on the CPU; a second pass
+    capturing nothing; an eager server's logits bit-equal."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import LLMServer, Request
@@ -1867,12 +2160,15 @@ def llm_reduced(arch):
     cpu_params = T.init_params(cfg, torch.Generator().manual_seed(0),
                                device="cpu")
     params = tree_to(cpu_params, "cuda")
+    mem0 = torch.cuda.memory_reserved()
     for k in llm_counters():
         k.launches = 0
     srv = LLMServer(cfg, params, cache_len=96, device="cuda")
+    step = count_runs(srv._decode_step)
     rec = Recorder(srv, keep=True)
     res = llm_mix(srv, Request)
     launches = [k.launches for k in llm_counters()]
+    caps = captures([step])
     cpu = LLMServer(cfg, cpu_params, cache_len=96, device="cpu")
     cpu_rec = Recorder(cpu, keep=True)
     cpu_res = llm_mix(cpu, Request)
@@ -1894,18 +2190,36 @@ def llm_reduced(arch):
     want = ([cfg.n_layers * rec.calls["decode"], 0] if arch.startswith("mistral")
             else [0, cfg.n_layers * (rec.calls["prefill"] + rec.calls["decode"])])
     check(launches == want, f"{arch}: launches {launches} != {want}")
-    return dict(arch=arch, stats=srv.stats, calls=rec.calls,
+    # the eager server on the card: every call's logits bit for bit
+    eager = LLMServer(cfg, params, cache_len=96, jit=False, device="cuda")
+    eager_rec = Recorder(eager, keep=True)
+    eager_res = llm_mix(eager, Request)
+    check(all(np.array_equal(a.tokens, b.tokens)
+              for a, b in zip(res, eager_res))
+          and len(eager_rec.logits) == len(rec.logits)
+          and all(torch.equal(a, b)
+                  for a, b in zip(rec.logits, eager_rec.logits)),
+          f"{arch}: graphed and eager decode differ on the card")
+    # a second pass of the mix on the same server: replays only
+    llm_mix(srv, Request)
+    graphs = graph_row(srv.compile_count(), cpu.compile_count(), [step],
+                       caps, mem0)
+    return dict(arch=arch, stats=cpu.stats, calls=cpu_rec.calls,
                 max_abs_logit_diff=diff, launches=launches,
-                first_tokens=res[1].tokens.tolist())
+                first_tokens=res[1].tokens.tolist(), graphs=graphs)
 
 
-def llm_full(arch):
+def llm_full(arch, cpu_count):
     """(ii) the full-width bf16 model on the card: a 512-token system
     prompt served once, 4 hits of it + 8 user tokens (16 new tokens each),
     one cold 520-token request; cache_len 1024. Checked and timed as the
     server runs it (decode steps queued with no sync: tokens/s); then one
     more hit with every decode step synchronised (per-token latency) and
-    one under the profiler (the card's busy share)."""
+    one under the profiler (the card's busy share), both replaying the
+    one decode graph (``cpu_count``: the reduced CPU server's signature
+    count). Then an eager server on the card (trimmed: the system prompt
+    and its first hit): the same tokens, its per-token latency, and two
+    of its kernel calls held against the plain version."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -1927,42 +2241,28 @@ def llm_full(arch):
     system = rng.integers(1, V, 512).astype(np.int32)
     users = [rng.integers(1, V, 8).astype(np.int32) for _ in range(4)]
     cold_prompt = rng.integers(1, V, 520).astype(np.int32)
-
-    # real kernel inputs of layer 2, captured mid-run: its 1st call (the
-    # system prompt's prefill for RWKV, the first decode step for
-    # Mistral) and its call two steps later (a decode step either way)
     L = cfg.n_layers
-    captured, calls = [], [0]
     name = "decode_attention" if arch.startswith("mistral") else "rwkv6_scan"
-    orig = getattr(ops, name)
-
-    def capture(*a, **kw):
-        calls[0] += 1
-        if calls[0] in (3, 2 * L + 3):
-            captured.append(([x.clone() if isinstance(x, torch.Tensor) else x
-                              for x in a], dict(kw)))
-        return orig(*a, **kw)
 
     srv = LLMServer(cfg, params, cache_len=1024, device="cuda")
+    step = count_runs(srv._decode_step)
     rec = Recorder(srv, timed=True)
-    setattr(ops, name, capture)
-    try:
-        for k in llm_counters():
-            k.launches = 0                      # the main path starts here
-        t0 = time.perf_counter()
-        res = [srv.serve_one(Request("system", system, max_new_tokens=1))]
-        t1 = time.perf_counter()
-        res += [srv.serve_one(Request(f"u{i}", np.concatenate([system, u]),
-                                      max_new_tokens=16))
-                for i, u in enumerate(users)]
-        t2 = time.perf_counter()
-        res.append(srv.serve_one(Request("cold", cold_prompt,
-                                         max_new_tokens=16)))
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        launches = [k.launches for k in llm_counters()]  # ... and ends here
-    finally:
-        setattr(ops, name, orig)
+    mem0 = torch.cuda.memory_reserved()
+    for k in llm_counters():
+        k.launches = 0                          # the main path starts here
+    t0 = time.perf_counter()
+    res = [srv.serve_one(Request("system", system, max_new_tokens=1))]
+    t1 = time.perf_counter()
+    res += [srv.serve_one(Request(f"u{i}", np.concatenate([system, u]),
+                                  max_new_tokens=16))
+            for i, u in enumerate(users)]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    res.append(srv.serve_one(Request("cold", cold_prompt, max_new_tokens=16)))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = [k.launches for k in llm_counters()]  # ... and ends here
+    caps = captures([step])
     peak = torch.cuda.max_memory_allocated()
     hits = sum(r.prefix_hit for r in res)
     check(hits == 4, f"{arch}: {hits}/4 prefix hits")
@@ -1981,6 +2281,60 @@ def llm_full(arch):
     check(bool(rec.finite), f"{arch}: non-finite logits")
     check(all(len(r.tokens) in (1, 16) and 0 <= r.tokens.min()
               and r.tokens.max() < V for r in res), f"{arch}: bad tokens")
+
+    stats, calls = dict(srv.stats), dict(rec.calls)
+    # per-token latency: one more hit with each decode step synchronised
+    rec.time_decode = True
+    srv.serve_one(Request("latency", np.concatenate([system, users[1][::-1]]),
+                          max_new_tokens=16))
+    rec.time_decode = False
+    # one more hit under the profiler: the card's busy share of its wall
+    busy_us, kernel_share, prof_wall_us, top = device_time(
+        lambda: srv.serve_one(Request("prof", np.concatenate(
+            [system, users[0][::-1]]), max_new_tokens=16)),
+        "decode_attention_kernel" if name == "decode_attention"
+        else "rwkv6_")             # rwkv6_chunk_kernel and rwkv6_step_kernel
+    graphs = graph_row(srv.compile_count(), cpu_count, [step], caps, mem0)
+    dec = sorted(rec.ms["decode"])
+    gen_tokens = sum(len(r.tokens) for r in res[1:])
+    del srv
+    gc.collect()
+
+    # the eager server, trimmed: the system prompt and its first hit (as
+    # the server runs them), then one hit with each step synchronised.
+    # Real kernel inputs of layer 3 are captured from it: its 1st call
+    # (the system prompt's prefill for RWKV, the first decode step for
+    # Mistral) and its call two steps later (a decode step either way)
+    eager = LLMServer(cfg, params, cache_len=1024, jit=False, device="cuda")
+    erec = Recorder(eager, timed=True)
+    captured, ncalls = [], [0]
+    orig = getattr(ops, name)
+
+    def capture(*a, **kw):
+        ncalls[0] += 1
+        if ncalls[0] in (3, 2 * L + 3):
+            captured.append(([x.clone() if isinstance(x, torch.Tensor) else x
+                              for x in a], dict(kw)))
+        return orig(*a, **kw)
+
+    setattr(ops, name, capture)
+    try:
+        e_res = [eager.serve_one(Request("system", system, max_new_tokens=1))]
+        te0 = time.perf_counter()
+        e_res.append(eager.serve_one(Request(
+            "u0", np.concatenate([system, users[0]]), max_new_tokens=16)))
+        torch.cuda.synchronize()
+        te1 = time.perf_counter()
+    finally:
+        setattr(ops, name, orig)
+    check(all(np.array_equal(a.tokens, b.tokens)
+              for a, b in zip(e_res, res[:2])),
+          f"{arch}: eager tokens {[r.tokens.tolist() for r in e_res]} != "
+          f"graphed {[r.tokens.tolist() for r in res[:2]]}")
+    erec.time_decode = True
+    eager.serve_one(Request("latency", np.concatenate(
+        [system, users[1][::-1]]), max_new_tokens=16))
+    edec = sorted(erec.ms["decode"])
 
     # the captured layer's inputs: kernel vs plain version
     from repro_torch.kernels import decode_attention as DA
@@ -2006,20 +2360,6 @@ def llm_full(arch):
             check(err <= RWKV_TOL * scale, f"{arch}: captured scan {err} > "
                   f"{RWKV_TOL} x {scale}")
 
-    stats, calls = dict(srv.stats), dict(rec.calls)
-    # per-token latency: one more hit with each decode step synchronised
-    rec.time_decode = True
-    srv.serve_one(Request("latency", np.concatenate([system, users[1][::-1]]),
-                          max_new_tokens=16))
-    rec.time_decode = False
-    # one more hit under the profiler: the card's busy share of its wall
-    busy_us, kernel_share, prof_wall_us = device_time(
-        lambda: srv.serve_one(Request("prof", np.concatenate(
-            [system, users[0][::-1]]), max_new_tokens=16)),
-        "decode_attention_kernel" if name == "decode_attention"
-        else "rwkv6_")             # rwkv6_chunk_kernel and rwkv6_step_kernel
-    dec = sorted(rec.ms["decode"])
-    gen_tokens = sum(len(r.tokens) for r in res[1:])
     row = dict(arch=arch, dtype=cfg.dtype, layers=L, params=n_params,
                weight_bytes=weight_bytes, init_s=init_s, stats=stats,
                calls=calls, launches=launches, captured=cap,
@@ -2030,14 +2370,21 @@ def llm_full(arch):
                system_wall_s=t1 - t0, hits_wall_s=t2 - t1,
                cold_wall_s=t3 - t2,
                tokens_per_s=gen_tokens / (t3 - t1),
+               hit_tokens_per_s=4 * 16 / (t2 - t1),
+               eager=dict(decode_ms_p50=float(np.percentile(edec, 50)),
+                          decode_ms_p99=float(np.percentile(edec, 99)),
+                          hit_tokens_per_s=16 / (te1 - te0),
+                          prefill_ms=erec.ms["prefill"]),
+               graphs=graphs,
                max_memory_allocated=peak, gpu_busy_us=busy_us,
                kernel_share_of_gpu_time=kernel_share,
+               top_device_shares=top,
                profiled_wall_us=prof_wall_us,
                gpu_busy_share_of_profiled_wall=(busy_us / prof_wall_us
                                                 if busy_us else None),
                first_tokens=res[1].tokens[:8].tolist())
     emit("llm_full", **row)
-    del srv, params, res
+    del eager, params, res, e_res
     gc.collect()
     torch.cuda.empty_cache()
     return row
@@ -2061,7 +2408,8 @@ def tree_to(tree, device):
 def phase_llm():
     reduced_rows = {arch: llm_reduced(arch) for arch in LLM_ARCHS}
     emit("llm_reduced", **reduced_rows)
-    return {arch: llm_full(arch) for arch in LLM_ARCHS}
+    return {arch: llm_full(arch, reduced_rows[arch]["graphs"]["compile_count"])
+            for arch in LLM_ARCHS}
 
 
 def phase_cli():
@@ -2102,7 +2450,12 @@ def phase_cli():
         out = buf.getvalue().strip().splitlines()
         check(out[-1].startswith(head) and out[-1].endswith("on cuda"),
               f"unexpected {' '.join(argv)} output {out[-1:]}")
+        graphs = [int(g) for ln in out
+                  for g in re.findall(r"CUDA graphs (\d+)", ln)]
+        check(len(graphs) == 1 and graphs[0] > 0,
+              f"{' '.join(argv)} printed no CUDA graph count: {out[-2:]}")
         flush_cli[key] = {"lines": len(out), "last": out[-1],
+                          "cuda_graphs": graphs[0],
                           "seconds": time.perf_counter() - t0}
     from repro_torch.launch.llm_generate import main as llm_main
     buf = io.StringIO()
@@ -2110,8 +2463,8 @@ def phase_cli():
         llm_main([])
     llm = buf.getvalue().strip().splitlines()
     check(len(llm) == len(LLM_ARCHS) and all(
-        "4/4 prefix hits" in ln and ln.endswith("on cuda") for ln in llm),
-        f"unexpected llm_generate output {llm}")
+        "4/4 prefix hits" in ln and ln.endswith("decode CUDA graphs 1 on cuda")
+        for ln in llm), f"unexpected llm_generate output {llm}")
     emit("cli", lines=len(lines), last=lines[-1], tiered_lines=len(tiered),
          tiered_int8_records=sum("[int8]" in ln for ln in tiered),
          tiered_last=tiered[-1], llm_generate=llm, flush_path=flush_cli)

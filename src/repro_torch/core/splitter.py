@@ -6,8 +6,11 @@ of feature tensors, so each piece runs on its own — which is what lets
 EMSServe (a) run one modality the moment it arrives, (b) cache its
 output feature, and (c) place each piece on a different tier.
 
-The pieces run eagerly (the reference jits each one). ``split`` also
-returns the monolithic forward — the "direct PyTorch" baseline the
+``split(module, jit=True)`` wraps each piece in ``graphs.Graphed``, the
+port's counterpart of the reference's ``jax.jit``: captured as a CUDA
+graph per input signature on the card, run eagerly (its signatures
+counted) on the CPU; ``jit=False`` runs the pieces eagerly. ``split``
+also returns the monolithic forward — the "direct PyTorch" baseline the
 paper compares against.
 """
 from __future__ import annotations
@@ -20,6 +23,8 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from ..graphs import Graphed
+from ..graphs import compile_count as _compile_count
 from .modular import MultimodalModule
 
 
@@ -34,9 +39,11 @@ class SplitModel:
         return self.module.modalities
 
     def compile_count(self) -> int:
-        """Compiled programs across this model's pieces: 0, since the
-        pieces run eagerly."""
-        return 0
+        """Distinct input signatures across this model's graphed pieces:
+        the CUDA graphs a card run captures, the number the shape
+        bucketer bounds. Eager splits (``jit=False``) report 0."""
+        return sum(_compile_count(fn)
+                   for fn in (*self.encoders.values(), self.tail, self.full))
 
     def quantize_params(self, params):
         """Derive the int8 sidecar dict the SAME encoders accept
@@ -69,9 +76,12 @@ def select_model(models: Dict[str, SplitModel], observed) -> str | None:
     return best
 
 
-def split(module: MultimodalModule) -> SplitModel:
-    return SplitModel(module=module, encoders=dict(module.encoder_fns),
-                      tail=module.tail_fn, full=module.full_fn())
+def split(module: MultimodalModule, *, jit: bool = True) -> SplitModel:
+    wrap = Graphed if jit else (lambda f: f)
+    return SplitModel(module=module,
+                      encoders={m: wrap(fn)
+                                for m, fn in module.encoder_fns.items()},
+                      tail=wrap(module.tail_fn), full=wrap(module.full_fn()))
 
 
 def profile(split_model: SplitModel, params, sample_batch: dict, *,
@@ -81,7 +91,9 @@ def profile(split_model: SplitModel, params, sample_batch: dict, *,
     Returns wall-seconds per submodule (and the monolithic model) on
     ``device`` — the `t^e` column; tier tables derive `t^g` from it.
     ``params`` must already be on ``device``; the sample batch is moved
-    there. On CUDA the card is synchronised before each clock read."""
+    there. On CUDA the card is synchronised before each clock read, and
+    the timed calls of a graphed piece replay the graph its warm-up call
+    captured, as the reference times compiled calls."""
     dev = _device.resolve(device)
     batch = {m: torch.as_tensor(x, device=dev) for m, x in sample_batch.items()}
 
@@ -90,7 +102,7 @@ def profile(split_model: SplitModel, params, sample_batch: dict, *,
             torch.cuda.synchronize(dev)
 
     def bench(fn, *args):
-        fn(*args)                          # warm-up (kernel build, caches)
+        fn(*args)                          # warm-up (kernel build, capture)
         sync()
         t0 = time.perf_counter()
         for _ in range(iters):

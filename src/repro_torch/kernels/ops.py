@@ -28,3 +28,11 @@ def quantized_matmul(x, wq, sw):
     lead = x.shape[:-1]
     xq, sx = quantize_rowwise(x.reshape(-1, x.shape[-1]))
     return int8_matmul(xq, sx, wq, sw).reshape(*lead, wq.shape[1])
+
+
+# every counter a kernel wrapper ticks in Python, as (wrapper, attribute):
+# ``graphs.Graphed`` adds a capture's ticks again on each replay
+COUNTERS = tuple((fn, attr) for fn in (flash_attention, quantize_rowwise,
+                                       dequantize_rowwise, int8_matmul)
+                 for attr in ("calls", "launches")) + (
+    (decode_attention, "launches"), (rwkv6_scan, "launches"))

@@ -63,8 +63,9 @@ def main(argv=None):
         print(f"{arch:22s} ({cfg.arch_type:6s}): {hits}/4 prefix hits, "
               f"encoded {encoded} vs {naive} prompt tokens "
               f"({naive / max(encoded, 1):.1f}x fewer), {dt:.2f}s, "
-              f"first completion: {results[0].tokens[:6].tolist()} on "
-              f"{dev.type}", flush=True)
+              f"first completion: {results[0].tokens[:6].tolist()}, "
+              f"decode CUDA graphs {srv.compile_count()} on {dev.type}",
+              flush=True)
 
 
 if __name__ == "__main__":

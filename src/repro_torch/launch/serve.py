@@ -22,6 +22,10 @@ subset of ``batch`` / ``stream`` / ``tiered``:
     failover (``--outage-at``, ``--rejoin-at``); ``stream+tiered`` also
     serves on-glass provisional partials while a remote tier computes.
 
+Each model piece runs as a CUDA graph captured per input signature on
+the card (``core.splitter.split``; the CPU counts the same signatures);
+the batch and stream summaries print that count as ``CUDA graphs N``.
+
 Runs on the CUDA card unless ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --episode 2 --mobility --crash-edge-at 12
@@ -161,7 +165,8 @@ def _print_stream(eng, eps):
     print(f"\n{len(eps)} sessions, {eng.events_total} arrivals, "
           f"{eng.flushes_total} flushes, "
           f"{eng.encoder_calls_total()} encoder calls, "
-          f"{_shapes(eng)} input shapes on {eng.device}")
+          f"{_shapes(eng)} input shapes, "
+          f"CUDA graphs {eng.compile_count()} on {eng.device}")
 
 
 def _print_batch(eng, n_sessions):
@@ -174,6 +179,7 @@ def _print_batch(eng, n_sessions):
           f"{eng.total_wall_s()*1e3:.1f} ms compute "
           f"(p50 latency {lats[len(lats)//2]*1e3:.1f} ms, "
           f"{_shapes(eng)} input shapes, "
+          f"CUDA graphs {eng.compile_count()}, "
           f"cache entries {len(eng.cache)}) on {eng.device}")
 
 

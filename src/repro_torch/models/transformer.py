@@ -93,6 +93,21 @@ def clone(tree):
     return _tree_map(torch.clone, tree)
 
 
+def copy_cache(dst, src):
+    """Copy cache ``src`` into ``dst`` in place, leaf by leaf: the same
+    keys, shapes and dtypes (a server's static cache). Returns ``dst``."""
+    for k, d in dst.items():
+        s = src[k]
+        if isinstance(d, dict):
+            copy_cache(d, s)
+        elif d.shape != s.shape or d.dtype != s.dtype:
+            raise ValueError(f"cache leaf {k!r}: {tuple(s.shape)} {s.dtype} "
+                             f"into {tuple(d.shape)} {d.dtype}")
+        else:
+            d.copy_(s)
+    return dst
+
+
 # ----------------------------------------------------------------------
 # Init
 # ----------------------------------------------------------------------

@@ -8,10 +8,16 @@ hit/miss/re-decode logic and ``stats`` as the reference
 ``repro.serving.engine.LLMServer``, for the cache families the port has
 (GQA KV ring buffers, RWKV6 states).
 
-The port's decode writes its cache in place, so the prefix cache holds
-snapshots: an entry is copied when it is stored and again when a hit
-fetches it, and a stored entry stays byte-identical however many later
-requests hit it.
+The server keeps ONE decode cache of its own, with the token and the
+position a decode step reads, and every step writes that cache in
+place. On the card the decode step is captured as a CUDA graph over
+that static state (``graphs.Graphed``, the counterpart of the
+reference's jitted decode): one graph per (arch, B=1, ``cache_len``),
+replayed at every step after the position is filled in. A prefill
+(eager: each prompt length is its own program) or a prefix hit copies
+its cache into the static one. The prefix cache holds snapshots, copied
+when an entry is stored, so a stored entry stays byte-identical however
+many later requests replay over the static cache.
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from ..graphs import Graphed
+from ..graphs import compile_count as _compile_count
 from ..models import transformer as T
 
 
@@ -47,15 +55,25 @@ def _h(arr: np.ndarray) -> str:
     return hashlib.sha1(np.ascontiguousarray(arr).tobytes()).hexdigest()[:16]
 
 
+def _decode_logits(state, *, cfg):
+    """One decode step over the server's static state, written in place;
+    returns the logits (B, 1, V)."""
+    return T.decode_step(state["params"], cfg, state["tokens"],
+                         state["cache"], state["t"])[0]
+
+
 class LLMServer:
     """Greedy server for one architecture, one request at a time (B=1),
     on ``device`` (``cuda`` unless the caller asks for the CPU); ``params``
     must live there. The reference's ``batch_size``, ``window`` and
     ``cond`` inputs have no caller here and are left out (a windowed
-    cache is ``transformer.decode_step(window_attn=...)``)."""
+    cache is ``transformer.decode_step(window_attn=...)``). ``jit=False``
+    runs the decode step eagerly, as the reference's server would
+    without ``jax.jit``."""
 
     def __init__(self, cfg, params, *, cache_len: int = 256,
-                 enable_prefix_cache: bool = True, device="cuda"):
+                 enable_prefix_cache: bool = True, jit: bool = True,
+                 device="cuda"):
         self.device = _device.resolve(device)
         where = params["embed"]["emb"].device
         if where.type != self.device.type:
@@ -70,7 +88,29 @@ class LLMServer:
                       "prefill_tokens": 0, "decode_steps": 0}
         self._prefill = functools.partial(T.prefill, cfg=cfg,
                                           cache_len=cache_len)
-        self._decode = functools.partial(T.decode_step, cfg=cfg)
+        # the decode step's static state: the cache it writes in place and
+        # the token and position it reads
+        dev = self.device
+        self._state = {
+            "params": params,
+            "cache": T.init_cache(cfg, 1, cache_len, device=dev),
+            "tokens": torch.zeros((1, 1), dtype=torch.int64, device=dev),
+            "t": torch.zeros((), dtype=torch.int32, device=dev)}
+        step = functools.partial(_decode_logits, cfg=cfg)
+        self._decode_step = Graphed(step) if jit else step
+
+    def compile_count(self) -> int:
+        """Decode-step graphs: 1 once a step has run with ``jit``, else 0
+        (prefill stays eager)."""
+        return _compile_count(self._decode_step)
+
+    def _decode(self, tokens, t: int):
+        """Decode ``tokens`` (1, 1) at position ``t`` into the static
+        cache; returns the logits."""
+        state = self._state
+        state["tokens"].copy_(tokens)
+        state["t"].fill_(t)
+        return self._decode_step(state)
 
     # -------------------------------------------------------------- util
 
@@ -101,26 +141,24 @@ class LLMServer:
         # the prompt goes to the device once; suffix tokens are views of it
         tokens = torch.as_tensor(prompt[None], device=self.device)
 
+        cache = self._state["cache"]
         if hit is not None and hit[0] >= 1:
             plen, stored, _ = hit
-            cache = T.clone(stored)
+            T.copy_cache(cache, stored)
             self.stats["prefix_hits"] += 1
             # feed the remaining prompt tokens through decode steps
             logits = None
             for i in range(plen, S):
-                logits, cache = self._decode(self.params,
-                                             tokens=tokens[:, i:i + 1],
-                                             cache=cache, t=i)
+                logits = self._decode(tokens[:, i:i + 1], i)
             if logits is None:   # prompt identical to the cached prefix:
                 # decode its last token again to get logits (cheap)
-                i = S - 1
-                logits, cache = self._decode(self.params,
-                                             tokens=tokens[:, i:i + 1],
-                                             cache=cache, t=i)
+                logits = self._decode(tokens[:, S - 1:S], S - 1)
             encoded = S - plen
         else:
             self.stats["prefix_misses"] += 1
-            logits, cache = self._prefill(self.params, tokens=tokens)
+            logits, fresh = self._prefill(self.params, tokens=tokens)
+            T.copy_cache(cache, fresh)
+            del fresh                    # freed before the snapshot below
             encoded = S
         self.stats["prefill_tokens"] += encoded
 
@@ -130,9 +168,7 @@ class LLMServer:
         tok = self._greedy(logits)
         out = [tok[0, 0]]
         for step in range(1, req.max_new_tokens):
-            t = S + step - 1
-            logits, cache = self._decode(self.params, tokens=tok,
-                                         cache=cache, t=t)
+            logits = self._decode(tok, S + step - 1)
             tok = self._greedy(logits)
             self.stats["decode_steps"] += 1
             out.append(tok[0, 0])

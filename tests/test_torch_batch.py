@@ -697,25 +697,31 @@ def test_legacy_batched_shim_equals_spec_engine(indep):
 
 
 def test_shape_histograms_plateau_with_growing_vitals(indep):
-    """The port compiles nothing (``compile_count() == 0``); what bounds a
-    later per-shape capture is the set of shapes served. A vitals series
-    growing to 40 steps over 40 flushes is served at O(log) bucketed
-    shapes, and the packed layout at O(log^2) (rows, length) shapes."""
+    """What bounds the per-shape capture is the set of shapes served: a
+    vitals series growing to 40 steps over 40 flushes is served at O(log)
+    bucketed shapes, and the packed layout at O(log^2) (rows, length)
+    shapes. ``compile_count()`` is the number of distinct signatures
+    served: one per live shape for each of the two vitals encoders, and
+    flat once the last bucket (64) is reached at step 33."""
     cfg, _, (psplits, pparams) = indep
     for ragged in (False, True):
-        eng = PA.build_engine(psplits, pparams, "batch", ragged=ragged,
+        splits = {k: P.split(sm.module) for k, sm in psplits.items()}
+        eng = PA.build_engine(splits, pparams, "batch", ragged=ragged,
                               bucketer=PB.Bucketer(), device="cpu")
         x = np.ones((1, 1, cfg.n_vitals), np.float32)
+        counts = []
         for i in range(40):
             eng.submit("s0", P.Event(i, "vitals", float(i)), x,
                        aggregate=_pagg)
             eng.submit("s1", P.Event(i, "vitals", float(i)), x,
                        aggregate=_pagg)
             eng.flush()
+            counts.append(eng.compile_count())
         shapes = (eng.ragged.n_shapes() if ragged
                   else eng.bucketer.n_buckets())
         assert shapes <= 5, (ragged, shapes)     # 8, 16, 32, 64 (+ R)
-        assert eng.compile_count() == 0
+        assert eng.compile_count() == 2 * shapes  # m2's and m3's encoders
+        assert counts[32:] == [counts[32]] * 8
         assert eng.sessions["s0"].inputs["vitals"].shape[1] == 40
 
 
