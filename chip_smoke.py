@@ -64,6 +64,29 @@ Phases, each printing one JSON line:
           Reports the largest |output|, per-arrival wall p50/p99, the
           card's busy share, enc:text wall fp32 vs int8 and the feature
           wire's shrink.
+  robust  the tiered cell (same widths, zoo, sessions, tiers, precision
+          map, links and profile table as the tiered phase) under its
+          robustness rungs: (i) speculation, every adaptive arrival
+          racing (deadline 0, margin 0) and again at the launcher's 350 /
+          50 ms; (ii) re-dispatch with edge64x crashed inside one of its
+          flights; (iii) chaos_schedule(5) over ph1 and edge64x with
+          re-dispatch and the launcher's speculation. Each drive against a
+          CPU run of the same engine, table, payloads and faults: records
+          (placement fields, speculative, race_winner exact; t_emit and
+          race_loser_emit within 1e-9; outputs within 1e-4 or INT8_TOL),
+          speculation_stats() equal, at least one race in (i), one
+          re-dispatch in (ii), one rejoin in (iii); flash launches ==
+          layers x text encodes == the CPU run's calls, the int8 kernels'
+          launches == the CPU run's calls; the card's trace event for
+          event the CPU run's (name, cat, track, args; times within one
+          export rounding, 1e-9 s), passing the port's auditor, (i)'s
+          StreamingTracer JSONL (chiprun_out/robust_race.jsonl) auditing
+          as the CPU run's in-memory export; the graph checks. Reports
+          per-arrival wall p50/p99 graphed and eager, races and winners,
+          the card's busy share over (i) and the tracer's cost per arrival
+          (drive (i) with Tracer.disabled against an in-memory Tracer and
+          the StreamingTracer, ten rounds in turns, median and quartiles
+          of the differences).
   batch   the EMSServeEngine flush path at the launcher's TinyBERT-GRU-FC
           width, 16 sessions with their own payload lengths (text 8-64
           tokens, vitals 5-30 steps, numpy seed 0): (i) 'batch' over
@@ -115,13 +138,17 @@ Phases, each printing one JSON line:
           against the plain version; reports prefill and per-token decode
           wall, graphed and eager, tokens/s, peak memory and the card's
           busy share under the profiler.
-  cli     the launcher's default command, its tiered int8 command, its
+  cli     the launcher's default command, its tiered int8 command, the
+          robust command (--speculate --redispatch --chaos-seed 5 --trace
+          chiprun_out/robust_trace.json --metrics-out
+          chiprun_out/robust.prom) followed by python -m
+          repro_torch.obs.audit on its trace (exit 0), its
           flush-path commands (--engine batch; batch+stream --ragged;
           stream --wall-clock --deadline-ms 50 --speed 5), each printing a
           CUDA graph count, and python -m repro_torch.launch.llm_generate
           (one decode graph an arch), on the card.
 
-Graphs: the path phases (serve, bertbase, tiered, batch, llm) serve
+Graphs: the path phases (serve, bertbase, tiered, robust, batch, llm) serve
 through the graphed pieces (``split(jit=True)``, the LLMServer's captured
 decode step) and also check, for each drive: compile_count() on the card
 == the CPU run's; a second pass of the drive captures nothing (its
@@ -152,6 +179,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# traces and pages the run writes beside its log (git-ignored)
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
@@ -195,6 +224,9 @@ def check(cond, msg):
 
 # ---------------------------------------------------------------- device
 
+CARD = {}     # nvidia-smi's name and power limit, printed beside the walls
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -207,7 +239,7 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
-    smi = smi.strip().splitlines()[0]
+    smi = CARD["nvidia_smi"] = smi.strip().splitlines()[0]
     emit("device", kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
@@ -1012,13 +1044,13 @@ TIERED_PRECISION = {"ph1": "int8", "edge64x": "int8"}
 
 
 def tiered_engine(splits, params, table, device, precision, *,
-                  spec="tiered", sidecar_of=None):
+                  spec="tiered", sidecar_of=None, tracer=None, **rungs):
     """The slice's path as the launcher builds it: three tiers, the phone
     on a near-field tether, the glass<->edge link at 28 m NLOS (the
     low-uplink regime where quantized transport pays). ``sidecar_of``: an
     engine over the same weights whose int8 sidecar this one serves
     (a graph reads the sidecar's addresses, so a sidecar derived anew is
-    a new signature)."""
+    a new signature). ``rungs``: ``speculation`` and ``redispatch``."""
     from repro_torch.core import BandwidthTrace, nlos_bandwidth
     from repro_torch.serving.api import build_engine
     eng = build_engine(
@@ -1026,7 +1058,7 @@ def tiered_engine(splits, params, table, device, precision, *,
         device=device, profile=table, tiers=("glass", "ph1", "edge64x"),
         trace=BandwidthTrace.static(nlos_bandwidth(28.0)),
         tier_traces={"ph1": BandwidthTrace.static(nlos_bandwidth(0.0))},
-        precision=precision)
+        precision=precision, tracer=tracer, **rungs)
     if sidecar_of is not None:
         eng._qparams_cache.update(sidecar_of._qparams_cache)
     return eng
@@ -1046,12 +1078,15 @@ def tier_table(sm, params, payloads):
                         host_tier="edge64x")
 
 
-def serve_arrivals(eng, eps, payloads, *, crash_at=None):
-    """Submit every arrival in global time order; wall seconds of each,
-    the card synchronised after it."""
+def serve_arrivals(eng, eps, payloads, *, crash_at=None, schedule=None):
+    """Submit every arrival in global time order (after installing the
+    crash or the chaos schedule); wall seconds of each, the card
+    synchronised after it."""
     from repro_torch.core import merge_arrivals
     if crash_at is not None:
         eng.inject_crash(crash_at)
+    if schedule is not None:
+        eng.inject_schedule(schedule)
     walls = []
     for _t, sid, ev in merge_arrivals(eps):
         t0 = time.perf_counter()
@@ -1116,6 +1151,9 @@ def compare_runs(a_eng, b_eng, what, *, exact=False):
     return diff
 
 
+_TIER_TABLE = {}     # the tiered phase's profile table, for the robust phase
+
+
 def int8_counters():
     from repro_torch.kernels import quantized as Q
     return (Q.quantize_rowwise, Q.dequantize_rowwise, Q.int8_matmul)
@@ -1142,7 +1180,8 @@ def phase_tiered():
     splits, params = build_zoo(cfg, seed=0, device="cuda")
     cpu_splits, cpu_params = build_zoo(cfg, seed=0, device="cpu")
     payloads = sample_payloads(cfg)
-    table = tier_table(splits[full], params[full], payloads)
+    table = _TIER_TABLE["table"] = tier_table(splits[full], params[full],
+                                              payloads)
     splits = fresh(splits)
     eps = scenario_episodes(4, "mix")
 
@@ -1329,6 +1368,299 @@ def phase_tiered():
          wire_shrink_x=(raw_b / packed_b if packed_b else None),
          links=eng.fabric.stats())
     return launches
+
+
+# ---------------------------------------------------------------- robust
+
+ROBUST_SPEC_MS = (350.0, 50.0)   # the launcher's --spec-deadline-ms / -margin-ms
+# trace timestamps, card vs CPU: the simulated clocks agree within 1e-9 s
+# (the in-order delivery's max against the reference's sum, one ulp), and
+# the Chrome export rounds microseconds to 3 decimals, one more step
+TRACE_TS_US = 2e-3
+
+
+def _trace_events(doc):
+    """(name, cat, track, ts us, dur us, args) of a Chrome trace doc's
+    events, in program (seq) order."""
+    tracks = {e["tid"]: e["args"]["name"] for e in doc["traceEvents"]
+              if e["ph"] == "M" and e["name"] == "thread_name"}
+    evs = sorted((e for e in doc["traceEvents"] if e["ph"] != "M"),
+                 key=lambda e: e["args"]["seq"])
+    return [(e["name"], e["cat"], tracks[e["tid"]], e["ts"], e.get("dur"),
+             e["args"]) for e in evs]
+
+
+def _same_arg(a, b):
+    if isinstance(a, float) or isinstance(b, float):
+        return abs(a - b) <= 1e-9
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_arg(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same_arg, a, b))
+    return a == b
+
+
+def same_trace(card_doc, cpu_doc, what):
+    """The card's trace event for event the CPU run's: name, category,
+    track and args equal (floats within 1e-9), times within one export
+    rounding. Returns the event count."""
+    a, b = _trace_events(card_doc), _trace_events(cpu_doc)
+    check(len(a) == len(b) > 0, f"{what}: {len(a)} trace events on the "
+          f"card, {len(b)} on the CPU")
+    for x, y in zip(a, b):
+        check(x[:3] == y[:3], f"{what}: trace event {x[:3]} != {y[:3]}")
+        check(abs(x[3] - y[3]) <= TRACE_TS_US
+              and (x[4] is None) == (y[4] is None)
+              and (x[4] is None or abs(x[4] - y[4]) <= TRACE_TS_US),
+              f"{what}: {x[:3]} at {x[3]}+{x[4]} us, CPU {y[3]}+{y[4]}")
+        check(_same_arg(x[5], y[5]), f"{what}: {x[:3]} args {x[5]} != "
+              f"{y[5]}")
+    return len(a)
+
+
+def compare_races(a_eng, b_eng, what):
+    """The speculation fields of every record and the engines' race and
+    fault statistics: the same."""
+    for a, b in zip(a_eng.records, b_eng.records):
+        check((a.speculative, a.race_winner) == (b.speculative,
+                                                 b.race_winner)
+              and (a.race_loser_emit is None) == (b.race_loser_emit is None)
+              and (a.race_loser_emit is None
+                   or abs(a.race_loser_emit - b.race_loser_emit) <= 1e-9),
+              f"{what}: race fields differ at {_rec_key(a)}")
+    stats = [(e.speculation_stats(), e.fallback_count, e.rejoin_count)
+             for e in (a_eng, b_eng)]
+    check(stats[0] == stats[1], f"{what}: statistics {stats[0]} != "
+          f"{stats[1]}")
+
+
+def edge_crash_with_redispatch(splits, params, table, eps, payloads):
+    """A crash instant inside an edge64x encoder flight (the one nearest
+    the middle of the run whose loss a re-dispatch takes), found from CPU
+    runs: the timeline depends only on the table, traces and bytes."""
+    probe = tiered_engine(splits, params, table, "cpu", TIERED_PRECISION)
+    serve_arrivals(probe, eps, payloads)
+    mid = probe.makespan_s() / 2
+    flights = sorted((r for r in probe.records if r.enc_tier == "edge64x"
+                      and r.t_emit > r.t_start),
+                     key=lambda r: abs(r.t_start - mid))
+    for r in flights[:6]:
+        crash_at = (r.t_start + r.t_emit) / 2
+        eng = tiered_engine(splits, params, table, "cpu", TIERED_PRECISION,
+                            sidecar_of=probe, redispatch=True)
+        serve_arrivals(eng, eps, payloads, crash_at=crash_at)
+        if eng.redispatch_count:
+            return crash_at
+    raise AssertionError("no edge64x flight whose loss is re-dispatched")
+
+
+def phase_robust():
+    """The tiered cell under speculation, re-dispatch and chaos, each drive
+    held against a CPU run of the same engine and faults."""
+    from repro_torch.configs.emsnet import config
+    from repro_torch.core import SpeculationPolicy, horizon
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import (build_zoo, sample_payloads,
+                                          scenario_episodes)
+    from repro_torch.obs import (StreamingTracer, Tracer, audit_doc,
+                                 audit_file, jsonl_to_chrome)
+    from repro_torch.serving.chaos import chaos_schedule
+
+    cfg = config(text_encoder="tinybert", vocab_size=2048)
+    full = "text+vitals+scene"
+    base_splits, params = build_zoo(cfg, seed=0, device="cuda")
+    cpu_base, cpu_params = build_zoo(cfg, seed=0, device="cpu")
+    payloads = sample_payloads(cfg)
+    table = (_TIER_TABLE.get("table")
+             or tier_table(base_splits[full], params[full], payloads))
+    eps = scenario_episodes(4, "mix")
+    n_layers = cfg.text_dims[0]
+    launcher_spec = SpeculationPolicy(deadline_s=ROBUST_SPEC_MS[0] / 1e3,
+                                      margin_s=ROBUST_SPEC_MS[1] / 1e3)
+    race_all = SpeculationPolicy(deadline_s=0.0, margin_s=0.0)
+    crash_at = edge_crash_with_redispatch(cpu_base, cpu_params, table, eps,
+                                          payloads)
+    chaos = chaos_schedule(5, horizon=horizon(eps), tiers=("ph1", "edge64x"))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    jsonl = os.path.join(OUT_DIR, "robust_race.jsonl")
+    drives = {
+        "race": dict(rungs={"speculation": race_all}),
+        "race_350_50": dict(rungs={"speculation": launcher_spec}),
+        "redispatch": dict(rungs={"redispatch": True}, crash_at=crash_at),
+        "chaos": dict(rungs={"redispatch": True,
+                             "speculation": launcher_spec}, schedule=chaos),
+    }
+    # the first engine on each side derives the int8 sidecar; every later
+    # engine serves it, so no piece is captured again for a new address
+    first, cpu_first = None, None
+    rows, total = {}, {}
+    for name, d in drives.items():
+        rungs = d["rungs"]
+        faults = {"crash_at": d.get("crash_at"),
+                  "schedule": d.get("schedule")}
+        splits = fresh(base_splits)
+        tracer = (StreamingTracer(jsonl, buffer=256) if name == "race"
+                  else Tracer())
+        mem0 = torch.cuda.memory_reserved()
+        reset_counts()                              # the main path starts here
+        eng = tiered_engine(splits, params, table, "cuda", TIERED_PRECISION,
+                            tracer=tracer, sidecar_of=first, **rungs)
+        first_walls = serve_arrivals(eng, eps, payloads, **faults)
+        launches = {k.__name__: k.launches for k in int8_counters()}
+        calls = {k.__name__: k.calls for k in int8_counters()}
+        launches["flash_attention"] = FA.flash_attention.launches
+        calls["flash_attention"] = FA.flash_attention.calls
+        caps = captures(graphed_pieces(splits))     # ... and ends here
+        first = first or eng
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+        reset_counts()
+        cpu_tracer = Tracer()
+        cpu = tiered_engine(fresh(cpu_base), cpu_params, table, "cpu",
+                            TIERED_PRECISION, tracer=cpu_tracer,
+                            sidecar_of=cpu_first, **rungs)
+        serve_arrivals(cpu, eps, payloads, **faults)
+        cpu_first = cpu_first or cpu
+        cpu_calls = {k.__name__: k.calls for k in int8_counters()}
+        cpu_calls["flash_attention"] = FA.flash_attention.calls
+        check(FA.flash_attention.launches == 0
+              and all(k.launches == 0 for k in int8_counters()),
+              f"{name}: a CPU run launched a kernel")
+
+        recs = eng.records
+        n_text = sum(r.modality == "text" for r in recs)
+        ss = eng.speculation_stats()
+        check(calls == launches, f"{name}: calls {calls} != launches "
+              f"{launches} on the card")
+        check(cpu_calls == launches, f"{name}: card launches {launches} != "
+              f"CPU calls {cpu_calls}")
+        check(launches["flash_attention"] == n_layers * n_text,
+              f"{name}: flash launched {launches['flash_attention']} times, "
+              f"expected {n_layers} x {n_text} text encodes")
+        check(ss["races"] == sum(r.speculative for r in recs),
+              f"{name}: {ss['races']} races counted for "
+              f"{sum(r.speculative for r in recs)} racing records")
+        if name == "race":
+            check(ss["races"] >= 1 and all(
+                      r.speculative for r in recs
+                      if r.decision.best_remote is not None),
+                  "race: an arrival with a remote in reach did not race")
+        if name == "redispatch":
+            check(ss["redispatches"] >= 1, "redispatch: no re-dispatch "
+                  f"(edge64x crashed at {crash_at})")
+        if name == "chaos":
+            check(eng.rejoin_count >= 1, "chaos: no crash/rejoin cycle")
+        for r in recs:
+            if r.outputs is not None:
+                for k, t in r.outputs.items():
+                    check(bool(torch.isfinite(t).all()),
+                          f"{name}: non-finite {k}")
+        diff = compare_runs(cpu, eng, f"robust {name}: cpu vs cuda")
+        compare_races(cpu, eng, f"robust {name}: cpu vs cuda")
+
+        # the traces: event for event the CPU run's, clean to the auditor
+        other = {"transport": eng.fabric.stats()}
+        cpu_doc = cpu_tracer.to_chrome({"transport": cpu.fabric.stats()})
+        if name == "race":
+            tracer.close(other_data=other)
+            card_doc = jsonl_to_chrome(jsonl)
+            rep_file = audit_file(jsonl)
+            check(rep_file.ok, f"race: the JSONL trace fails the audit: "
+                  f"{rep_file.violations[:3]}")
+            check(rep_file.checks == audit_doc(cpu_doc).checks,
+                  f"race: JSONL audit {rep_file.checks} != the in-memory "
+                  f"export's {audit_doc(cpu_doc).checks}")
+        else:
+            card_doc = tracer.to_chrome(other)
+        rep = audit_doc(card_doc)
+        check(rep.ok, f"{name}: the card's trace fails the audit: "
+              f"{rep.violations[:3]}")
+        check(audit_doc(cpu_doc).ok, f"{name}: the CPU trace fails the audit")
+        n_events = same_trace(card_doc, cpu_doc, f"robust {name}")
+
+        # graphs: a second pass captures nothing, cached features stay,
+        # an eager run is bit for bit the graphed replay
+        snap = cache_snapshot(eng.cache)
+        warm = tiered_engine(splits, params, table, "cuda", TIERED_PRECISION,
+                             sidecar_of=first, **rungs)
+        walls = serve_arrivals(warm, eps, payloads, **faults)
+        check_cache_unchanged(eng.cache, snap, f"robust {name}")
+        eager = tiered_engine(fresh(base_splits, jit=False), params, table,
+                              "cuda", TIERED_PRECISION, sidecar_of=first,
+                              **rungs)
+        eager_walls = serve_arrivals(eager, eps, payloads, **faults)
+        compare_runs(warm, eager, f"robust {name}: graphed vs eager",
+                     exact=True)
+        compare_races(warm, eager, f"robust {name}: graphed vs eager")
+        graphs = graph_row(eng.compile_count(), cpu.compile_count(),
+                           graphed_pieces(splits), caps, mem0,
+                           cached_features_checked=len(snap))
+        rows[name] = dict(
+            arrivals=len(recs), text_encodes=n_text, launches=launches,
+            cpu_calls=cpu_calls, races=ss["races"], wins=ss["wins"],
+            crash_saves=ss["crash_saves"], redispatches=ss["redispatches"],
+            cancelled_msgs=ss["cancelled_msgs"],
+            fallbacks=eng.fallback_count, rejoins=eng.rejoin_count,
+            placement=eng.placement_counts(),
+            int8_flights=sum(r.precision == "int8" for r in recs),
+            cpu_max_abs_diff=diff, trace_events=n_events,
+            audit=rep.checks,
+            arrival_ms={"graphed": _percentiles(walls),
+                        "eager": _percentiles(eager_walls),
+                        "first_pass": _percentiles(first_walls)},
+            sim_total_latency_s=eng.total_latency_s(), graphs=graphs,
+            **({"crash_at": crash_at} if name == "redispatch" else {}),
+            **({"schedule": [[e.tier, e.crash_at, e.rejoin_at]
+                             for e in chaos]} if name == "chaos" else {}))
+        emit("robust_drive", drive=name, card=CARD["nvidia_smi"],
+             **rows[name])
+
+    # reported, not asserted: the card's busy share over drive (i), and
+    # the tracer's cost per arrival (drive (i), warm graphs, untraced
+    # against the StreamingTracer, alternating)
+    race_splits = fresh(base_splits)
+    serve_arrivals(tiered_engine(race_splits, params, table, "cuda",
+                                 TIERED_PRECISION, sidecar_of=first,
+                                 speculation=race_all), eps, payloads)
+    busy_us, _share, prof_wall_us, top = device_time(
+        lambda: serve_arrivals(tiered_engine(
+            race_splits, params, table, "cuda", TIERED_PRECISION,
+            sidecar_of=first, speculation=race_all), eps, payloads),
+        "flash_attention")
+    # ten rounds in turns, each a whole drive's mean wall an arrival;
+    # the cost is the median of the rounds' differences
+    arms = ("disabled", "memory", "streaming")
+    rounds = {k: [] for k in arms}
+    scratch = os.path.join(OUT_DIR, "robust_tracer_cost.jsonl")
+    for i in range(10):
+        for how in (arms if i % 2 == 0 else arms[::-1]):
+            tr = {"disabled": None, "memory": Tracer(),
+                  "streaming": StreamingTracer(scratch, buffer=256)}[how]
+            e = tiered_engine(race_splits, params, table, "cuda",
+                              TIERED_PRECISION, sidecar_of=first, tracer=tr,
+                              speculation=race_all)
+            rounds[how].append(statistics.mean(
+                serve_arrivals(e, eps, payloads)))
+            if how == "streaming":
+                tr.close(other_data={"transport": e.fabric.stats()})
+    cost = {k: sorted(1e3 * (x - d) for x, d in zip(rounds[k],
+                                                     rounds["disabled"]))
+            for k in ("memory", "streaming")}
+    emit("robust", config="tinybert-gru-fc vocab 2048, 7-model zoo",
+         card=CARD["nvidia_smi"], sessions=4, drives=list(rows),
+         crash_at=crash_at,
+         gpu_busy_us=busy_us, top_device_shares=top,
+         gpu_busy_share_of_profiled_wall=(busy_us / prof_wall_us
+                                          if busy_us else None),
+         tracer_ms_per_arrival={k: 1e3 * statistics.median(v)
+                                for k, v in rounds.items()},
+         tracer_cost_ms_per_arrival={k: statistics.median(v)
+                                     for k, v in cost.items()},
+         tracer_cost_quartiles_ms={k: statistics.quantiles(v, n=4)[::2]
+                                   for k, v in cost.items()},
+         launches=total)
+    return total
 
 
 # ----------------------------------------------------------------- batch
@@ -2432,6 +2764,31 @@ def phase_cli():
           f"unexpected tiered cli output {tiered[-1:]}")
     check(any("[int8]" in ln for ln in tiered), "tiered cli ran no int8 "
           "flight")
+    # the robust command: speculation, re-dispatch, a chaos schedule, the
+    # trace and the Prometheus page; then the auditor on the trace
+    os.makedirs(OUT_DIR, exist_ok=True)
+    trace = os.path.join(OUT_DIR, "robust_trace.json")
+    prom = os.path.join(OUT_DIR, "robust.prom")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(["--engine", "tiered", "--tiers", "glass,ph1,edge64x",
+              "--precision", "ph1=int8,edge64x=int8", "--speculate",
+              "--redispatch", "--chaos-seed", "5", "--trace", trace,
+              "--metrics-out", prom])
+    robust = buf.getvalue().strip().splitlines()
+    check(robust[0].startswith("fault schedule: chaos seed 5")
+          and any(ln.startswith("speculation: ") for ln in robust)
+          and any(ln.endswith("on cuda") for ln in robust)
+          and robust[-1].startswith("trace: "),
+          f"unexpected robust cli output {robust[:1] + robust[-3:]}")
+    check("emsserve_serve_latency_s_count" in open(prom).read(),
+          "robust cli wrote no latency summary")
+    audit = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.audit", trace],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    check(audit.returncode == 0, f"the auditor exited {audit.returncode} on "
+          f"the robust trace: {audit.stdout[-400:]}")
     # the flush path's commands: bucketed batch, ragged batch+stream with
     # grouped tails, and a stream replayed on the wall clock (the mix
     # scenario's ~9 s of episode time at 5x)
@@ -2467,7 +2824,11 @@ def phase_cli():
         for ln in llm), f"unexpected llm_generate output {llm}")
     emit("cli", lines=len(lines), last=lines[-1], tiered_lines=len(tiered),
          tiered_int8_records=sum("[int8]" in ln for ln in tiered),
-         tiered_last=tiered[-1], llm_generate=llm, flush_path=flush_cli)
+         tiered_last=tiered[-1], robust=[ln for ln in robust
+                                         if ln.startswith(("speculation",
+                                                           "trace"))],
+         robust_audit=audit.stdout.strip().splitlines()[-1],
+         llm_generate=llm, flush_path=flush_cli)
 
 
 KERNELS = {
@@ -2503,7 +2864,8 @@ PHASES = {"kernel": phase_kernel, "int8": phase_int8,
           "decode_kernel": phase_decode_kernel,
           "rwkv_kernel": phase_rwkv_kernel, "serve": phase_serve,
           "bertbase": phase_bertbase, "tiered": phase_tiered,
-          "batch": phase_batch, "llm": phase_llm, "cli": phase_cli}
+          "robust": phase_robust, "batch": phase_batch, "llm": phase_llm,
+          "cli": phase_cli}
 
 
 def main():
@@ -2537,6 +2899,7 @@ def main():
     serve_launches = timed("serve", phase_serve)
     bertbase_launches = timed("bertbase", phase_bertbase)
     tiered_launches = timed("tiered", phase_tiered)
+    robust_launches = timed("robust", phase_robust)
     batch_launches = timed("batch", phase_batch)
     llm_rows = timed("llm", phase_llm)
     timed("cli", phase_cli)
@@ -2548,6 +2911,7 @@ def main():
                      launches_by_path={
                          "serve": serve_launches,
                          "tiered": tiered_launches["flash_attention"],
+                         "robust": robust_launches["flash_attention"],
                          "bertbase": bertbase_launches, **batch_launches}),
                _line("flash_attention_bertbase",
                      "src/repro_torch/csrc/flash_attention.cu",
@@ -2573,6 +2937,9 @@ def main():
                  if name != "int8_matmul" else {})
         kernels.append(_line(name, source, replaces, tiered_launches[name],
                              int8_rows[row], shape=int8_rows[row]["shape"],
+                             launches_by_path={
+                                 "tiered": tiered_launches[name],
+                                 "robust": robust_launches[name]},
                              **floor))
     # launches on the llm path: the full-width run of the arch that runs
     # each kernel (mistral-nemo decode attention, rwkv6 scan)

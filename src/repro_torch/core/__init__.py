@@ -11,7 +11,7 @@ from .modular import (MultimodalModule, emsnet_module,  # noqa: F401
                       emsnet_subset_module, emsnet_zoo)
 from .offload import (TIER_FACTORS, AdaptiveOffloadPolicy,  # noqa: F401
                       BandwidthTrace, Decision, HeartbeatMonitor,
-                      MultiTierPolicy, ProfileTable, TierDecision,
-                      TierEstimate, nlos_bandwidth)
+                      MultiTierPolicy, ProfileTable, SpeculationPolicy,
+                      TierDecision, TierEstimate, nlos_bandwidth)
 from .splitter import (SplitModel, feature_sizes,  # noqa: F401
                        payload_nbytes, profile, select_model, split)

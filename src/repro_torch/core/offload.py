@@ -13,7 +13,8 @@ are exercised live against trace-driven bandwidth.
 
 A copy of ``repro.core.offload``: the 2-tier rule above, and its N-tier
 generalisation below (``MultiTierPolicy`` with the joint (tier,
-precision) enumeration and per-submodule tail placement).
+precision) enumeration, per-submodule tail placement and the
+``SpeculationPolicy`` hedging rung).
 """
 from __future__ import annotations
 
@@ -152,6 +153,28 @@ class AdaptiveOffloadPolicy:
 # ======================================================================
 
 @dataclass(frozen=True)
+class SpeculationPolicy:
+    """When to hedge a placement with a speculative dual dispatch.
+
+    ``deadline_s`` is the per-arrival serving-latency budget (the EMT
+    needs the prediction within this window of the datum arriving);
+    ``margin_s`` is the pressure threshold: when the chosen placement's
+    *estimated* completion leaves less than ``margin_s`` of slack before
+    the deadline, the estimate can no longer be trusted to hold (the
+    heartbeat-quantized bandwidth it is built on lags the wire), so the
+    engine dispatches the submodule on the local tier AND the best
+    remote, commits whichever returns first, and cancels the loser."""
+    deadline_s: float
+    margin_s: float = 0.0
+
+    def should_speculate(self, est_cost_s: float,
+                         lateness_s: float = 0.0) -> bool:
+        """Margin = deadline - time already burned - estimated cost;
+        speculate when it dips below the configured threshold."""
+        return (self.deadline_s - lateness_s - est_cost_s) < self.margin_s
+
+
+@dataclass(frozen=True)
 class TierEstimate:
     """One candidate (tier, precision)'s cost breakdown for one
     submodule placement. ``precision`` stays ``"fp32"`` unless the
@@ -173,12 +196,14 @@ class TierDecision:
     tier: str                            # chosen host name
     local: str                           # the always-available local host
     estimates: Dict[str, TierEstimate]   # every candidate evaluated
+    speculate: bool = False              # deadline margin too thin: race
+    margin_s: float = float("inf")       # slack the estimate left
     precision: str = "fp32"              # precision of the chosen estimate
 
     @property
     def best_remote(self) -> "str | None":
         """Name of the chosen remote, or of the cheapest remote candidate
-        when the argmin picked the local tier."""
+        when the argmin picked the local tier (the speculation partner)."""
         e = self._remote
         return e.tier if e is not None else None
 
@@ -224,6 +249,13 @@ class MultiTierPolicy:
     stay adaptive). A forced tier that is currently unavailable falls
     back to the local host.
 
+    ``speculation`` (a :class:`SpeculationPolicy`) arms the hedging
+    rung: a decision whose estimated completion leaves less than the
+    configured margin before the deadline is marked ``speculate`` — the
+    engine then dispatches the submodule on the local tier AND the best
+    remote and commits whichever returns first. Forced and non-adaptive
+    decisions never speculate (ablations must stay pinned).
+
     ``precisions`` (host -> tuple of supported precisions, e.g.
     ``{"glass": ("fp32", "int8")}``) arms the JOINT precision+placement
     enumeration: the argmin then runs over (tier, precision) candidates
@@ -241,6 +273,7 @@ class MultiTierPolicy:
                  local: str, tier_of: Dict[str, str],
                  adaptive: bool = True,
                  force: "str | Dict[str, str] | None" = None,
+                 speculation: "SpeculationPolicy | None" = None,
                  precisions: "Dict[str, tuple] | None" = None):
         self.profile = profile
         self.monitors = monitors            # remote host name -> its link
@@ -249,6 +282,7 @@ class MultiTierPolicy:
         self.remote_names = [n for n in tier_of if n != local]
         self.adaptive = adaptive
         self.force = force
+        self.speculation = speculation
         self.precisions = (None if precisions is None
                            else {h: tuple(p) for h, p in precisions.items()})
         if self.precisions is not None:
@@ -297,11 +331,14 @@ class MultiTierPolicy:
 
     def decide(self, submodule: str, payload_bytes: int, now: float, *,
                queues: "Dict[str, float] | None" = None,
-               available=None, feat_bytes: int = 0) -> TierDecision:
+               available=None, lateness_s: float = 0.0,
+               feat_bytes: int = 0) -> TierDecision:
         """Place one submodule whose raw inputs currently sit on the
         local tier. ``available`` restricts the remote candidates (a
         crashed tier is not a candidate); ``queues`` carries each host's
-        current queueing delay (omit for the contention-blind rule).
+        current queueing delay (omit for the contention-blind rule);
+        ``lateness_s`` is serving time already burned against this
+        arrival's deadline (feeds the speculation margin).
 
         ``feat_bytes`` is the estimated fp32 size of the encoded
         feature this submodule emits. It only enters the cost model
@@ -349,7 +386,15 @@ class MultiTierPolicy:
         # tie-break toward local: the legacy rule offloads only on a
         # STRICT win (dt + te < tg)
         pick = self._pick(submodule, est, prefer=self.local)
+        spec, margin = False, float("inf")
+        if (self.speculation is not None and self.adaptive
+                and self._forced(submodule) is None and remotes):
+            margin = (self.speculation.deadline_s - lateness_s
+                      - est[pick].cost)
+            spec = self.speculation.should_speculate(est[pick].cost,
+                                                     lateness_s)
         return TierDecision(tier=pick, local=self.local, estimates=est,
+                            speculate=spec, margin_s=margin,
                             precision=est[pick].precision)
 
     def decide_tail(self, feat_bytes: int, out_bytes: int, enc_tier: str,

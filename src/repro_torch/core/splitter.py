@@ -38,6 +38,14 @@ class SplitModel:
     def modalities(self):
         return self.module.modalities
 
+    def submodules(self):
+        """The independently placeable pieces of this model, named as
+        the profiling and placement layers address them: one
+        ``"enc:<modality>"`` per encoder plus the fused ``"tail"`` — the
+        keys :func:`profile` emits and ``core.offload.MultiTierPolicy``
+        places (each may land on a different tier)."""
+        return tuple(f"enc:{m}" for m in self.module.modalities) + ("tail",)
+
     def compile_count(self) -> int:
         """Distinct input signatures across this model's graphed pieces:
         the CUDA graphs a card run captures, the number the shape

@@ -19,8 +19,18 @@ subset of ``batch`` / ``stream`` / ``tiered``:
     (``--tiers``), with the joint (tier, precision) decision and int8
     flights through the hand-written quantized kernels
     (``--precision HOST=int8,...``) and an edge outage with heartbeat
-    failover (``--outage-at``, ``--rejoin-at``); ``stream+tiered`` also
-    serves on-glass provisional partials while a remote tier computes.
+    failover (``--outage-at``, ``--rejoin-at``) or a seeded crash/rejoin
+    schedule over the remote tiers (``--chaos-seed``); ``--speculate``
+    races deadline-pressured arrivals on glass and the best remote
+    (``--spec-deadline-ms``, ``--spec-margin-ms``), and ``--redispatch``
+    re-aims a flight lost to a crash at a surviving remote;
+    ``stream+tiered`` also serves on-glass provisional partials while a
+    remote tier computes.
+
+``--trace PATH`` records every arrival's lifecycle and exports a Chrome
+trace-event JSON (Perfetto-loadable; ``python -m repro_torch.obs.audit
+PATH`` re-verifies the serving invariants from it); ``--metrics-out
+PATH`` writes the metrics registry as Prometheus text.
 
 Each model piece runs as a CUDA graph captured per input signature on
 the card (``core.splitter.split``; the CPU counts the same signatures);
@@ -37,11 +47,14 @@ Runs on the CUDA card unless ``--device cpu``:
   PYTHONPATH=src python -m repro_torch.launch.serve --engine tiered \\
       --tiers glass,ph1,edge64x --precision ph1=int8,edge64x=int8 \\
       --sessions 4 --scenario mix --outage-at 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine tiered \\
+      --tiers glass,ph1,edge64x --precision ph1=int8,edge64x=int8 \\
+      --speculate --redispatch --chaos-seed 5 --trace trace.json \\
+      --metrics-out metrics.prom
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --text-encoder microbert
 
-Speculation, re-dispatch, chaos schedules, tracing and metrics export,
-the legacy ``--batched``/``--stream`` flags and the fleet simulator exit
-with the ROADMAP item that will bring them.
+The legacy ``--batched``/``--stream``/``--tiered`` flags and the fleet
+simulator exit with the ROADMAP item that will bring them.
 """
 from __future__ import annotations
 
@@ -141,6 +154,16 @@ def _print_tiered(eng, n_sessions):
           f"on {eng.device}")
 
 
+def _print_speculation(eng):
+    ss = eng.speculation_stats()
+    wins = " / ".join(f"{v} {t}" for t, v in ss["wins"].items() if v)
+    print(f"speculation: {ss['races']} races ({wins or 'no wins'}), "
+          f"{ss['crash_saves']} crash saves, "
+          f"{ss['redispatches']} re-dispatches, "
+          f"{ss['cancelled_msgs']} cancelled transfers, "
+          f"{ss['duplicate_commits']} duplicate commits")
+
+
 def _shapes(eng) -> int:
     """Distinct encoder input shapes served: bucketed (modality, length)
     pairs, or packed (modality, (rows, length)) buffers."""
@@ -194,18 +217,15 @@ def _check_flags(args):
     spec's canonical tokens (empty for the per-event default)."""
     if args.fleet:
         _later("--fleet", "item 9 (fleet)")
-    for flag, on in (("--speculate", args.speculate),
-                     ("--redispatch", args.redispatch),
-                     ("--chaos-seed", args.chaos_seed >= 0)):
-        if on:
-            _later(flag, "item 7 (speculation, re-dispatch, chaos)")
-    for flag, on in (("--trace", args.trace),
-                     ("--metrics-out", args.metrics_out)):
-        if on:
-            _later(flag, "item 8 (observability)")
-    for flag, on in (("--batched", args.batched), ("--stream", args.stream)):
+    for flag, on in (("--batched", args.batched), ("--stream", args.stream),
+                     ("--tiered", args.tiered)):
         if on:
             _later(flag, "item 10 (the legacy mode flags)")
+    for flag, on in (("--trace", args.trace),
+                     ("--metrics-out", args.metrics_out)):
+        if on and not args.engine:
+            raise SystemExit(f"{flag} requires --engine (the per-event "
+                             "engine predates the traced serving stack)")
     spec = ()
     if args.engine:
         from ..serving.api import spec_tokens
@@ -227,8 +247,15 @@ def _check_flags(args):
         raise SystemExit("--deadline-ms requires a stream spec")
     if args.wall_clock and not (stream or tiered):
         raise SystemExit("--wall-clock requires a stream or tiered spec")
+    if (args.speculate or args.redispatch) and not tiered:
+        raise SystemExit("--speculate/--redispatch require a tiered spec")
     if args.precision and not tiered:
         raise SystemExit("--precision requires a tiered spec")
+    if args.chaos_seed >= 0 and not tiered:
+        raise SystemExit("--chaos-seed requires a tiered spec")
+    if args.chaos_seed >= 0 and args.outage_at >= 0:
+        raise SystemExit("--chaos-seed conflicts with --outage-at; pick "
+                         "one fault schedule")
     if args.ragged and (tiered or not spec):
         raise SystemExit("--ragged requires a flush-mode spec (batch "
                          "and/or stream); tiered places each arrival "
@@ -237,10 +264,12 @@ def _check_flags(args):
 
 
 def _tiered_options(args, eps):
-    """PlacementPolicy overrides of a tiered spec: the precision map and
-    the tier list (the phone on a near-field tether), checked against
-    the episodes' horizon for the outage flags."""
-    from ..core import TIER_FACTORS, BandwidthTrace, horizon, nlos_bandwidth
+    """PlacementPolicy overrides of a tiered spec: the precision map, the
+    tier list (the phone on a near-field tether), speculation and
+    re-dispatch, checked against the episodes' horizon for the outage
+    flags; and the chaos schedule over the remote tiers (or None)."""
+    from ..core import (TIER_FACTORS, BandwidthTrace, SpeculationPolicy,
+                        horizon, nlos_bandwidth)
     span = horizon(eps)
     if args.outage_at >= 0:
         if args.outage_at > span:
@@ -251,7 +280,22 @@ def _tiered_options(args, eps):
             raise SystemExit(
                 f"--rejoin-at {args.rejoin_at:g} must be strictly after "
                 f"--outage-at {args.outage_at:g}")
+    chaos = None
+    if args.chaos_seed >= 0:
+        if not args.tiers:
+            raise SystemExit("--chaos-seed needs --tiers (the schedule "
+                             "spans the remote tiers)")
+        from ..serving.chaos import chaos_schedule
+        remote = tuple(t.strip() for t in args.tiers.split(",")
+                       if t.strip())[1:]
+        chaos = chaos_schedule(args.chaos_seed, horizon=span, tiers=remote)
     kw = {}
+    if args.speculate:
+        kw["speculation"] = SpeculationPolicy(
+            deadline_s=args.spec_deadline_ms / 1e3,
+            margin_s=args.spec_margin_ms / 1e3)
+    if args.redispatch:
+        kw["redispatch"] = True
     if args.precision:
         prec = {}
         for part in filter(None, (p.strip()
@@ -276,7 +320,7 @@ def _tiered_options(args, eps):
         kw["tier_traces"] = {t: BandwidthTrace.static(nlos_bandwidth(0.0))
                              for t in tiers[1:] if t.startswith("ph")}
     kw["trace"] = _mobility_trace(args.mobility)
-    return kw
+    return kw, chaos
 
 
 def serve_unified(args, spec, dev):
@@ -289,7 +333,11 @@ def serve_unified(args, spec, dev):
     n = args.sessions
     tiered, stream = "tiered" in spec, "stream" in spec
     eps = scenario_episodes(n, args.scenario) if tiered or stream else None
-    kw = _tiered_options(args, eps) if tiered else {}
+    kw, chaos = _tiered_options(args, eps) if tiered else ({}, None)
+    tracer = None
+    if args.trace:
+        from ..obs import Tracer
+        tracer = Tracer()
     cfg = emsnet_config(text_encoder=args.text_encoder, vocab_size=2048)
     if tiered or stream:
         splits, params = build_zoo(cfg, device=dev)   # one shared dict
@@ -315,7 +363,7 @@ def serve_unified(args, spec, dev):
         if args.ragged:
             kw["ragged"] = True
     eng = build_engine(splits, params, "+".join(spec), max_history=None,
-                       device=dev, **kw)
+                       tracer=tracer, device=dev, **kw)
 
     if tiered and args.outage_at >= 0:
         eng.inject_crash(args.outage_at, rejoin_at=(
@@ -324,6 +372,14 @@ def serve_unified(args, spec, dev):
               f"@{args.outage_at:.2f}s, detect @{eng.detect_at:.2f}s"
               + (f", rejoin @{args.rejoin_at:.2f}s"
                  if args.rejoin_at >= 0 else " (no restart)"))
+    if chaos is not None:
+        eng.inject_schedule(chaos)
+        print(f"fault schedule: chaos seed {args.chaos_seed}, "
+              f"{len(chaos)} crash/rejoin cycles")
+        for e in chaos:
+            rj = (f"rejoin @{e.rejoin_at:6.2f}s" if e.rejoin_at is not None
+                  else "no restart")
+            print(f"  crash {e.tier:8s} @{e.crash_at:6.2f}s, {rj}")
     if args.wall_clock:
         from ..serving.event_loop import WallClockDriver
         WallClockDriver(eng, speed=args.speed).run(eps, payload_fn)
@@ -336,6 +392,8 @@ def serve_unified(args, spec, dev):
         eng.run_episodes(eps, payload_fn)
     if tiered:
         _print_tiered(eng, n)
+        if args.speculate or args.redispatch:
+            _print_speculation(eng)
     elif stream:
         _print_stream(eng, eps)
     else:
@@ -345,6 +403,17 @@ def serve_unified(args, spec, dev):
         print(f"ragged flush: {eng.ragged.n_shapes()} packed shapes, "
               f"mean padded-FLOP fraction "
               f"{float(np.mean(pf)) if pf else 0.0:.3f} on {eng.device}")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(eng.metrics.to_prometheus())
+        print(f"metrics: prometheus text -> {args.metrics_out}")
+    if tracer is not None:
+        other = {"metrics": eng.metrics_snapshot()}
+        if tiered:
+            other["transport"] = eng.fabric.stats()
+        n_ev = tracer.export(args.trace, other_data=other)
+        print(f"trace: {n_ev} events -> {args.trace} (load in Perfetto; "
+              f"audit: python -m repro_torch.obs.audit {args.trace})")
     return eng
 
 
@@ -396,14 +465,34 @@ def main(argv=None):
     ap.add_argument("--rejoin-at", type=float, default=-1.0, metavar="S",
                     help="tiered spec: restart the crashed tier at episode "
                          "second S (replica re-warm, eligible again)")
+    ap.add_argument("--speculate", action="store_true",
+                    help="tiered spec: arm speculative dual placement — "
+                         "deadline-pressured arrivals race glass against "
+                         "the best remote (cancel-on-commit)")
+    ap.add_argument("--spec-deadline-ms", type=float, default=350.0,
+                    help="--speculate: per-arrival serving deadline")
+    ap.add_argument("--spec-margin-ms", type=float, default=50.0,
+                    help="--speculate: race when the estimated slack "
+                         "before the deadline dips below this")
+    ap.add_argument("--redispatch", action="store_true",
+                    help="tiered spec: re-aim a flight lost to a tier "
+                         "crash at the next-best surviving remote instead "
+                         "of always re-running it on glass")
+    ap.add_argument("--chaos-seed", type=int, default=-1, metavar="SEED",
+                    help="tiered spec with --tiers: a seeded crash/rejoin "
+                         "schedule over the remote tiers")
+    ap.add_argument("--trace", default="", metavar="PATH",
+                    help="--engine: record every arrival's lifecycle and "
+                         "export a Chrome trace-event JSON (Perfetto-"
+                         "loadable, auditable with python -m "
+                         "repro_torch.obs.audit)")
+    ap.add_argument("--metrics-out", default="", metavar="PATH",
+                    help="--engine: write the run's metrics registry as "
+                         "Prometheus text to PATH")
     # ---- flags of later slices: each exits naming its ROADMAP item
-    ap.add_argument("--speculate", action="store_true")
-    ap.add_argument("--redispatch", action="store_true")
-    ap.add_argument("--chaos-seed", type=int, default=-1, metavar="SEED")
-    ap.add_argument("--trace", default="", metavar="PATH")
-    ap.add_argument("--metrics-out", default="", metavar="PATH")
     ap.add_argument("--batched", type=int, default=0, metavar="N")
     ap.add_argument("--stream", type=int, default=0, metavar="N")
+    ap.add_argument("--tiered", type=int, default=0, metavar="N")
     ap.add_argument("--fleet", type=float, default=0.0, metavar="RATE")
     args = ap.parse_args(argv)
 

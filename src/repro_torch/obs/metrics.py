@@ -4,12 +4,15 @@ One ``Metrics`` object is the accounting surface of a serving stack:
 the engine's ``FeatureCache`` keeps its hit/miss/commit counters in it.
 ``QuantileSketch`` is a DDSketch-style log-bucketed quantile sketch:
 deterministic (bucket index ``ceil(log_gamma(v))``, insertion-order
-independent) and relative-error bounded (any reported quantile ``q̂``
-satisfies ``|q̂ - q| <= rel_err * q`` against the true sample quantile).
+independent), relative-error bounded (any reported quantile ``q̂``
+satisfies ``|q̂ - q| <= rel_err * q`` against the true sample quantile)
+and exactly mergeable (``a.merge(b)`` adds bucket counts, so merging is
+associative and commutative on the bucket state; the float running
+``sum`` is the only approximately associative field).
 
-A copy of the part of ``repro.obs.metrics`` that the per-event and
-tiered engines use; merging and Prometheus export join with the
-observability slice.
+``Metrics.merged`` folds many registries into one (a fleet's replicas),
+and ``Metrics.to_prometheus`` writes the Prometheus text exposition
+format. A copy of ``repro.obs.metrics``.
 """
 from __future__ import annotations
 
@@ -67,6 +70,39 @@ class QuantileSketch:
         self._min = min(self._min, v)
         self._max = max(self._max, v)
 
+    def merge(self, other: "QuantileSketch") -> "QuantileSketch":
+        """Return a NEW sketch holding both inputs' samples."""
+        if not isinstance(other, QuantileSketch):
+            raise TypeError("can only merge QuantileSketch with QuantileSketch")
+        if other.rel_err != self.rel_err:
+            raise ValueError("cannot merge sketches with different rel_err")
+        out = QuantileSketch(self.rel_err)
+        out._buckets = dict(self._buckets)
+        for i, n in other._buckets.items():
+            out._buckets[i] = out._buckets.get(i, 0) + n
+        out._zero = self._zero + other._zero
+        out._count = self._count + other._count
+        out._sum = self._sum + other._sum
+        out._min = min(self._min, other._min)
+        out._max = max(self._max, other._max)
+        return out
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    @property
+    def min(self) -> Optional[float]:
+        return None if self._count == 0 else self._min
+
+    @property
+    def max(self) -> Optional[float]:
+        return None if self._count == 0 else self._max
+
     def quantile(self, q: float) -> Optional[float]:
         """Value within ``rel_err`` (relative) of the true q-quantile,
         ``sorted(samples)[floor(q*(n-1))]``."""
@@ -85,6 +121,11 @@ class QuantileSketch:
                 # the true quantile lies inside [min, max]
                 return min(max(mid, self._min), self._max)
         return self._max
+
+    def state(self):
+        """Exact mergeable state (for associativity checks and equality)."""
+        return (tuple(sorted(self._buckets.items())), self._zero,
+                self._count, self._min, self._max)
 
     def summary(self) -> dict:
         if self._count == 0:
@@ -153,6 +194,90 @@ class Metrics:
             "histograms": {k: self._hists[k].summary()
                            for k in sorted(self._hists)},
         }
+
+    @classmethod
+    def merged(cls, registries) -> "Metrics":
+        """Exact union of registries: counters and gauges sum (callable
+        gauges are sampled), histograms merge through
+        ``QuantileSketch.merge``, so N replicas' sketches fold into the
+        same quantiles whatever the merge order."""
+        regs = list(registries)
+        if not regs:
+            return cls()
+        rel_err = regs[0].rel_err
+        if any(r.rel_err != rel_err for r in regs):
+            raise ValueError("cannot merge registries with different "
+                             "rel_err")
+        out = cls(rel_err=rel_err)
+        for r in regs:
+            for k, v in r._counters.items():
+                out._counters[k] = out._counters.get(k, 0) + v
+            gauges = dict(r._gauges)
+            for k, fn in r._gauge_fns.items():
+                gauges[k] = fn()
+            for k, v in gauges.items():
+                out._gauges[k] = out._gauges.get(k, 0) + v
+            for k, h in r._hists.items():
+                cur = out._hists.get(k)
+                out._hists[k] = h.merge(cur if cur is not None
+                                        else QuantileSketch(rel_err))
+        return out
+
+    def to_prometheus(self, *, prefix: str = "emsserve") -> str:
+        """Prometheus text exposition format (version 0.0.4).
+
+        Counters export as ``counter``, gauges as ``gauge``, and each
+        quantile sketch as a ``summary`` (p50/p95/p99 + ``_sum`` /
+        ``_count``). Names are sanitised (every character but letters,
+        digits and ``_`` becomes ``_``) and prefixed; the output is
+        sorted and deterministic. Sanitising is lossy (``cache.hits`` and
+        ``cache_hits`` both map to ``cache_hits``), so colliding names
+        take a numeric suffix (``_2``, ``_3``, ...) in sorted-key order
+        and every exported name carries exactly one ``# TYPE`` line
+        (scrapers reject a page with duplicate ones)."""
+        gauges = dict(self._gauges)
+        for k, fn in self._gauge_fns.items():
+            gauges[k] = fn()
+
+        def sanitise(k):
+            base = "".join(c if (c.isalnum() or c == "_") else "_"
+                           for c in k)
+            return f"{prefix}_{base}" if prefix else base
+
+        names: Dict[tuple, str] = {}
+        used = set()
+        for kind, keys in (("counter", sorted(self._counters)),
+                           ("gauge", sorted(gauges)),
+                           ("summary", sorted(self._hists))):
+            for k in keys:
+                n = sanitise(k)
+                cand, suffix = n, 2
+                while cand in used:
+                    cand = f"{n}_{suffix}"
+                    suffix += 1
+                used.add(cand)
+                names[(kind, k)] = cand
+
+        def num(v):
+            return repr(float(v))
+
+        lines = []
+        for k in sorted(self._counters):
+            n = names[("counter", k)]
+            lines += [f"# TYPE {n} counter", f"{n} {num(self._counters[k])}"]
+        for k in sorted(gauges):
+            n = names[("gauge", k)]
+            lines += [f"# TYPE {n} gauge", f"{n} {num(gauges[k])}"]
+        for k in sorted(self._hists):
+            h = self._hists[k]
+            n = names[("summary", k)]
+            lines.append(f"# TYPE {n} summary")
+            if h.count:
+                for q in (0.5, 0.95, 0.99):
+                    lines.append(f'{n}{{quantile="{q}"}} '
+                                 f"{num(h.quantile(q))}")
+            lines += [f"{n}_sum {num(h.sum)}", f"{n}_count {h.count}"]
+        return "\n".join(lines) + "\n"
 
     def reset(self) -> None:
         self._counters.clear()

@@ -26,7 +26,14 @@ objects:
     run the encoders over the int8 sidecar parameters (through the
     hand-written quantize / int8 GEMM kernels) and ship the packed
     ``{"q", "scale"}`` feature, which the consuming tier dequantizes at
-    gather time.
+    gather time. Two robustness rungs, both off by default:
+    ``speculation`` (a ``core.offload.SpeculationPolicy``) races a
+    deadline-pressured arrival on glass AND the best remote, commits
+    whichever result lands first exactly once and cancels the loser
+    (cancel-on-commit); ``redispatch`` re-aims a flight lost to a tier
+    crash at the next-best surviving remote instead of glass.
+    ``inject_schedule`` replays seeded crash/rejoin cycles
+    (``serving.chaos``).
 
 Engines are built from a spec by :func:`build_engine`::
 
@@ -56,17 +63,16 @@ each stacked or packed batch on the engine's device with one copy per
 key; the tensors are computed on that device (``cuda`` unless the caller
 asks for the CPU), and a flush waits for the card once, at its end. The
 simulated clock decides placement in tiered mode; the tensors are
-computed for real there too.
-
-Not here yet: chaos schedules, speculative dual placement and
-mid-flight re-dispatch (ROADMAP queue 1 item 7).
+computed for real there too, once per arrival whatever its placement: a
+race's two racers, and a re-dispatched or failed-over flight, share the
+tensors computed when the arrival was dispatched.
 """
 from __future__ import annotations
 
 import math
 import time
-from collections import defaultdict
-from dataclasses import dataclass, field
+from collections import defaultdict, deque
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -78,7 +84,7 @@ from ..core.episodes import Event, merge_arrivals
 from ..core.feature_cache import FeatureCache
 from ..core.offload import (INT8_COMPUTE_SCALE, BandwidthTrace,
                             HeartbeatMonitor, MultiTierPolicy, ProfileTable,
-                            TierDecision)
+                            SpeculationPolicy, TierDecision)
 from ..core.splitter import SplitModel, select_model
 from ..models.quantized import dequantize_feature, quantize_feature
 from ..obs import Metrics, Tracer
@@ -87,8 +93,8 @@ from .transport import TierFabric, payload_nbytes
 __all__ = [
     "Arrival", "Prediction", "FlushReport", "SessionView", "TieredRecord",
     "TierHost", "BatchPolicy", "StreamPolicy", "PlacementPolicy",
-    "EngineSpec", "EMSServeEngine", "build_engine", "parse_spec",
-    "spec_tokens",
+    "SpeculationPolicy", "EngineSpec", "EMSServeEngine", "build_engine",
+    "parse_spec", "spec_tokens",
 ]
 
 # the legacy two-tier pair's ProfileTable keys, the heartbeat period the
@@ -108,11 +114,6 @@ def _numel(tree) -> int:
     if isinstance(tree, (list, tuple)):
         return sum(_numel(v) for v in tree)
     return tree.numel() if isinstance(tree, torch.Tensor) else 0
-
-
-def _later(what: str, item: str):
-    raise NotImplementedError(f"{what} is ROADMAP queue 1 {item}, not "
-                              "ported yet")
 
 
 # ======================================================================
@@ -246,6 +247,23 @@ class TierHost:
                              host=self.name, queued_s=start - t_start)
         return start, done
 
+    def release(self, start: float, done: float, t: float):
+        """Unwind the un-run tail of the MOST RECENT booking: a
+        speculative racer cancelled at commit instant ``t`` frees the
+        host from ``max(start, t)`` on (cancel-on-commit — the loser
+        stops computing the moment the winner's result lands). A no-op
+        if something was booked after, so only the latest racer may be
+        released."""
+        if self.free_at != done:
+            return
+        cut = max(start, min(t, done))
+        self.busy_s -= done - cut
+        self.free_at = cut
+        if self.tracer:
+            self.tracer.instant("host.release", "speculation", t,
+                                track=f"host:{self.name}", host=self.name,
+                                freed_s=done - cut)
+
 
 @dataclass
 class _TierFault:
@@ -284,6 +302,12 @@ class TieredRecord:
     # stream x tiered composition: the on-glass provisional prediction
     # emitted from cached features while this arrival's refresh was away
     glass_partial: Optional[Prediction] = None
+    # speculative dual placement: this arrival raced glass against the
+    # best remote; the winner's timeline is the record's, the loser's
+    # would-have-emitted instant is kept for the win-margin analysis
+    speculative: bool = False
+    race_winner: Optional[str] = None
+    race_loser_emit: Optional[float] = None
     # numeric precision the encoder flight ran at ("fp32" | "int8"): int8
     # means the sidecar-quantized encoder computed the feature and the
     # cache/wire carry its packed {"q", "scale"} form
@@ -366,6 +390,15 @@ class PlacementPolicy:
     pins placement (a host name, or ``{submodule: host}``);
     ``adaptive=False`` always offloads to the cheapest remote.
 
+    The two robustness rungs, both off by default so every historical
+    timeline stays the same: ``speculation`` (a
+    :class:`SpeculationPolicy`) races an arrival whose estimated
+    completion leaves less than the margin before its deadline on glass
+    AND the best remote, commits whichever returns first and cancels the
+    loser (cancel-on-commit); ``redispatch`` re-aims a flight lost to a
+    tier crash at the next-best SURVIVING remote (glass only when none
+    survives) instead of always re-running it on glass.
+
     ``precision`` (``{host: "int8"}``) arms the quantized rung: an int8
     candidate scales a tier's encoder compute by ``INT8_COMPUTE_SCALE``
     and its feature-return bytes by ``INT8_BYTES_SCALE`` in the estimate
@@ -381,6 +414,8 @@ class PlacementPolicy:
     force: Optional[Union[str, Dict[str, str]]] = None
     contention_aware: Optional[bool] = None     # None = on iff N-tier
     tail_placement: Optional[bool] = None       # None = on iff N-tier
+    speculation: Optional[SpeculationPolicy] = None
+    redispatch: bool = False
     precision: Optional[Dict[str, str]] = None  # host -> "fp32" | "int8"
 
 
@@ -553,8 +588,10 @@ class EMSServeEngine:
             pp.profile, self.monitors, local=self.local_name,
             tier_of={n: h.tier for n, h in self.hosts.items()},
             adaptive=pp.adaptive, force=pp.force,
+            speculation=pp.speculation,
             precisions=({h: ("fp32", "int8") for h in int8_hosts}
                         if int8_hosts else None))
+        self.redispatch = pp.redispatch
         # the fastest remote is the legacy 'edge' of the 2-tier surface
         self._primary = min(
             self.remote_names,
@@ -568,8 +605,11 @@ class EMSServeEngine:
         # steps get re-stamped by every touch)
         self._replica_versions: Dict[str, Dict[Tuple[str, str], int]] = {
             n: {} for n in self.remote_names}
+        # fault injection / detection / restart, per remote tier;
+        # _schedule holds the not-yet-armed chaos cycles per tier
         self._faults: Dict[str, _TierFault] = {
             n: _TierFault() for n in self.remote_names}
+        self._schedule: Dict[str, deque] = {}
         self._host_names = list(names)
         self._total_latency = 0.0
 
@@ -595,6 +635,28 @@ class EMSServeEngine:
     def tail_counts(self) -> Dict[str, int]:
         return {n: int(self.metrics.get(f"placement.tail.{n}"))
                 for n in self._host_names}
+
+    @property
+    def spec_count(self) -> int:
+        return int(self.metrics.get("speculation.races"))
+
+    @property
+    def spec_wins(self) -> Dict[str, int]:
+        return {n: int(self.metrics.get(f"speculation.wins.{n}"))
+                for n in self._host_names}
+
+    @property
+    def spec_crash_saves(self) -> int:
+        return int(self.metrics.get("speculation.crash_saves"))
+
+    @property
+    def redispatch_count(self) -> int:
+        return int(self.metrics.get("placement.redispatches"))
+
+    def metrics_snapshot(self) -> dict:
+        """One JSON-serialisable snapshot of every counter, gauge, and
+        latency histogram (p50/p95/p99) the stack accumulated."""
+        return self.metrics.snapshot()
 
     # ------------------------------------------------------------ setup
 
@@ -1150,9 +1212,15 @@ class EMSServeEngine:
     # Tiered placement path (per-arrival on the simulated tier clocks)
     # ==================================================================
 
+    # ----- the legacy 2-tier accessor surface (the fastest remote)
+
     @property
     def glass(self) -> TierHost:
         return self.hosts[self.local_name]
+
+    @property
+    def edge(self) -> TierHost:
+        return self.hosts[self._primary]
 
     @property
     def uplink(self):
@@ -1169,6 +1237,10 @@ class EMSServeEngine:
     @property
     def detect_at(self) -> Optional[float]:
         return self._faults[self._primary].detect_at
+
+    @property
+    def edge_known_dead(self) -> bool:
+        return self._faults[self._primary].dead
 
     # ----- fault injection / detection / rejoin
 
@@ -1191,8 +1263,34 @@ class EMSServeEngine:
         if rejoin_at is not None:
             self.schedule_rejoin(rejoin_at, tier)
 
+    def inject_edge_crash(self, t: float):
+        self.inject_crash(t)
+
     def inject_schedule(self, schedule):
-        _later("chaos crash/rejoin schedules", "item 7")
+        """Install a multi-cycle crash/rejoin schedule (an iterable of
+        :class:`serving.chaos.FaultEvent`, e.g. from ``chaos_schedule``).
+        The first cycle of each tier arms at once; each later cycle arms
+        when the previous one's rejoin completes, so repeated crash ->
+        re-dispatch/fallback -> rejoin -> re-warm rounds replay on the
+        simulated clock."""
+        from .chaos import validate_schedule
+        entries = validate_schedule(list(schedule))
+        unknown = {e.tier for e in entries} - set(self.remote_names)
+        if unknown:
+            raise ValueError(f"schedule names unknown tier(s) "
+                             f"{sorted(unknown)}; remotes are "
+                             f"{self.remote_names}")
+        for e in entries:
+            self._schedule.setdefault(e.tier, deque()).append(e)
+        for n in list(self._schedule):
+            if self._faults[n].crash_at is None:
+                self._install_next_fault(n)
+
+    def _install_next_fault(self, tier: str):
+        q = self._schedule.get(tier)
+        if q:
+            e = q.popleft()
+            self.inject_crash(e.crash_at, tier, rejoin_at=e.rejoin_at)
 
     def schedule_rejoin(self, t: float, tier: Optional[str] = None):
         tier = self._primary if tier is None else tier
@@ -1237,14 +1335,22 @@ class EMSServeEngine:
 
     def _usable_remotes(self, now: float) -> List[str]:
         """Remote tiers a decision made at ``now`` may target, applying
-        any heartbeat detection or restart the clock has crossed."""
+        any heartbeat detection or restart the clock has crossed. Under
+        a chaos schedule a rejoin arms the tier's NEXT cycle and the loop
+        checks again: several crash/rejoin rounds may have passed between
+        two arrivals."""
         out = []
         for n in self.remote_names:
-            f = self._faults[n]
-            if not f.dead and f.detect_at is not None and now >= f.detect_at:
-                self._mark_dead(n)
-            if f.dead and f.rejoin_at is not None and now >= f.rejoin_at:
-                self._rejoin(n, f.rejoin_at)
+            while True:
+                f = self._faults[n]
+                if not f.dead and f.detect_at is not None \
+                        and now >= f.detect_at:
+                    self._mark_dead(n)
+                if f.dead and f.rejoin_at is not None and now >= f.rejoin_at:
+                    self._rejoin(n, f.rejoin_at)
+                    self._install_next_fault(n)
+                    continue
+                break
             if not self._faults[n].dead:
                 out.append(n)
         return out
@@ -1415,6 +1521,7 @@ class EMSServeEngine:
         queues = self._queues(now)
         dec = self.policy.decide(f"enc:{event.modality}", payload_b, now,
                                  queues=queues, available=avail,
+                                 lateness_s=max(0.0, now - t_a),
                                  feat_bytes=self._feat_bytes_est(
                                      event.modality))
         if self.tracer:
@@ -1424,20 +1531,30 @@ class EMSServeEngine:
                      if self.policy.precisions is not None else {})
             self.tracer.instant("decide", "placement", now, track=sess,
                                 sid=sid, submodule=f"enc:{event.modality}",
-                                tier=dec.tier, best_remote=dec.best_remote,
-                                **extra)
+                                tier=dec.tier, speculate=dec.speculate,
+                                best_remote=dec.best_remote, **extra)
 
         partial = None
-        if dec.tier != self.local_name and self.glass_partials:
-            partial = self._glass_provisional(st, prev_observed, now)
-        if self.tail_placement:
-            rec = self._placed_event(st, event, model_name, payload_b, now,
-                                     dec, avail, queues, prev_observed)
-        elif dec.tier != self.local_name:
-            rec = self._remote_event(st, event, model_name, payload_b, now,
-                                     dec, dec.tier)
+        if dec.speculate and dec.best_remote is not None:
+            # deadline margin too thin to trust the estimate: race glass
+            # against the best remote, commit the first result, cancel
+            # the loser. The glass racer IS the immediate answer, so no
+            # separate provisional partial; the race also supersedes tail
+            # splitting (both racers run encoder+tail co-located).
+            rec = self._race_event(st, event, model_name, payload_b, now,
+                                   dec, dec.best_remote)
         else:
-            rec = self._glass_event(st, event, model_name, now, dec)
+            if dec.tier != self.local_name and self.glass_partials:
+                partial = self._glass_provisional(st, prev_observed, now)
+            if self.tail_placement:
+                rec = self._placed_event(st, event, model_name, payload_b,
+                                         now, dec, avail, queues,
+                                         prev_observed)
+            elif dec.tier != self.local_name:
+                rec = self._remote_event(st, event, model_name, payload_b,
+                                         now, dec, dec.tier)
+            else:
+                rec = self._glass_event(st, event, model_name, now, dec)
         if partial is not None:
             rec.glass_partial = partial
 
@@ -1456,7 +1573,8 @@ class EMSServeEngine:
                 rec.t_emit, track=sess, sid=sid, index=rec.index,
                 modality=rec.modality, enc_tier=rec.enc_tier,
                 tail_tier=rec.tail_tier, kind=rec.kind,
-                fallback=rec.fallback, detect_s=rec.detect_s)
+                fallback=rec.fallback, speculative=rec.speculative,
+                detect_s=rec.detect_s)
         if rec.outputs is not None:
             if st.t_first_emit is None:
                 st.t_first_emit = rec.t_emit
@@ -1573,19 +1691,173 @@ class EMSServeEngine:
 
     def _crash_fallback(self, tier: str, st: SessionView, event: Event,
                         model_name: Optional[str], now: float,
-                        dec: TierDecision, *, feats=None,
-                        outputs=None) -> TieredRecord:
+                        dec: TierDecision, *, payload_b: Optional[int] = None,
+                        feats=None, outputs=None) -> TieredRecord:
         """A remote participant died before its transmission completed:
-        mark it dead at the first missed heartbeat, then re-run the lost
-        flight on glass. The already-computed numerics are reused:
-        placement never changes the math, so the re-run's tensors are the
-        in-flight ones (and keep the flight's precision)."""
+        mark it dead at the first missed heartbeat, then re-dispatch the
+        lost flight. With ``redispatch`` on and a surviving remote, the
+        flight goes to the next-best surviving remote (a fresh placement
+        decision at the detection instant, restricted to survivors);
+        otherwise it re-runs on glass. Either way the already-computed
+        numerics are reused: placement never changes the math, so the
+        re-run's tensors are the in-flight ones (and keep the flight's
+        precision). A re-dispatch target that also dies falls through
+        again, until a survivor (at last the glass) emits."""
         t_detect = max(now, self._faults[tier].detect_at)
         self._mark_dead(tier)
+        detect_s = max(0.0, t_detect - now)
+        if self.redispatch and payload_b is not None:
+            survivors = self._usable_remotes(t_detect)
+            if survivors:
+                dec2 = self.policy.decide(
+                    f"enc:{event.modality}", payload_b, t_detect,
+                    queues=self._queues(t_detect), available=survivors)
+                B = dec2.best_remote
+                if B is not None:
+                    dec2 = replace(dec2, precision=dec.precision)
+                    self.metrics.inc("placement.redispatches")
+                    if self.tracer:
+                        self.tracer.instant(
+                            "redispatch", "fault", t_detect,
+                            track=f"session:{st.sid}", sid=st.sid,
+                            from_tier=tier, to_tier=B)
+                    return self._remote_event(
+                        st, event, model_name, payload_b, t_detect, dec2,
+                        B, feats=feats, outputs=outputs, fallback=True,
+                        detect_s=detect_s)
         return self._glass_event(st, event, model_name, t_detect, dec,
-                                 fallback=True,
-                                 detect_s=max(0.0, t_detect - now),
+                                 fallback=True, detect_s=detect_s,
                                  feats=feats, outputs=outputs)
+
+    def _race_event(self, st: SessionView, event: Event,
+                    model_name: Optional[str], payload_b: int,
+                    now: float, dec: TierDecision, A: str) -> TieredRecord:
+        """Speculative dual placement (cancel-on-commit): dispatch the
+        arriving submodule on glass AND remote ``A`` at once, commit
+        whichever result reaches the glasses first, and cancel the loser
+        at the commit instant — its in-flight transfer never delivers,
+        its un-run compute is released, and nothing of it commits (the
+        cache would refuse the late duplicate anyway). The numerics run
+        ONCE: both racers share the same tensors, so the committed result
+        is the same whichever side wins. A remote crash mid-race is
+        absorbed with NO detection stall: the glass racer is already
+        running, so the EMT pays the glass latency instead of the
+        missed-heartbeat timeout (a crash save, not a fallback)."""
+        m = event.modality
+        local = self.local_name
+        host = self.hosts[A]
+        up_ch = self.fabric.channel(local, A)
+        down_ch = self.fabric.channel(A, local)
+
+        # ---- real numerics once, at the decision's precision (a
+        # property of the flight, not of either host)
+        feats = self._run_encoders(st, m, dec.precision)
+        outputs = None
+        if model_name is not None:
+            gathered = self._gather(st, model_name, m, feats)
+            if gathered is not None:
+                outputs = self._tail(model_name, gathered)
+
+        # ---- glass racer: always booked (the hedge that cannot crash)
+        g_dur = (self._enc_duration(m, len(feats), self.glass, dec.precision)
+                 if feats else 0.0)
+        if outputs is not None:
+            g_dur += self.glass.time("tail")
+        g_start, g_done = self.glass.occupy(g_dur, now)
+
+        # ---- remote racer: the uplink truly dispatches; compute and
+        # downlink are PLANNED through eta() so a loss unwinds cleanly
+        sync_b, synced = self._sync_bytes(A, st, model_name, skip=m)
+        up = up_ch.send(payload_b + sync_b, now)
+        r_dur = (self._enc_duration(m, len(feats), host, dec.precision)
+                 if feats else 0.0)
+        if outputs is not None:
+            r_dur += host.time("tail")
+        down_b = sum(payload_nbytes(f) for f in feats.values())
+        if outputs is not None:
+            down_b += payload_nbytes(outputs)
+        r_done = max(up.t_deliver, host.free_at) + r_dur
+        r_emit = down_ch.eta(down_b, r_done)
+        crashed = self._dies_before(A, r_emit)
+
+        # tie -> local: offloading must strictly win (the legacy rule)
+        glass_wins = crashed or g_done <= r_emit
+        self.metrics.inc("speculation.races")
+        if self.tracer:
+            self.tracer.instant("race.start", "speculation", now,
+                                track=f"session:{st.sid}", sid=st.sid,
+                                remote=A, glass_done=g_done,
+                                remote_emit=r_emit, crashed=crashed)
+        stamp_fresh_remote = False
+
+        if glass_wins:
+            stop = g_done                        # the commit instant
+            if up.t_deliver > stop:
+                # payload still in flight at commit: the wire frees now
+                # and the remote never computes
+                up_ch.cancel(up.flight, t=stop)
+            else:
+                rs, rd = host.occupy(r_dur, up.t_deliver)
+                cut = (min(stop, self._faults[A].crash_at) if crashed
+                       else stop)
+                host.release(rs, rd, cut)        # un-run compute freed
+                if not self._dies_before(A, up.t_deliver):
+                    versions = self._replica_versions[A]
+                    for k, version in synced:
+                        versions[k] = version
+                if rd <= stop and not self._dies_before(A, rd):
+                    # the loser finished computing; its result transfer
+                    # is recalled at commit (a sender dead on the wire is
+                    # recalled at its crash instant instead)
+                    stamp_fresh_remote = True
+                    down = down_ch.send(down_b, rd)
+                    down_ch.cancel(down.flight, t=cut)
+            winner, t_start, t_emit = local, g_start, g_done
+            uplink_s = downlink_s = 0.0
+            compute_s, loser_emit = g_dur, r_emit
+            self.metrics.inc("placement.on_glass")
+            if crashed:
+                self.metrics.inc("speculation.crash_saves")
+        else:
+            _rs, rd = host.occupy(r_dur, up.t_deliver)
+            down = down_ch.send(down_b, rd)
+            # cancel the glass racer: free the un-run tail of its booking
+            self.glass.release(g_start, g_done, down.t_deliver)
+            versions = self._replica_versions[A]
+            for k, version in synced:
+                versions[k] = version
+            stamp_fresh_remote = True
+            winner, t_start, t_emit = A, up.t_send, down.t_deliver
+            uplink_s = up.t_deliver - up.t_send
+            downlink_s = down.t_deliver - rd
+            compute_s, loser_emit = r_dur, g_done
+            self.metrics.inc("placement.offloaded")
+
+        if self.tracer:
+            self.tracer.instant("race.win", "speculation", t_emit,
+                                track=f"session:{st.sid}", sid=st.sid,
+                                winner=winner, loser_emit=loser_emit,
+                                crashed=crashed)
+        # ---- commit ONCE, for the winner only
+        self._commit_features(st, m, feats, tier=winner)
+        if outputs is not None:
+            self._touch_consumed(st, model_name)
+            self.metrics.inc(f"placement.tail.{winner}")
+        if stamp_fresh_remote:
+            # the loser computed (or received) the same fresh feature;
+            # its replica holds the committed version
+            self._stamp_fresh(A, st, m)
+        self.metrics.inc(f"placement.enc.{winner}")
+        self.metrics.inc(f"speculation.wins.{winner}")
+        return TieredRecord(
+            sid=st.sid, index=event.index, modality=m, model=model_name,
+            tier=winner, kind=self._kind(model_name),
+            t_arrival=event.arrival_time, t_start=t_start, t_emit=t_emit,
+            uplink_s=uplink_s, downlink_s=downlink_s, compute_s=compute_s,
+            decision=dec, outputs=outputs, enc_tier=winner,
+            tail_tier=winner if outputs is not None else None,
+            speculative=True, race_winner=winner,
+            race_loser_emit=loser_emit, precision=dec.precision)
 
     def _glass_event(self, st: SessionView, event: Event,
                      model_name: Optional[str], now: float,
@@ -1626,9 +1898,13 @@ class EMSServeEngine:
     def _remote_event(self, st: SessionView, event: Event,
                       model_name: Optional[str], payload_b: int,
                       now: float, dec: TierDecision, A: str, *,
-                      feats=None, outputs=None) -> TieredRecord:
+                      feats=None, outputs=None, fallback: bool = False,
+                      detect_s: float = 0.0) -> TieredRecord:
         """Encoder AND tail on remote tier ``A`` (the co-located path —
-        with ``tail_placement`` off this is the only remote shape)."""
+        with ``tail_placement`` off this is the only remote shape).
+        ``fallback``/``detect_s`` mark a mid-flight re-dispatch: the
+        flight already died once on another tier and was re-aimed here
+        at the detection instant."""
         m = event.modality
         host = self.hosts[A]
         up_ch = self.fabric.channel(self.local_name, A)
@@ -1659,7 +1935,8 @@ class EMSServeEngine:
         # downlink transmission, not just its compute
         if self._dies_before(A, down_ch.eta(down_b, t_done)):
             return self._crash_fallback(A, st, event, model_name, now, dec,
-                                        feats=feats, outputs=outputs)
+                                        payload_b=payload_b, feats=feats,
+                                        outputs=outputs)
 
         # ---- success: commit to the glass cache, ship the bytes
         self._commit_features(st, m, feats, tier=A)
@@ -1675,12 +1952,15 @@ class EMSServeEngine:
         self.metrics.inc(f"placement.enc.{A}")
         if outputs is not None:
             self.metrics.inc(f"placement.tail.{A}")
+        if fallback:
+            self.metrics.inc("placement.fallbacks")
         return TieredRecord(
             sid=st.sid, index=event.index, modality=m, model=model_name,
             tier=A, kind=self._kind(model_name),
             t_arrival=event.arrival_time, t_start=up.t_send,
             t_emit=down.t_deliver, uplink_s=up.t_deliver - up.t_send,
             downlink_s=down.t_deliver - t_done, compute_s=dur,
+            fallback=fallback, detect_s=detect_s,
             decision=dec, outputs=outputs, enc_tier=A,
             tail_tier=A if outputs is not None else None,
             precision=dec.precision)
@@ -1827,8 +2107,8 @@ class EMSServeEngine:
             down_ch = self.fabric.channel(A, local)
             if self._dies_before(A, down_ch.eta(feat_b, t_enc_done)):
                 return self._crash_fallback(A, st, event, model_name, now,
-                                            dec, feats=feats,
-                                            outputs=outputs)
+                                            dec, payload_b=payload_b,
+                                            feats=feats, outputs=outputs)
             down = down_ch.send(feat_b, t_enc_done)
             self._commit_features(st, m, feats, tier=A)
             self._stamp_fresh(A, st, m)
@@ -1858,7 +2138,8 @@ class EMSServeEngine:
         hop_ch = self.fabric.channel(A, B)
         if self._dies_before(A, hop_ch.eta(feat_b, t_enc_done)):
             return self._crash_fallback(A, st, event, model_name, now, dec,
-                                        feats=feats, outputs=outputs)
+                                        payload_b=payload_b, feats=feats,
+                                        outputs=outputs)
         hop = hop_ch.send(feat_b, t_enc_done)
         ready = max(hop.t_deliver,
                     sync_d.t_deliver if sync_d is not None else 0.0)
@@ -1868,7 +2149,8 @@ class EMSServeEngine:
         down_b = feat_b + out_b         # the result carries the cache home
         if self._dies_before(B, down_ch.eta(down_b, t_tail_done)):
             return self._crash_fallback(B, st, event, model_name, now, dec,
-                                        feats=feats, outputs=outputs)
+                                        payload_b=payload_b, feats=feats,
+                                        outputs=outputs)
         down = down_ch.send(down_b, t_tail_done)
         self._commit_features(st, m, feats, tier=A)
         self._touch_consumed(st, model_name)
@@ -1902,7 +2184,8 @@ class EMSServeEngine:
 
         Tiered placement: per arrival, optionally killing the fastest
         remote at simulated time ``crash_at`` (restarted at
-        ``rejoin_at``); returns the records. Flush mode: with
+        ``rejoin_at``) and replaying a chaos ``schedule``; returns the
+        records. Flush mode: with
         ``sim_window=None`` the engine's wall-clock deadline policy
         applies; with ``sim_window`` set, the deadline rule runs on
         EPISODE time instead: after each submit, flush iff the oldest
@@ -1911,12 +2194,12 @@ class EMSServeEngine:
         final ``drain`` runs either way; returns the flush reports."""
         arrivals = merge_arrivals(episodes)
         if self.tiered:
-            if schedule is not None:
-                self.inject_schedule(schedule)
             if crash_at is not None:
                 self.inject_crash(crash_at, rejoin_at=rejoin_at)
             elif rejoin_at is not None:
                 raise ValueError("rejoin_at requires crash_at")
+            if schedule is not None:
+                self.inject_schedule(schedule)
             for _t, sid, ev in arrivals:
                 self.submit(sid, ev, payload_fn(sid, ev),
                             aggregate=aggregate)
@@ -2032,6 +2315,21 @@ class EMSServeEngine:
     def tail_placement_counts(self) -> dict:
         """Fusions run per host."""
         return dict(self.tail_counts)
+
+    def speculation_stats(self) -> dict:
+        """Speculative-dual-placement and re-dispatch accounting: how many
+        arrivals raced, which host won each race, how many remote crashes
+        a race absorbed without a detection stall, how many lost flights
+        re-aimed at a surviving remote, and the commit protocol's audit
+        trail (cancelled transfers, refused duplicate/stale cache
+        commits — both must stay refusals, never visible state)."""
+        return {"races": self.spec_count,
+                "wins": dict(self.spec_wins),
+                "crash_saves": self.spec_crash_saves,
+                "redispatches": self.redispatch_count,
+                "cancelled_msgs": self.fabric.cancelled_msgs(),
+                "duplicate_commits": self.cache.duplicate_commits,
+                "stale_commits": self.cache.stale_commits}
 
 
 # ======================================================================

@@ -28,6 +28,7 @@ from repro_torch.launch import serve as PL
 from repro_torch.models import quantized as PQ
 from repro_torch.obs import Tracer
 from repro_torch.serving import api as PA
+from repro_torch.serving import chaos as PC
 from repro_torch.serving import transport as PT
 
 TEXT = "microbert"
@@ -235,13 +236,17 @@ def test_later_slices_raise_not_implemented(zoos):
     # engine refuses the flush-mode drivers as the reference does
     assert PA.parse_spec("batch").enabled() == ("batch",)
     assert PA.parse_spec({"stream": True}).enabled() == ("stream",)
-    # speculation and re-dispatch have no option until item 7 ports them
-    for knob in ({"speculation": object()}, {"redispatch": True}):
-        with pytest.raises(ValueError, match="does not match"):
-            _engine(P, PA, psplits, pparams, **knob)
-    eng = _engine(P, PA, psplits, pparams)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        eng.inject_schedule([])
+    # speculation, re-dispatch and chaos schedules (item 7) are options
+    # of the tiered spec now; a schedule naming no remote is refused
+    eng = _engine(P, PA, psplits, pparams,
+                  speculation=P.SpeculationPolicy(deadline_s=0.35),
+                  redispatch=True)
+    assert eng.redispatch and eng.policy.speculation.deadline_s == 0.35
+    eng.inject_schedule([])
+    with pytest.raises(ValueError, match="unknown tier"):
+        eng.inject_schedule([PC.FaultEvent(1.0, "glass", 2.0)])
+    with pytest.raises(ValueError, match="does not match"):
+        PA.parse_spec("batch", redispatch=True)
     with pytest.raises(RuntimeError, match="flush-mode"):
         eng.flush()
     with pytest.raises(RuntimeError, match="flush-mode driver"):
@@ -384,19 +389,27 @@ def test_launcher_serves_tiered_int8_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv, msg", [
-    (["--engine", "tiered", "--speculate"], "item 7"),
-    (["--engine", "tiered", "--redispatch"], "item 7"),
-    (["--engine", "tiered", "--chaos-seed", "3"], "item 7"),
+    (["--engine", "batch", "--speculate"],
+     "--speculate/--redispatch require a tiered spec"),
+    (["--engine", "batch", "--redispatch"],
+     "--speculate/--redispatch require a tiered spec"),
+    (["--engine", "batch", "--chaos-seed", "3"],
+     "--chaos-seed requires a tiered spec"),
     (["--engine", "batch", "--wall-clock"],
      "--wall-clock requires a stream or tiered spec"),
     (["--engine", "batch", "--deadline-ms", "5"],
      "--deadline-ms requires a stream spec"),
     (["--engine", "stream+tiered", "--ragged"],
      "--ragged requires a flush-mode spec"),
-    (["--engine", "batch", "--trace", "t.json"], "item 8"),
-    (["--engine", "batch", "--metrics-out", "m.prom"], "item 8"),
+    (["--engine", "tiered", "--tiers", "glass,ph1,edge64x",
+      "--chaos-seed", "3", "--outage-at", "2"],
+     "--chaos-seed conflicts with --outage-at"),
+    (["--engine", "tiered", "--chaos-seed", "3"], "--chaos-seed needs --tiers"),
     (["--batched", "4"], "item 10"),
     (["--stream", "4"], "item 10"),
+    (["--tiered", "4"], "item 10"),
+    (["--trace", "t.json"], "--trace requires --engine"),
+    (["--metrics-out", "m.prom"], "--metrics-out requires --engine"),
     (["--fleet", "4"], "item 9"),
     (["--engine", "tiered+warp"], "unknown engine spec token 'warp'"),
     (["--engine", "+"], "empty spec"),
