@@ -106,6 +106,29 @@ Phases, each printing one JSON line:
           per-arrival latency p50/p99, the card's busy share, the padded
           FLOP fraction, the live bucket and packed shapes, and one
           flush of 16 sessions' text or vitals, bucketed against ragged.
+  train   EMSNet multitask training on the card (repro_torch.training)
+          on the port's synthetic NEMSIS data at the launcher's sizes
+          (D1 8000 samples, D2 600 3-modal, vocab 2048). TinyBERT-GRU-FC:
+          the first 5 AdamW steps at B=64 from one CPU-drawn model on card
+          and CPU, losses within rtol 1e-4; the reference's directional
+          claims at full width (200 steps of text+vitals: last-10 mean
+          loss under 0.7x the first 10; text+vitals protocol top-1 above
+          vitals-only's by more than 0.15 after 200 steps each; PMI on D2,
+          100 steps at B=32, at or above scratch 3-modal training's top-1);
+          PMI's frozen text and vitals encoders bit-identical; 0 flash
+          calls over all of it; an {"m2", "m3"} checkpoint restored into a
+          fresh template on the card, bit-equal; the 3-modal test split
+          through the flash kernel's segment mode (the data's PAD holes
+          rule out the kv_lengths mode, whose distance is reported) within
+          1e-4 of the einsum evaluation, the same top-1 wherever the top
+          two logits are 1e-3 apart, launches == layers x batches; Table-6
+          episode 1 served per event with the restored weights (launches
+          == layers x text models x text events, every recommendation
+          finite). BERT-base: 2 steps at B=8 card vs CPU (rtol 1e-4), then
+          20 steps at B=64 (loss falls, finite). For both widths: ms per
+          step p50/p99 (steps after the first 3, each synchronised),
+          samples/s, the card's busy share of 3 profiled steps, peak
+          memory and the 6N FLOP bound at 67 TFLOP/s float32.
   decode_kernel  the CUDA decode-attention kernel against its plain
           version on the card: tests/test_decode_kernel.py's shapes x
           windows 0/24 (float32, 3e-5), a small bf16 case and Mistral-NeMo's
@@ -145,8 +168,11 @@ Phases, each printing one JSON line:
           repro_torch.obs.audit on its trace (exit 0), its
           flush-path commands (--engine batch; batch+stream --ragged;
           stream --wall-clock --deadline-ms 50 --speed 5), each printing a
-          CUDA graph count, and python -m repro_torch.launch.llm_generate
-          (one decode graph an arch), on the card.
+          CUDA graph count, python -m repro_torch.launch.llm_generate
+          (one decode graph an arch), and python -m repro_torch.launch.train
+          --steps 20 --d1-size 2000 (D1 pretraining, 50 PMI steps, both
+          evaluations, a checkpoint in a temporary directory), on the
+          card.
 
 Graphs: the path phases (serve, bertbase, tiered, robust, batch, llm) serve
 through the graphed pieces (``split(jit=True)``, the LLMServer's captured
@@ -168,6 +194,7 @@ check raises, so the exit code is non-zero and no result line prints.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -2744,6 +2771,344 @@ def phase_llm():
             for arch in LLM_ARCHS}
 
 
+# ----------------------------------------------------------------- train
+
+TRAIN_TV = ("text", "vitals")
+TRAIN_TVS = ("text", "vitals", "scene")
+TRAIN_RTOL = 1e-4       # card vs CPU losses: float32, TF32 off
+TRAIN_STEPS = 200       # the launcher's --steps and the directional claims'
+PMI_STEPS = 100         # the launcher's max(steps // 2, 50)
+
+
+def step_flops(cfg, p, B):
+    """6 x parameters x tokens each meets, forward and backward: the text
+    encoder's non-embedding weights (of the 2-modal model ``p``) at B x S
+    tokens, the GRU's at B x T steps, the heads' at B rows (the attention
+    scores' own products are left out, as the 6N rule leaves them)."""
+    from repro_torch.training import tree as T
+    count = lambda t: sum(x.numel() for x in T.leaves(t))
+    n_text = count(p["text"]) - count(p["text"]["tok"]) \
+        - count(p["text"]["pos"])
+    return 6 * B * (cfg.max_text_len * n_text
+                    + cfg.vitals_len * count(p["vitals"])
+                    + count(p["heads"])), n_text
+
+
+def timed_steps(cfg, params, loader, steps):
+    """``steps`` training steps on the card, each synchronised: the host
+    wall per step, and the parameters after them."""
+    from repro_torch.training import emsnet_trainer as ET
+    step, init = ET.make_train_step(cfg, TRAIN_TV)
+    state = init(params)
+    walls, losses = [], []
+    for _ in range(steps):
+        batch = next(loader)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    return walls, losses, (step, state, params)
+
+
+def train_profile(fn, n_steps):
+    """torch.profiler over ``fn`` (``n_steps`` training steps): the card's
+    busy microseconds, the profiled wall, the 6 largest device entries'
+    shares of the busy time, the 8 largest host ops' self time as shares
+    of the wall, and kernel launches a step (the runtime's launch calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev, host, launches = {}, {}, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0.0)
+            dev[e.key[:80]] = dev.get(e.key[:80], 0.0) + t
+        else:
+            host[e.key[:60]] = e.self_cpu_time_total
+            if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                         "cuLaunchKernel", "cuLaunchKernelEx"):
+                launches += e.count
+    busy = sum(dev.values())
+    top = lambda d, total: dict(sorted(((k, t / total) for k, t in d.items()),
+                                       key=lambda kv: -kv[1])[:8])
+    return (busy or None, wall_us, top(dev, busy) if busy else {},
+            top(host, wall_us), launches / n_steps)
+
+
+def train_timing(cfg, params, loader, B, steps):
+    """ms per step p50/p99 over the steps after the first 3, samples/s,
+    the card's busy share of 3 profiled steps, where the host's time goes,
+    the FLOP bound."""
+    flops, n_text = step_flops(cfg, params, B)
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, (step, state, params) = timed_steps(cfg, params, loader,
+                                                       steps)
+    steady = _percentiles(walls[3:])
+    peak = torch.cuda.max_memory_allocated()
+
+    def three():
+        nonlocal params, state
+        for _ in range(3):
+            params, state, _ = step(params, state, next(loader))
+    busy_us, prof_wall_us, top, host_top, launches = train_profile(three, 3)
+    return dict(batch=B, steps_timed=len(walls) - 3, step_ms=steady,
+                first_steps_ms=[1e3 * w for w in walls[:3]],
+                samples_per_s=B / (steady["p50"] / 1e3),
+                busy_share_of_profiled_wall=(busy_us / prof_wall_us
+                                             if busy_us else None),
+                busy_share_of_step_wall=(busy_us / (3e3 * steady["p50"])
+                                         if busy_us else None),
+                top_device_shares=top, top_host_self_shares=host_top,
+                kernel_launches_per_step=launches,
+                non_embedding_text_params=n_text, step_flops=flops,
+                flop_bound_ms=flops / FP32_FLOP_PER_S * 1e3,
+                step_p50_over_bound=steady["p50"] / (flops / FP32_FLOP_PER_S
+                                                    * 1e3),
+                memory_allocated_before=mem0, max_memory_allocated=peak,
+                training_peak_bytes=peak - mem0,
+                nvidia_smi=CARD.get("nvidia_smi")), losses
+
+
+def card_vs_cpu(cfg, loader_fn, steps):
+    """The first ``steps`` steps from one initial model, drawn on the CPU
+    from a seeded generator and copied to the card: the losses of both
+    devices, their largest relative difference, and the parameters'
+    largest absolute difference after the steps."""
+    from repro_torch.models import emsnet as E
+    from repro_torch.training import emsnet_trainer as ET
+    from repro_torch.training import tree as T
+    init = E.init_params(cfg, torch.Generator().manual_seed(0), TRAIN_TV,
+                         device="cpu")
+    on_card = T.tree_map(lambda t: t.to("cuda"), init)
+    cpu_p, cpu_l = ET.train(cfg, loader_fn(), modalities=TRAIN_TV,
+                            steps=steps, params=init)
+    gpu_p, gpu_l = ET.train(cfg, loader_fn(), modalities=TRAIN_TV,
+                            steps=steps, params=on_card)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gpu_l, cpu_l))
+    pdiff = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(T.leaves(gpu_p), T.leaves(cpu_p)))
+    check(all(math.isfinite(x) for x in gpu_l), f"non-finite loss {gpu_l}")
+    check(rel <= TRAIN_RTOL, f"{cfg.text_encoder}: card vs CPU losses differ "
+          f"by {rel} (relative) > {TRAIN_RTOL}: {gpu_l} vs {cpu_l}")
+    return {"steps": steps, "cuda": gpu_l, "cpu": cpu_l,
+            "max_rel_diff": rel, "param_max_abs_diff": pdiff}
+
+
+def phase_train():
+    """EMSNet multitask training on the card at the launcher's widths, on
+    data from the port's own generator: TinyBERT-GRU-FC (card against CPU;
+    the reference's three directional claims; PMI's frozen encoders;
+    a checkpoint evaluated and served through the flash kernel) and
+    BERT-base (20 steps, card against CPU at B=8), each timed."""
+    from repro_torch.configs.emsnet import config
+    from repro_torch.core import ProfileTable, profile
+    from repro_torch.data import synthetic_nemsis as D
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import build_models, sample_payloads
+    from repro_torch.models import emsnet as E
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import emsnet_trainer as ET
+    from repro_torch.training import losses as LS
+    from repro_torch.training import tree as T
+    import tempfile
+
+    cfg = config(text_encoder="tinybert", vocab_size=2048)   # as launch.train
+    check(cfg.use_flash_text, "the port's config serves through the kernel")
+    t0 = time.perf_counter()
+    d1 = D.generate(cfg, 8000, seed=0)
+    tr1, _, te1 = D.splits(d1)
+    d2 = D.generate(cfg, 600, seed=7, modal3=True)
+    tr2, _, te2 = D.splits(d2)
+    data_s = time.perf_counter() - t0
+    loader = lambda ds, B, mods=TRAIN_TV: D.loader(ds, B, modalities=mods)
+
+    # (1) card against CPU, 5 steps at B=64
+    secs = {"data": data_s}
+    mark = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = now - mark[0]
+        mark[0] = now
+    parity = card_vs_cpu(cfg, lambda: loader(tr1, 64), 5)
+    lap("card_vs_cpu")
+
+    # (2) the directional claims; no training step may call the kernel
+    FA.flash_attention.calls = FA.flash_attention.launches = 0
+    p2, l2 = ET.train(cfg, loader(tr1, 64), modalities=TRAIN_TV,
+                      steps=TRAIN_STEPS, device="cuda")
+    m2 = ET.evaluate(p2, cfg, te1, TRAIN_TV)
+    pv, _ = ET.train(cfg, loader(tr1, 64, ("vitals",)),
+                     modalities=("vitals",), steps=TRAIN_STEPS,
+                     device="cuda")
+    mv = ET.evaluate(pv, cfg, te1, ("vitals",))
+    p3, l3 = ET.pmi_finetune(cfg, p2, loader(tr2, 32, TRAIN_TVS),
+                             steps=PMI_STEPS)
+    m3 = ET.evaluate(p3, cfg, te2, TRAIN_TVS)
+    p3s, _ = ET.train(cfg, loader(tr2, 32, TRAIN_TVS),
+                      modalities=TRAIN_TVS, steps=PMI_STEPS, device="cuda")
+    m3s = ET.evaluate(p3s, cfg, te2, TRAIN_TVS)
+    torch.cuda.synchronize()
+    lap("claims")
+    train_launches = (FA.flash_attention.calls, FA.flash_attention.launches)
+    check(train_launches == (0, 0), f"training called the flash kernel "
+          f"{train_launches} (calls, launches); it has no backward")
+    first, last = float(np.mean(l2[:10])), float(np.mean(l2[-10:]))
+    check(last < 0.7 * first, f"loss {first} -> {last}: not under 0.7x")
+    check(m2["protocol_top1"] > mv["protocol_top1"] + 0.15,
+          f"text+vitals top-1 {m2['protocol_top1']} not above vitals-only "
+          f"{mv['protocol_top1']} + 0.15")
+    check(m3["protocol_top1"] >= m3s["protocol_top1"],
+          f"PMI top-1 {m3['protocol_top1']} under scratch "
+          f"{m3s['protocol_top1']}")
+    frozen = {m: all(torch.equal(a, b) for a, b in
+                     zip(T.leaves(p2[m]), T.leaves(p3[m]))) for m in TRAIN_TV}
+    check(all(frozen.values()), f"PMI moved a frozen encoder: {frozen}")
+
+    # (3) checkpoint, restore into a fresh template on the card
+    splits, params = build_models(cfg, seed=1, device="cuda")
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "emsnet.npz")
+        CKPT.save(path, {"m2": p2, "m3": p3},
+                  metadata={"metrics2": m2, "metrics3": m3})
+        ck_bytes = os.path.getsize(path)
+        restored = CKPT.restore(path, {"m2": params["m2"], "m3": params["m3"]})
+        meta = CKPT.metadata(path)
+    check(meta["metrics3"] == m3, "checkpoint metadata changed")
+    for name, trained in (("m2", p2), ("m3", p3)):
+        for a, b in zip(T.leaves(restored[name]), T.leaves(trained)):
+            check(a.device.type == "cuda" and torch.equal(a, b),
+                  f"restored {name} differs from the trained weights")
+
+    # (4) the 3-modal test split through the flash kernel against the
+    # einsum evaluation, batches of 64. The data drops words inside a
+    # sentence (PAD holes), which the kv_lengths mode (PAD suffix only)
+    # cannot mask; the segment mode, the serving config with
+    # flash_segments, masks any key set: it is the one held to the einsum
+    # evaluation, the kv_lengths mode's distance is reported
+    ein_cfg = ET.train_config(cfg)
+    seg_cfg = dataclasses.replace(cfg, flash_segments=True)
+    batches = [ET.to_device(te2.batch(np.arange(i, min(i + 64, len(te2))),
+                                      TRAIN_TVS), "cuda")
+               for i in range(0, len(te2), 64)]
+    with torch.inference_mode():
+        kv_diff = max(float((E.forward(restored["m3"], cfg, b, TRAIN_TVS)[
+            "protocol_logits"] - E.forward(restored["m3"], ein_cfg, b,
+                                           TRAIN_TVS)["protocol_logits"])
+            .abs().max()) for b in batches)
+    holes = int(sum(((b["text"][:, 1:] > 0) & (b["text"][:, :-1] == 0))
+                    .any(-1).sum() for b in batches))
+    FA.flash_attention.launches = 0
+    max_diff, top1_rows, top1_same, n_batches, hits = 0.0, 0, 0, 0, 0
+    with torch.inference_mode():
+        for batch in batches:
+            fl = E.forward(restored["m3"], seg_cfg, batch, TRAIN_TVS)
+            ei = E.forward(restored["m3"], ein_cfg, batch, TRAIN_TVS)
+            n_batches += 1
+            for k in fl:
+                max_diff = max(max_diff, float((fl[k] - ei[k]).abs().max()))
+            top2 = ei["protocol_logits"].topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+            same = (fl["protocol_logits"].argmax(-1)
+                    == ei["protocol_logits"].argmax(-1))
+            top1_rows += int(clear.sum())
+            top1_same += int((same & clear).sum())
+            hits += float(LS.topk_accuracy(
+                fl["protocol_logits"], batch["labels"]["protocol"],
+                ks=(1,))["top1"]) * len(batch["text"])
+    eval_launches = FA.flash_attention.launches
+    n_layers = cfg.text_dims[0]
+    check(eval_launches == n_layers * n_batches, f"evaluation launched the "
+          f"kernel {eval_launches} times, expected {n_layers} x {n_batches}")
+    check(max_diff <= TOL, f"flash vs einsum evaluation differ by {max_diff}")
+    check(top1_same == top1_rows, f"top-1 differs on {top1_rows - top1_same} "
+          f"of {top1_rows} rows with a clear margin")
+
+    # (5) Table-6 episode 1 served per event with the restored m2/m3
+    params.update(restored)
+    payloads = sample_payloads(cfg)
+    table = ProfileTable(base=profile(splits["m3"], params["m3"], payloads,
+                                      device="cuda"))
+    splits = fresh(splits)
+    FA.flash_attention.launches = 0
+    run = run_episodes(splits, params, payloads, table, "cuda",
+                       episodes=(1,))[0]
+    serve_launches = FA.flash_attention.launches
+    text_models = sum("text" in sm.modalities() for sm in splits.values())
+    text_events = sum(r.modality == "text" for r in run["engine"].records)
+    check(serve_launches == n_layers * text_models * text_events,
+          f"serving the trained weights launched the kernel {serve_launches} "
+          f"times, expected {n_layers} x {text_models} x {text_events}")
+    recs = [r.recommendation for r in run["engine"].records
+            if r.recommendation is not None]
+    check(recs and all(bool(torch.isfinite(t).all()) for rec in recs
+                       for t in rec.values()),
+          "a served recommendation of the trained model is not finite")
+
+    lap("checkpoint_eval_serve")
+    # (6) timing at TinyBERT width, B=64
+    del splits, params, restored, p2, pv, p3, p3s
+    torch.cuda.empty_cache()
+    init = T.tree_map(lambda t: t.to("cuda"), E.init_params(
+        cfg, torch.Generator().manual_seed(0), TRAIN_TV, device="cpu"))
+    tiny_t, _ = train_timing(cfg, init, loader(tr1, 64), 64, 23)
+    lap("timing")
+    del init
+    emit("train_tinybert", config="tinybert-gru-fc vocab 2048",
+         seconds=secs, card_vs_cpu=parity,
+         loss_first10=first, loss_last10=last,
+         protocol_top1={"text+vitals": m2["protocol_top1"],
+                        "vitals": mv["protocol_top1"],
+                        "pmi": m3["protocol_top1"],
+                        "scratch3": m3s["protocol_top1"]},
+         metrics2=m2, metrics3=m3, pmi_loss_last10=float(np.mean(l3[-10:])),
+         frozen_bit_identical=frozen, train_flash=train_launches,
+         checkpoint_bytes=ck_bytes,
+         flash_eval=dict(launches=eval_launches, batches=n_batches,
+                         max_abs_diff=max_diff, clear_rows=top1_rows,
+                         top1_same=top1_same, protocol_top1=hits / len(te2),
+                         rows_with_pad_holes=holes,
+                         kv_lengths_max_abs_diff=kv_diff),
+         serve=dict(launches=serve_launches, recommendations=len(recs),
+                    event_ms=_percentiles(run["event_s"])),
+         timing=tiny_t)
+
+    # (7) BERT-base: card against CPU at B=8, then 20 steps at B=64
+    bcfg = config(text_encoder="bertbase", vocab_size=2048)
+    mark[0] = time.perf_counter()
+    secs = {}
+    bparity = card_vs_cpu(bcfg, lambda: loader(tr1, 8), 2)
+    lap("card_vs_cpu")
+    torch.cuda.empty_cache()
+    binit = T.tree_map(lambda t: t.to("cuda"), E.init_params(
+        bcfg, torch.Generator().manual_seed(0), TRAIN_TV, device="cpu"))
+    n_params = sum(t.numel() for t in T.leaves(binit))
+    FA.flash_attention.calls = 0
+    big_t, bl = train_timing(bcfg, binit, loader(tr1, 64), 64, 20)
+    lap("steps")
+    check(FA.flash_attention.calls == 0, "BERT-base training called flash")
+    check(all(math.isfinite(x) for x in bl), f"BERT-base loss not finite {bl}")
+    check(np.mean(bl[-5:]) < bl[0], f"BERT-base loss did not fall below the "
+          f"first step's: {bl}")
+    emit("train_bertbase", config="bertbase-gru-fc vocab 2048", seconds=secs,
+         params=n_params, card_vs_cpu=bparity, losses=bl, timing=big_t)
+    del binit
+    torch.cuda.empty_cache()
+    return {"train": train_launches[1], "eval": eval_launches,
+            "serve": serve_launches}
+
+
 def phase_cli():
     from repro_torch.launch.serve import main
     buf = io.StringIO()
@@ -2822,13 +3187,30 @@ def phase_cli():
     check(len(llm) == len(LLM_ARCHS) and all(
         "4/4 prefix hits" in ln and ln.endswith("decode CUDA graphs 1 on cuda")
         for ln in llm), f"unexpected llm_generate output {llm}")
+    # the training launcher at the full TinyBERT width, few steps
+    import tempfile
+    from repro_torch.launch.train import main as train_main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td, contextlib.redirect_stdout(buf):
+        ckpt = os.path.join(td, "emsnet.npz")
+        train_main(["--steps", "20", "--d1-size", "2000", "--out", ckpt])
+        check(os.path.getsize(ckpt) > 0, "the train launcher wrote no file")
+    train_out = buf.getvalue().strip().splitlines()
+    check(train_out[0].endswith("on cuda")
+          and any(ln.startswith("2-modal test") for ln in train_out)
+          and any(ln.startswith("3-modal PMI test") for ln in train_out)
+          and train_out[-1] == f"checkpoint -> {ckpt}",
+          f"unexpected train launcher output {train_out[:1] + train_out[-2:]}")
+    train_s = time.perf_counter() - t0
     emit("cli", lines=len(lines), last=lines[-1], tiered_lines=len(tiered),
          tiered_int8_records=sum("[int8]" in ln for ln in tiered),
          tiered_last=tiered[-1], robust=[ln for ln in robust
                                          if ln.startswith(("speculation",
                                                            "trace"))],
          robust_audit=audit.stdout.strip().splitlines()[-1],
-         llm_generate=llm, flush_path=flush_cli)
+         llm_generate=llm, flush_path=flush_cli,
+         train=dict(lines=train_out, seconds=train_s))
 
 
 KERNELS = {
@@ -2864,8 +3246,8 @@ PHASES = {"kernel": phase_kernel, "int8": phase_int8,
           "decode_kernel": phase_decode_kernel,
           "rwkv_kernel": phase_rwkv_kernel, "serve": phase_serve,
           "bertbase": phase_bertbase, "tiered": phase_tiered,
-          "robust": phase_robust, "batch": phase_batch, "llm": phase_llm,
-          "cli": phase_cli}
+          "robust": phase_robust, "batch": phase_batch, "train": phase_train,
+          "llm": phase_llm, "cli": phase_cli}
 
 
 def main():
@@ -2901,6 +3283,7 @@ def main():
     tiered_launches = timed("tiered", phase_tiered)
     robust_launches = timed("robust", phase_robust)
     batch_launches = timed("batch", phase_batch)
+    train_launches = timed("train", phase_train)
     llm_rows = timed("llm", phase_llm)
     timed("cli", phase_cli)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds)
@@ -2912,7 +3295,12 @@ def main():
                          "serve": serve_launches,
                          "tiered": tiered_launches["flash_attention"],
                          "robust": robust_launches["flash_attention"],
-                         "bertbase": bertbase_launches, **batch_launches}),
+                         "bertbase": bertbase_launches, **batch_launches,
+                         # the trained weights evaluated and served; a
+                         # training step launches it 0 times
+                         "train": train_launches["eval"]
+                         + train_launches["serve"],
+                         "train_steps": train_launches["train"]}),
                _line("flash_attention_bertbase",
                      "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:98",

@@ -1,12 +1,13 @@
-"""Model configurations of the port: EMSNet (``emsnet``) and the LLM
-zoo's registry, ``get_config(arch_id)``.
+"""Model configurations of the port: EMSNet (``emsnet``,
+``get_emsnet_config(**kw)``) and the LLM zoo's registry,
+``get_config(arch_id)``.
 
 The registry names only the architectures the port serves. The JAX
 package's other architectures (MLA, MoE, Mamba, cross-attention,
 musicgen codebooks) are known by name and refused with an error that
 points at ROADMAP item 11, where they are queued.
 """
-from . import mistral_nemo_12b, rwkv6_1b6
+from . import emsnet, mistral_nemo_12b, rwkv6_1b6
 from .base import (SHAPES, InputShape, LayerSpec,  # noqa: F401
                    MambaConfig, MLAConfig, ModelConfig, reduced)
 
@@ -31,3 +32,7 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")
     return _REGISTRY[name]()
+
+
+def get_emsnet_config(**kw):
+    return emsnet.config(**kw)

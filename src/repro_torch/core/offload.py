@@ -31,9 +31,10 @@ TIER_FACTORS = {
     "glass": 107.0,
 }
 
-# The int8 rung's cost model: an int8 candidate's encoder compute, and its
-# feature-return bytes, as fractions of the float32 ones (the packed
-# feature is d + 4 bytes against 4d).
+# The int8 rung's default cost model (``MultiTierPolicy``'s and
+# ``PlacementPolicy``'s defaults): an int8 candidate's encoder compute,
+# and its feature-return bytes, as fractions of the float32 ones (the
+# packed feature is d + 4 bytes against 4d).
 INT8_COMPUTE_SCALE = 0.5
 INT8_BYTES_SCALE = 0.25
 
@@ -259,9 +260,9 @@ class MultiTierPolicy:
     ``precisions`` (host -> tuple of supported precisions, e.g.
     ``{"glass": ("fp32", "int8")}``) arms the JOINT precision+placement
     enumeration: the argmin then runs over (tier, precision) candidates
-    where int8 scales a tier's compute by ``INT8_COMPUTE_SCALE`` and —
+    where int8 scales a tier's compute by ``int8_compute_scale`` and —
     because int8-packed features are what ships home — scales the
-    feature-return bytes by ``INT8_BYTES_SCALE``. The winning estimate's
+    feature-return bytes by ``int8_bytes_scale``. The winning estimate's
     precision rides on the decision, so the engine sends quantized
     features exactly when the uplink is the bottleneck and raw when it
     isn't. Unset (None), every path below is BIT-IDENTICAL to the
@@ -274,7 +275,9 @@ class MultiTierPolicy:
                  adaptive: bool = True,
                  force: "str | Dict[str, str] | None" = None,
                  speculation: "SpeculationPolicy | None" = None,
-                 precisions: "Dict[str, tuple] | None" = None):
+                 precisions: "Dict[str, tuple] | None" = None,
+                 int8_compute_scale: float = INT8_COMPUTE_SCALE,
+                 int8_bytes_scale: float = INT8_BYTES_SCALE):
         self.profile = profile
         self.monitors = monitors            # remote host name -> its link
         self.local = local
@@ -283,6 +286,8 @@ class MultiTierPolicy:
         self.adaptive = adaptive
         self.force = force
         self.speculation = speculation
+        self.int8_compute_scale = int8_compute_scale
+        self.int8_bytes_scale = int8_bytes_scale
         self.precisions = (None if precisions is None
                            else {h: tuple(p) for h, p in precisions.items()})
         if self.precisions is not None:
@@ -344,7 +349,7 @@ class MultiTierPolicy:
         feature this submodule emits. It only enters the cost model
         when the joint precision enumeration is armed — a remote
         candidate then pays the feature's return trip too (scaled by
-        ``INT8_BYTES_SCALE`` for int8 candidates), which is what makes
+        ``int8_bytes_scale`` for int8 candidates), which is what makes
         the quantized variant win exactly when the radio is the
         bottleneck. With ``precisions=None`` the estimate is the
         legacy uplink-only Δt, bit-identical to the precision-less
@@ -367,11 +372,12 @@ class MultiTierPolicy:
                 t_fp32 = self.profile.time(submodule, self.tier_of[host])
                 cands = []
                 for prec in self.precisions.get(host, ("fp32",)):
-                    scale = INT8_COMPUTE_SCALE if prec == "int8" else 1.0
+                    scale = (self.int8_compute_scale if prec == "int8"
+                             else 1.0)
                     if host == self.local:
                         xfer = 0.0
                     else:
-                        fb = feat_bytes * (INT8_BYTES_SCALE
+                        fb = feat_bytes * (self.int8_bytes_scale
                                            if prec == "int8" else 1.0)
                         xfer = self.monitors[host].delta_t(
                             payload_bytes + fb, now)

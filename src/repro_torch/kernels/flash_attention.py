@@ -175,7 +175,19 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
 
     CUDA tensors launch the kernel (float32, head dims up to 128); CPU
     tensors take ``flash_attention_plain``.
+
+    The kernel has no backward (nor has the Pallas kernel it ports), so a
+    call under grad mode with any of q, k, v requiring grad raises, on
+    both devices alike: the CPU sees what the card would do. Training
+    runs the materialised attention (``use_flash_text=False``); serving
+    runs under ``torch.inference_mode()``.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward (neither the CUDA kernel nor "
+            "the reference's Pallas kernel): call it under torch.no_grad() "
+            "or torch.inference_mode(), or train with "
+            "use_flash_text=False")
     flash_attention.calls += 1
     if causal and (kv_lengths is not None or segment_ids is not None):
         raise NotImplementedError(

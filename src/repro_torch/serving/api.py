@@ -82,9 +82,9 @@ from ..core.bucketing import (Bucketer, RaggedBatch, next_pow2,
                               stack_bucketed, to_device)
 from ..core.episodes import Event, merge_arrivals
 from ..core.feature_cache import FeatureCache
-from ..core.offload import (INT8_COMPUTE_SCALE, BandwidthTrace,
-                            HeartbeatMonitor, MultiTierPolicy, ProfileTable,
-                            SpeculationPolicy, TierDecision)
+from ..core.offload import (INT8_BYTES_SCALE, INT8_COMPUTE_SCALE,
+                            BandwidthTrace, HeartbeatMonitor, MultiTierPolicy,
+                            ProfileTable, SpeculationPolicy, TierDecision)
 from ..core.splitter import SplitModel, select_model
 from ..models.quantized import dequantize_feature, quantize_feature
 from ..obs import Metrics, Tracer
@@ -97,12 +97,6 @@ __all__ = [
     "parse_spec", "spec_tokens",
 ]
 
-# the legacy two-tier pair's ProfileTable keys, the heartbeat period the
-# monitors quantize bandwidth to (the paper samples every second), and
-# each link's one-way latency
-LEGACY_TIERS = ("glass", "edge4c")
-HB_PERIOD_S = 1.0
-LINK_LATENCY_S = 0.005
 # the variable-length modalities a RaggedBatch packs
 RAGGED_MODALITIES = ("text", "vitals")
 
@@ -399,9 +393,14 @@ class PlacementPolicy:
     tier crash at the next-best SURVIVING remote (glass only when none
     survives) instead of always re-running it on glass.
 
+    ``glass_tier``/``edge_tier`` are the legacy pair's ProfileTable keys
+    (without ``tiers``), ``hb_period`` the period the heartbeat monitors
+    quantize bandwidth to (the paper samples every second) and
+    ``link_latency_s`` each link's one-way latency.
+
     ``precision`` (``{host: "int8"}``) arms the quantized rung: an int8
-    candidate scales a tier's encoder compute by ``INT8_COMPUTE_SCALE``
-    and its feature-return bytes by ``INT8_BYTES_SCALE`` in the estimate
+    candidate scales a tier's encoder compute by ``int8_compute_scale``
+    and its feature-return bytes by ``int8_bytes_scale`` in the estimate
     (``core.offload``); real flights ship the real packed bytes. ``None``
     or an all-fp32 map keeps the engine bit-identical to the
     precision-less one. Every model must declare a ``quantize_fn`` or the
@@ -410,6 +409,10 @@ class PlacementPolicy:
     trace: BandwidthTrace
     tiers: Optional[Tuple[str, ...]] = None
     tier_traces: Optional[Dict[str, BandwidthTrace]] = None
+    glass_tier: str = "glass"
+    edge_tier: str = "edge4c"
+    hb_period: float = 1.0
+    link_latency_s: float = 0.005
     adaptive: bool = True
     force: Optional[Union[str, Dict[str, str]]] = None
     contention_aware: Optional[bool] = None     # None = on iff N-tier
@@ -417,6 +420,8 @@ class PlacementPolicy:
     speculation: Optional[SpeculationPolicy] = None
     redispatch: bool = False
     precision: Optional[Dict[str, str]] = None  # host -> "fp32" | "int8"
+    int8_compute_scale: float = INT8_COMPUTE_SCALE
+    int8_bytes_scale: float = INT8_BYTES_SCALE
 
 
 @dataclass
@@ -546,7 +551,7 @@ class EMSServeEngine:
         # host names double as ProfileTable factor keys in N-tier mode;
         # the legacy pair keeps its historical display names
         names = list(pp.tiers) if multi else ["glass", "edge"]
-        keys = names if multi else list(LEGACY_TIERS)
+        keys = names if multi else [pp.glass_tier, pp.edge_tier]
         if len(names) < 2:
             raise ValueError("tiered placement needs the local host plus "
                              "at least one remote tier")
@@ -557,10 +562,10 @@ class EMSServeEngine:
         self.remote_names = names[1:]
         traces = {n: (pp.tier_traces or {}).get(n, pp.trace)
                   for n in self.remote_names}
-        self.monitors = {n: HeartbeatMonitor(traces[n], period=HB_PERIOD_S)
+        self.monitors = {n: HeartbeatMonitor(traces[n], period=pp.hb_period)
                          for n in self.remote_names}
         self.fabric = TierFabric(self.local_name, traces,
-                                 latency_s=LINK_LATENCY_S,
+                                 latency_s=pp.link_latency_s,
                                  metrics=self.metrics, tracer=self.tracer)
         # ---- quantized rung: validate the precision map up front (a bad
         # host name or a zoo without quantize_fn is a configuration error,
@@ -580,6 +585,7 @@ class EMSServeEngine:
                     raise ValueError(
                         f"precision={prec_cfg} needs an int8 variant of "
                         f"every model; {mname!r} declares no quantize_fn")
+        self.int8_compute_scale = pp.int8_compute_scale
         # float32 dict id() -> derived int8 sidecar dict: derived ONCE per
         # distinct parameter dict, so share_encoders zoos (one dict for
         # the whole zoo) quantize exactly once
@@ -590,7 +596,9 @@ class EMSServeEngine:
             adaptive=pp.adaptive, force=pp.force,
             speculation=pp.speculation,
             precisions=({h: ("fp32", "int8") for h in int8_hosts}
-                        if int8_hosts else None))
+                        if int8_hosts else None),
+            int8_compute_scale=pp.int8_compute_scale,
+            int8_bytes_scale=pp.int8_bytes_scale)
         self.redispatch = pp.redispatch
         # the fastest remote is the legacy 'edge' of the 2-tier surface
         self._primary = min(
@@ -625,6 +633,14 @@ class EMSServeEngine:
     @property
     def rejoin_count(self) -> int:
         return int(self.metrics.get("placement.rejoins"))
+
+    @property
+    def offloaded_count(self) -> int:
+        return int(self.metrics.get("placement.offloaded"))
+
+    @property
+    def on_glass_count(self) -> int:
+        return int(self.metrics.get("placement.on_glass"))
 
     @property
     def place_counts(self) -> Dict[str, int]:
@@ -1383,17 +1399,17 @@ class EMSServeEngine:
         """Simulated seconds the tier spends encoding modality ``m`` for
         ``n_runners`` consuming models: expensive text encoders run in
         parallel, cheap ones serially (paper Fig. 8-right). int8 flights
-        scale by the SAME ``INT8_COMPUTE_SCALE`` the placement estimate
+        scale by the SAME ``int8_compute_scale`` the placement estimate
         used, so the decision and the booking agree."""
         per = host.time(f"enc:{m}")
         if precision == "int8":
-            per *= INT8_COMPUTE_SCALE
+            per *= self.int8_compute_scale
         return per if m == "text" else per * n_runners
 
     def _feat_bytes_est(self, m: str) -> int:
         """A-priori float32 size of modality ``m``'s encoded feature (the
         declared feature width x 4 bytes): what the joint precision
-        enumeration scales by ``INT8_BYTES_SCALE`` before the encoder has
+        enumeration scales by ``int8_bytes_scale`` before the encoder has
         run. Real flights then ship the real packed bytes."""
         for _n, sm in self._consumers(m):
             d = sm.module.feature_dims.get(m)

@@ -49,9 +49,9 @@ class TieredEMSServe(EMSServeEngine):
     default; without it, the historical 2-tier contention-blind
     co-located behaviour is kept.
 
-    The legacy pair's profile keys, the heartbeat period (1 s) and the
-    links' one-way latency (5 ms) are the engine's constants
-    (``serving.api``). ``speculation`` (a
+    ``glass_tier``/``edge_tier`` name the legacy pair's profile keys;
+    ``hb_period`` is the heartbeat period (1 s) and ``link_latency_s``
+    the links' one-way latency (5 ms). ``speculation`` (a
     :class:`~core.offload.SpeculationPolicy`) arms speculative dual
     placement; ``redispatch=True`` re-aims a flight lost to a tier crash
     at the next-best surviving remote instead of always re-running it on
@@ -62,6 +62,8 @@ class TieredEMSServe(EMSServeEngine):
                  params: Dict[str, dict], *,
                  profile: ProfileTable, trace: BandwidthTrace,
                  tiers=None, tier_traces=None,
+                 glass_tier: str = "glass", edge_tier: str = "edge4c",
+                 hb_period: float = 1.0, link_latency_s: float = 0.005,
                  adaptive: bool = True, force=None,
                  contention_aware: Optional[bool] = None,
                  tail_placement: Optional[bool] = None,
@@ -76,7 +78,9 @@ class TieredEMSServe(EMSServeEngine):
             stream=None,                            # no glass partials
             placement=PlacementPolicy(
                 profile=profile, trace=trace, tiers=tiers,
-                tier_traces=tier_traces, adaptive=adaptive, force=force,
+                tier_traces=tier_traces, glass_tier=glass_tier,
+                edge_tier=edge_tier, hb_period=hb_period,
+                link_latency_s=link_latency_s, adaptive=adaptive, force=force,
                 contention_aware=contention_aware,
                 tail_placement=tail_placement, speculation=speculation,
                 redispatch=redispatch),

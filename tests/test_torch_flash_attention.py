@@ -130,6 +130,25 @@ def test_rejects_what_the_reference_rejects(kw, exc):
         ops.flash_attention(q, k, v, **kw)
 
 
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["q", "k", "v"])
+def test_raises_under_autograd_and_runs_without_it(which):
+    """The kernel has no backward: with grad mode on and any of q, k, v
+    requiring grad the call raises (here on the CPU, as on the card) and
+    counts nothing; under ``no_grad`` and ``inference_mode`` it runs."""
+    qkv = [torch.from_numpy(a) for a in _qkv(9, 1, 8, 8, 2, 2, 16)]
+    qkv[which].requires_grad_(True)
+    calls = FA.flash_attention.calls
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(*qkv, causal=False)
+    assert FA.flash_attention.calls == calls
+    with torch.no_grad():
+        a = ops.flash_attention(*qkv, causal=False)
+    with torch.inference_mode():
+        b = ops.flash_attention(*qkv, causal=False)
+    assert torch.equal(a, b) and not a.requires_grad
+    assert FA.flash_attention.calls == calls + 2
+
+
 def test_segments_need_self_attention():
     q, k, v = (torch.from_numpy(a) for a in _qkv(8, 1, 8, 16, 2, 2, 16))
     with pytest.raises(ValueError, match="Sq == Sk"):

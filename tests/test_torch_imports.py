@@ -46,6 +46,9 @@ def test_package_imports_with_jax_unavailable():
         "import repro_torch.models.rwkv, repro_torch.models.attention\n"
         "import repro_torch.serving.engine, repro_torch.launch.llm_generate\n"
         "import repro_torch.kernels.decode_attention, repro_torch.kernels.rwkv6\n"
+        "import repro_torch.data.synthetic_nemsis, repro_torch.launch.train\n"
+        "import repro_torch.training.emsnet_trainer\n"
+        "import repro_torch.training.checkpoint\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
     )

@@ -82,7 +82,7 @@ def test_parity_after_midepisode_edge_crash(sides):
 
 def test_crash_before_detection_window_pays_timeout(sides):
     def drive(side):
-        eng = _tiered(side, bw_m=0.0)                  # 1 s heartbeats
+        eng = _tiered(side, bw_m=0.0, hb_period=1.0)   # 1 s heartbeats
         eng.inject_edge_crash(0.25)
         rec = side.submit(eng, "s0", 0, "text", 0.5)
         assert rec.tier == "glass" and rec.fallback
@@ -96,13 +96,7 @@ def test_crash_before_detection_window_pays_timeout(sides):
 
 def test_crash_during_downlink_transfer_loses_result(sides):
     def drive(side):
-        if side.is_port:
-            # the port's link latency is a constant: set the fabric's
-            # before any channel exists
-            eng = _tiered(side, bw_m=0.0)
-            eng.fabric.latency_s = 0.5
-        else:
-            eng = _tiered(side, bw_m=0.0, link_latency_s=0.5)
+        eng = _tiered(side, bw_m=0.0, link_latency_s=0.5)
         eng.inject_edge_crash(0.9)        # between compute and delivery
         rec = side.submit(eng, "s0", 0, "text", 0.0)
         assert rec.fallback and rec.tier == "glass"
