@@ -106,6 +106,32 @@ Phases, each printing one JSON line:
           per-arrival latency p50/p99, the card's busy share, the padded
           FLOP fraction, the live bucket and packed shapes, and one
           flush of 16 sessions' text or vitals, bucketed against ragged.
+  fleet   the region simulator (repro_torch.fleet) at the launcher's
+          TinyBERT-GRU-FC width over the 7-model zoo, parameters placed
+          through the sharding policy (63 leaves, 6 with a 'model' spec):
+          (i) two replicas admitting every session of
+          generate_workload(8, 2, seed=0, time_scale=0.2) with the parity
+          bucket (batch_bucket_min=2, max_coalesce=2) on a step clock
+          (1 ms a time_fn() call), against a CPU run: routes, flush log,
+          TTFP, time-to-final, report and merged Prometheus text equal,
+          finals within 1e-4 of the CPU's and of the card's own per-event
+          engine, flash launches == the CPU run's calls == layers x text
+          encodes; (i') the same at 50 ms a call against an 80 ms
+          admission deadline (flushes coalesce, the router spills, part of
+          the load sheds), held alike; (ii) the same drive shedding every
+          session to the glass path (deadline 1e-4 s): degraded partials
+          only, t_emit equal to the CPU's, partials within 1e-4, launches
+          == the CPU's calls, the StreamingTracer's
+          chiprun_out/fleet_shed.jsonl clean to the auditor; (iii) benchmarks/fleet_load.py's method on the real
+          clock, graphed, each point warmed by the identical drive: light
+          and saturated calibration on one replica, the load curve over two
+          replicas at 0.25-2x the saturated capacity (TTFP p50/p95/p99,
+          finalized sessions/s, events per flush, captures in the measured
+          pass: 0), shed-vs-queue at 2x the knee with the knee's p99 as
+          deadline, weak scaling over 1, 2 and 4 replicas, and the card's
+          busy share over the knee point; offered == admitted + shed and
+          degraded-only partials at every point. Speed is printed, not
+          asserted.
   train   EMSNet multitask training on the card (repro_torch.training)
           on the port's synthetic NEMSIS data at the launcher's sizes
           (D1 8000 samples, D2 600 3-modal, vocab 2048). TinyBERT-GRU-FC:
@@ -169,7 +195,11 @@ Phases, each printing one JSON line:
           flush-path commands (--engine batch; batch+stream --ragged;
           stream --wall-clock --deadline-ms 50 --speed 5), each printing a
           CUDA graph count, python -m repro_torch.launch.llm_generate
-          (one decode graph an arch), and python -m repro_torch.launch.train
+          (one decode graph an arch), the fleet (--fleet 4 --replicas 2
+          --sessions 12 --trace chiprun_out/fleet_trace.jsonl --metrics-out
+          chiprun_out/fleet.prom: the summary ends on cuda, the trace
+          audits clean) and --batched 8 with its deprecation note, and
+          python -m repro_torch.launch.train
           --steps 20 --d1-size 2000 (D1 pretraining, 50 PMI steps, both
           evaluations, a checkpoint in a temporary directory), on the
           card.
@@ -3109,6 +3139,382 @@ def phase_train():
             "serve": serve_launches}
 
 
+# ----------------------------------------------------------------- fleet
+#
+# The region simulator (repro_torch.fleet) over engine replicas on the
+# card. Drives (i) and (ii) run on a step clock (1 ms a time_fn() call),
+# which makes the whole simulation a function of the code path, so the
+# card's run is held to a CPU run field for field; (iii) runs on the real
+# clock, each flush costing its measured wall (up to and including its
+# torch.cuda.synchronize), by the method of benchmarks/fleet_load.py.
+
+FLEET_PARITY_KW = dict(batch_bucket_min=2, max_coalesce=2)  # tests/test_fleet.py
+FLEET_LOAD_KW = dict(batch_bucket_min=8, max_coalesce=8)    # fleet_load.py
+FLEET_TIME_SCALE = 0.01      # fleet_load.py: incidents compressed 100x
+FLEET_POINT_SESSIONS = 40    # fleet_load.py --smoke's sessions a point
+FLEET_KNEE_FACTOR = 3.0      # fleet_load.py: the p99 blow-up past the knee
+FLEET_EVENTS_PER_SESSION = 6  # 1 text + 3 vitals + 2 scene
+SHED_GLASS = {"enc:text": 0.08, "enc:vitals": 0.01, "enc:scene": 0.05,
+              "tail": 0.005, "full": 0.15}     # tests/test_fleet.py
+LOAD_GLASS = {"enc:text": 0.08, "enc:vitals": 0.01, "enc:scene": 0.05,
+              "tail": 0.02, "full": 0.16}      # fleet_load.py
+
+
+class StepClock:
+    """A ``time_fn`` that advances ``step`` seconds on every call."""
+
+    def __init__(self, step=1e-3):
+        self.n, self.step = 0, step
+
+    def __call__(self):
+        self.n += 1
+        return self.n * self.step
+
+
+def fleet_sim(splits, params, payloads, device, sessions, *, engine_kw,
+              n_replicas=2, **kw):
+    """A RegionSim over ``n_replicas`` engines on ``device``, run."""
+    from repro_torch.fleet import RegionSim
+    sim = RegionSim(splits, params, n_replicas=n_replicas,
+                    engine_kw=dict(engine_kw), device=device, **kw)
+    sim.run(sessions, lambda sid, ev: payloads[ev.modality])
+    return sim
+
+
+def compare_fleets(card, cpu, what):
+    """Card vs CPU under the step clock: routes, shed sessions, flush log,
+    TTFP and time-to-final, report and merged Prometheus text equal;
+    glass records' times equal; finals and partials within TOL. Returns
+    the largest |diff| of an output."""
+    check(card.route_of == cpu.route_of and card.degraded == cpu.degraded,
+          f"{what}: routes differ")
+    check(card.flush_log == cpu.flush_log, f"{what}: flush logs differ")
+    check(card.ttfp == cpu.ttfp and card.ttfinal == cpu.ttfinal,
+          f"{what}: TTFP or time-to-final differ")
+    check(card.report() == cpu.report(), f"{what}: reports differ")
+    check(card.fleet_metrics().to_prometheus()
+          == cpu.fleet_metrics().to_prometheus(),
+          f"{what}: merged Prometheus text differs")
+    diff = 0.0
+    for sid in card.route_of:
+        a, b = card.final_outputs(sid), cpu.final_outputs(sid)
+        check(a is not None and b is not None and set(a) == set(b),
+              f"{what}: {sid} has no final on one side")
+        for k in a:
+            check(bool(torch.isfinite(a[k]).all()), f"{what}: non-finite")
+            diff = max(diff, float((a[k].cpu() - b[k]).abs().max()))
+    recs = card.glass.records if card.glass is not None else []
+    cpu_recs = cpu.glass.records if cpu.glass is not None else []
+    check(len(recs) == len(cpu_recs), f"{what}: glass record counts differ")
+    for a, b in zip(recs, cpu_recs):
+        check((a.sid, a.index, a.model, a.t_arrival, a.t_emit, a.kind,
+               a.degraded) == (b.sid, b.index, b.model, b.t_arrival,
+                               b.t_emit, b.kind, b.degraded),
+              f"{what}: glass record {a.sid}/{a.index} differs")
+        check((a.outputs is None) == (b.outputs is None),
+              f"{what}: glass output presence differs")
+        for k in a.outputs or {}:
+            diff = max(diff, float((a.outputs[k].cpu() - b.outputs[k])
+                                   .abs().max()))
+    check(diff <= TOL, f"{what}: outputs differ by {diff} > {TOL}")
+    return diff
+
+
+def per_event_finals(splits, params, payloads, device, sessions):
+    """Each session's last final from its own engine with the parity
+    bucket, flushed after every event."""
+    from repro_torch.serving.api import build_engine
+    out = {}
+    for s in sessions:
+        eng = build_engine(splits, params, "batch+stream",
+                           share_encoders=True, deadline_s=None,
+                           device=device, **FLEET_PARITY_KW)
+        preds = []
+        for ev in s.events:
+            eng.submit(s.sid, ev, payloads[ev.modality])
+            preds += eng.flush().predictions
+        out[s.sid] = next(p.outputs for p in reversed(preds)
+                          if p.kind == "final")
+    return out
+
+
+def _ttfp_ms(sim):
+    xs = [1e3 * t for t in sim.ttfp.values()]
+    if not xs:
+        return {"n": 0}
+    return {"n": len(xs), **{f"p{q}": float(np.percentile(xs, q))
+                             for q in (50, 95, 99)}}
+
+
+class FleetLoad:
+    """benchmarks/fleet_load.py's method on one set of pieces: open-loop
+    Poisson sessions compressed by FLEET_TIME_SCALE, the 8-row bucket,
+    offered sessions held near FLEET_POINT_SESSIONS a point."""
+
+    def __init__(self, splits, params, payloads, device):
+        self.splits, self.params = splits, params
+        self.payloads, self.device = payloads, device
+        self.fns = graphed_pieces(splits)
+
+    def run(self, *, rate, n_sessions, n_replicas, seed, admission=None,
+            profile=None):
+        from repro_torch.fleet import generate_workload
+        sessions = generate_workload(rate, n_sessions / rate, seed=seed,
+                                     time_scale=FLEET_TIME_SCALE)
+        return fleet_sim(self.splits, self.params, self.payloads,
+                         self.device, sessions, engine_kw=FLEET_LOAD_KW,
+                         n_replicas=n_replicas,
+                         admission=admission() if admission else None,
+                         profile=profile)
+
+    def point(self, **kw):
+        """Warm, then measure: the first pass captures every signature the
+        drive meets; the second replays the identical workload and is the
+        one reported (its captures counted, expected 0)."""
+        self.run(**kw)
+        before = captures(self.fns)[0]
+        t0 = time.perf_counter()
+        sim = self.run(**kw)
+        host_s = time.perf_counter() - t0
+        rep = sim.report()
+        check(rep["sessions_offered"]
+              == rep["sessions_admitted"] + rep["sessions_shed"],
+              f"fleet load {kw}: offered != admitted + shed")
+        check(sim.glass is None or all(r.kind == "partial" and r.degraded
+                                       for r in sim.glass.records),
+              f"fleet load {kw}: a shed session got more than a partial")
+        events = sum(n for *_, n in sim.flush_log)
+        return sim, {
+            "offered_sessions_per_s": kw["rate"],
+            "replicas": kw["n_replicas"],
+            "sessions": rep["sessions_offered"],
+            "shed": rep["sessions_shed"],
+            "degraded_partials": rep["degraded_partials"],
+            "ttfp_ms": _ttfp_ms(sim),
+            "finalized_sessions_per_s": (rep["sessions_finalized"]
+                                         / rep["makespan_s"]),
+            "events_per_flush": events / max(1, len(sim.flush_log)),
+            "flushes": len(sim.flush_log),
+            "residual_drain_s": rep["makespan_s"] - sim._last_arrival,
+            "captures": captures(self.fns)[0] - before,
+            "host_s": host_s}
+
+    def service_rate(self, rate, seed=0):
+        """Admitted events over summed flush walls on one replica, and
+        the median flush wall (ms) by events in the flush."""
+        sim = self.run(rate=rate, n_sessions=FLEET_POINT_SESSIONS,
+                       n_replicas=1, seed=seed)
+        busy = sum(done - start for _, start, done, _ in sim.flush_log)
+        by_events = {}
+        for _, start, done, n in sim.flush_log:
+            by_events.setdefault(n, []).append(1e3 * (done - start))
+        return (sum(n for *_, n in sim.flush_log) / busy,
+                {n: {"flushes": len(w), "p50_ms": statistics.median(w)}
+                 for n, w in sorted(by_events.items())})
+
+    def sweep(self):
+        """Calibration, the load curve over two replicas, shed-vs-queue at
+        2x the knee, weak scaling over 1, 2 and 4 replicas."""
+        from repro_torch.core import ProfileTable
+        from repro_torch.fleet import AdmissionController, AdmissionPolicy
+        n = FLEET_POINT_SESSIONS
+        # warm-up as the reference benchmark does: spaced arrivals
+        # (single-event flushes) and a burst (coalesced batches)
+        self.run(rate=2.0, n_sessions=6, n_replicas=1, seed=0)
+        self.run(rate=200.0, n_sessions=n, n_replicas=1, seed=0)
+        (mu_light, light_walls), (mu_sat, sat_walls) = (
+            self.service_rate(4.0), self.service_rate(200.0))
+        cap_light = mu_light / FLEET_EVENTS_PER_SESSION
+        cap = mu_sat / FLEET_EVENTS_PER_SESSION
+        curve = []
+        for frac in (0.25, 0.5, 1.0, 2.0):
+            kw = dict(rate=frac * cap * 2,
+                      n_sessions=int(round(n * max(1.0, frac))),
+                      n_replicas=2, seed=1)
+            curve.append({"x_capacity": frac, "kw": kw,
+                          **self.point(**kw)[1]})
+        base_p99 = min(c["ttfp_ms"]["p99"] for c in curve)
+        knee = [c for c in curve
+                if c["ttfp_ms"]["p99"] <= FLEET_KNEE_FACTOR * base_p99][-1]
+        over = dict(rate=2.0 * knee["offered_sessions_per_s"],
+                    n_sessions=2 * n, n_replicas=2, seed=2)
+        _, queue = self.point(**over)
+        deadline = knee["ttfp_ms"]["p99"] / 1e3
+        _, shed = self.point(
+            **over, profile=ProfileTable(base=dict(LOAD_GLASS)),
+            admission=lambda: AdmissionController(AdmissionPolicy(
+                deadline_s=deadline, enter_frac=1.0, exit_frac=0.5), 2))
+        scaling = [self.point(rate=0.7 * cap_light * r, n_sessions=2 * n,
+                              n_replicas=r, seed=3)[1] for r in (1, 2, 4)]
+        return {"calibration": {
+                    "service_rate_light_events_per_s": mu_light,
+                    "service_rate_saturated_events_per_s": mu_sat,
+                    "capacity_light_sessions_per_s": cap_light,
+                    "capacity_saturated_sessions_per_s": cap,
+                    "flush_wall_by_events": {"light": light_walls,
+                                             "saturated": sat_walls}},
+                "curve": curve,
+                "knee": {"x_capacity": knee["x_capacity"],
+                         "offered_sessions_per_s":
+                             knee["offered_sessions_per_s"],
+                         "p99_ms": knee["ttfp_ms"]["p99"],
+                         "host_s": knee["host_s"], "kw": knee["kw"]},
+                "shed_vs_queue": {"deadline_ms": 1e3 * deadline,
+                                  "queue": queue, "shed": shed},
+                "scaling": scaling}
+
+
+def phase_fleet():
+    """The region simulator at the launcher's TinyBERT-GRU-FC width over
+    the 7-model zoo (one shared dict drawn on the CPU), on the card and on
+    the CPU: (i) two replicas admitting every session of
+    generate_workload(8, 2, seed=0, time_scale=0.2) under the parity
+    bucket and a step clock of 1 ms a read; (i') the same drive at 50 ms a
+    read against an 80 ms admission deadline (coalesced flushes, router
+    spills, part of the load shed); (ii) the same drive shedding every
+    session to the glass path (deadline 1e-4 s), streamed through a
+    StreamingTracer; (iii) the load sweep on the real clock."""
+    from repro_torch.configs.emsnet import config
+    from repro_torch.core import ProfileTable
+    from repro_torch.fleet import (AdmissionController, AdmissionPolicy,
+                                   fleet_mesh, generate_workload,
+                                   place_fleet_params)
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import build_zoo, sample_payloads
+    from repro_torch.obs import StreamingTracer, audit_file
+
+    cfg = config(text_encoder="tinybert", vocab_size=2048)
+    n_layers = cfg.text_dims[0]
+    payloads = sample_payloads(cfg)
+    cpu_splits, cpu_params = build_zoo(cfg, device="cpu")
+    splits = fresh(cpu_splits)
+    text = counted_encoders(splits, "text")
+    cpu_text = counted_encoders(cpu_splits, "text")
+    mesh = fleet_mesh(device="cuda")
+    params, placement = place_fleet_params(cpu_params, mesh)
+    check((placement["param_leaves"], placement["sharded_leaves"],
+           placement["replicated_leaves"]) == (63, 6, 57)
+          and len({id(v) for v in params.values()}) == 1
+          and next(iter(params.values()))["heads"]["protocol"]["w"].is_cuda,
+          f"fleet placement {placement}")
+    sessions = generate_workload(8, 2, seed=0, time_scale=0.2)
+    n_events = sum(len(s.events) for s in sessions)
+
+    def drive(what, *, step=1e-3, deadline=None, tracer=None):
+        """The same drive on the card and on the CPU (each with its own
+        clock and, with ``deadline``, its own admission controller and the
+        glass profile), counters at 0 before each; checks them against
+        each other and the flash launches against the CPU's calls and the
+        text encodes."""
+        sims, counts = [], []
+        for device, sp, pp, tr in (("cuda", splits, params, tracer),
+                                   ("cpu", cpu_splits, cpu_params, None)):
+            kw = {} if deadline is None else dict(
+                profile=ProfileTable(base=dict(SHED_GLASS)),
+                admission=AdmissionController(AdmissionPolicy(
+                    deadline_s=deadline), 2))
+            text[0] = cpu_text[0] = 0
+            reset_counts()                  # the path starts here
+            t0 = time.perf_counter()
+            sims.append(fleet_sim(sp, pp, payloads, device, sessions,
+                                  engine_kw=dict(FLEET_PARITY_KW,
+                                                 time_fn=StepClock(step)),
+                                  tracer=tr, **kw))
+            counts.append((FA.flash_attention.launches,
+                           FA.flash_attention.calls, text[0] + cpu_text[0],
+                           time.perf_counter() - t0))
+        (launches, _, encodes, card_s), (_, calls, cpu_encodes, cpu_s) = counts
+        check(launches == calls == n_layers * encodes > 0
+              and encodes == cpu_encodes,
+              f"fleet {what}: flash launches {launches} != the CPU run's "
+              f"calls {calls} or {n_layers} x {encodes} text encodes")
+        card, cpu = sims
+        diff = compare_fleets(card, cpu, f"fleet {what} card vs cpu")
+        check(card.admission.stats() == cpu.admission.stats()
+              and card.admission.transitions == cpu.admission.transitions,
+              f"fleet {what}: admission decisions differ")
+        rep = card.report()
+        check(rep["sessions_offered"] == len(sessions)
+              == rep["sessions_admitted"] + rep["sessions_shed"]
+              and (card.glass is None or all(
+                  r.kind == "partial" and r.degraded
+                  for r in card.glass.records)),
+              f"fleet {what}: {rep}")
+        return card, {"flushes": len(card.flush_log),
+                      "max_events_per_flush": max(
+                          [n for *_, n in card.flush_log], default=0),
+                      "flash_launches": launches, "cpu_flash_calls": calls,
+                      "max_abs_err_vs_cpu": diff, "report": rep,
+                      "seconds": {"cuda": card_s, "cpu": cpu_s}}
+
+    # (i) admit all, 1 ms a clock read; finals also against the card's
+    # own per-event engine
+    card, admit = drive("(i)")
+    check(admit["report"]["sessions_finalized"] == len(sessions),
+          f"fleet (i): {admit['report']}")
+    ref = per_event_finals(splits, params, payloads, "cuda", sessions)
+    diff_ref = 0.0
+    for s in sessions:
+        got = card.final_outputs(s.sid)
+        for k in got:
+            diff_ref = max(diff_ref, float((got[k] - ref[s.sid][k])
+                                           .abs().max()))
+    check(diff_ref <= TOL, f"fleet (i): finals {diff_ref} off the card's "
+          "per-event engine")
+    admit["finals_max_abs_err_vs_per_event"] = diff_ref
+    # (i') 50 ms a clock read against an 80 ms deadline: flushes coalesce,
+    # the router spills, part of the load sheds to the glass path
+    mixed_sim, mixed = drive("(i')", step=5e-2, deadline=0.08)
+    check(mixed_sim.router.spills > 0
+          and mixed["max_events_per_flush"] > 1
+          and 0 < mixed["report"]["sessions_shed"] < len(sessions),
+          f"fleet (i'): no spill, coalescing or partial shed: "
+          f"{mixed['report']}")
+    # (ii) shed everything to the glass path, streamed to JSON Lines
+    os.makedirs(OUT_DIR, exist_ok=True)
+    jsonl = os.path.join(OUT_DIR, "fleet_shed.jsonl")
+    tracer = StreamingTracer(jsonl, buffer=64)
+    shed_sim, shed = drive("(ii)", tracer=tracer, deadline=1e-4)
+    check(shed["report"]["sessions_shed"] == len(sessions)
+          and len(shed_sim.glass.records) == n_events,
+          f"fleet (ii): not every session shed: {shed['report']}")
+    shed["trace_events"] = tracer.close(
+        other_data={"metrics": shed_sim.fleet_metrics().snapshot()})
+    audit = audit_file(jsonl)
+    check(audit.ok, f"fleet (ii): the trace fails the audit: "
+          f"{audit.violations[:3]}")
+    shed["audit"] = audit.summary()
+
+    # (iii) the load sweep on the real clock, graphed
+    t3 = time.perf_counter()
+    load = FleetLoad(splits, params, payloads, "cuda")
+    sweep = load.sweep()
+    check(all(row["captures"] == 0 for row in
+              sweep["curve"] + sweep["scaling"]
+              + [sweep["shed_vs_queue"]["queue"],
+                 sweep["shed_vs_queue"]["shed"]]),
+          "fleet (iii): a measured pass captured a graph")
+    # the knee point once more under the profiler (card only): the busy
+    # share against the profiled wall and against the measured pass's
+    knee = sweep["knee"]
+    busy_us, flash_share, wall_us, top = device_time(
+        lambda: load.run(**knee["kw"]), "flash_fwd_kernel", host_ops=False)
+    emit("fleet", card=CARD, placement=placement, sessions=len(sessions),
+         events=n_events, admit_all=admit, mixed=mixed, shed_all=shed,
+         load=sweep,
+         profiled_knee_point={
+             "busy_share_of_profiled_wall": (None if busy_us is None
+                                             else busy_us / wall_us),
+             "busy_share_of_measured_wall": (
+                 None if busy_us is None
+                 else busy_us / (1e6 * knee["host_s"])),
+             "flash_share_of_busy": flash_share, "wall_ms": wall_us / 1e3,
+             "top": top},
+         seconds={"load": time.perf_counter() - t3})
+    return (admit["flash_launches"] + mixed["flash_launches"]
+            + shed["flash_launches"])
+
+
 def phase_cli():
     from repro_torch.launch.serve import main
     buf = io.StringIO()
@@ -3179,6 +3585,34 @@ def phase_cli():
         flush_cli[key] = {"lines": len(out), "last": out[-1],
                           "cuda_graphs": graphs[0],
                           "seconds": time.perf_counter() - t0}
+    # the fleet: two replicas on the card, the trace streamed as JSON Lines
+    # and audited, the merged metrics page; then a deprecated mode flag
+    from repro_torch.obs import audit_file
+    fleet_trace = os.path.join(OUT_DIR, "fleet_trace.jsonl")
+    fleet_prom = os.path.join(OUT_DIR, "fleet.prom")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(["--fleet", "4", "--replicas", "2", "--sessions", "12",
+              "--trace", fleet_trace, "--metrics-out", fleet_prom])
+    fleet = buf.getvalue().strip().splitlines()
+    check(fleet[0].startswith("fleet: 2 replicas")
+          and any(ln.startswith("admitted TTFP") and ln.endswith("on cuda")
+                  for ln in fleet) and fleet[-1].startswith("trace: "),
+          f"unexpected fleet cli output {fleet[:1] + fleet[-3:]}")
+    check("emsserve_fleet_ttfp_s_count" in open(fleet_prom).read(),
+          "fleet cli wrote no TTFP summary")
+    fleet_audit = audit_file(fleet_trace)
+    check(fleet_audit.ok, f"the fleet trace fails the audit: "
+          f"{fleet_audit.violations[:3]}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(["--batched", "8"])
+    batched = buf.getvalue().strip().splitlines()
+    check(batched[0] == "note: --batched N is deprecated — use `--engine "
+          "batch --sessions 8` (specs compose, e.g. --engine stream+tiered)"
+          and batched[-1].startswith("8 sessions")
+          and batched[-1].endswith("on cuda"),
+          f"unexpected --batched 8 output {batched[:1] + batched[-1:]}")
     from repro_torch.launch.llm_generate import main as llm_main
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -3210,6 +3644,10 @@ def phase_cli():
                                                            "trace"))],
          robust_audit=audit.stdout.strip().splitlines()[-1],
          llm_generate=llm, flush_path=flush_cli,
+         fleet=dict(lines=[ln for ln in fleet
+                           if not ln.startswith("  replica ")],
+                    audit=fleet_audit.summary()),
+         batched=[batched[0], batched[-1]],
          train=dict(lines=train_out, seconds=train_s))
 
 
@@ -3246,7 +3684,8 @@ PHASES = {"kernel": phase_kernel, "int8": phase_int8,
           "decode_kernel": phase_decode_kernel,
           "rwkv_kernel": phase_rwkv_kernel, "serve": phase_serve,
           "bertbase": phase_bertbase, "tiered": phase_tiered,
-          "robust": phase_robust, "batch": phase_batch, "train": phase_train,
+          "robust": phase_robust, "batch": phase_batch,
+          "fleet": phase_fleet, "train": phase_train,
           "llm": phase_llm, "cli": phase_cli}
 
 
@@ -3283,6 +3722,7 @@ def main():
     tiered_launches = timed("tiered", phase_tiered)
     robust_launches = timed("robust", phase_robust)
     batch_launches = timed("batch", phase_batch)
+    fleet_launches = timed("fleet", phase_fleet)
     train_launches = timed("train", phase_train)
     llm_rows = timed("llm", phase_llm)
     timed("cli", phase_cli)
@@ -3296,6 +3736,9 @@ def main():
                          "tiered": tiered_launches["flash_attention"],
                          "robust": robust_launches["flash_attention"],
                          "bertbase": bertbase_launches, **batch_launches,
+                         # the fleet's step-clock drives: two replicas
+                         # (bucketed B=2) and the glass shed path (B=1)
+                         "fleet": fleet_launches,
                          # the trained weights evaluated and served; a
                          # training step launches it 0 times
                          "train": train_launches["eval"]

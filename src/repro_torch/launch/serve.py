@@ -27,10 +27,22 @@ subset of ``batch`` / ``stream`` / ``tiered``:
     ``stream+tiered`` also serves on-glass provisional partials while a
     remote tier computes.
 
+``--fleet RATE`` runs the region simulator (``fleet.RegionSim``):
+``--replicas N`` engine replicas built from one spec over parameters
+placed on the visible devices, whole incident sessions offered open
+loop at RATE sessions/s (``--sessions`` of them), consistent-hash +
+least-loaded routing, and deadline admission (``--deadline-ms``, 500 by
+default) shedding new sessions to the on-glass degraded path.
+
 ``--trace PATH`` records every arrival's lifecycle and exports a Chrome
 trace-event JSON (Perfetto-loadable; ``python -m repro_torch.obs.audit
-PATH`` re-verifies the serving invariants from it); ``--metrics-out
-PATH`` writes the metrics registry as Prometheus text.
+PATH`` re-verifies the serving invariants from it); in fleet mode a
+``.jsonl`` PATH streams through the bounded-memory ``StreamingTracer``.
+``--metrics-out PATH`` writes the metrics registry as Prometheus text
+(fleet mode: the exact merge across replicas).
+
+The deprecated ``--batched N``/``--stream N``/``--tiered N`` flags map
+onto ``--engine batch|stream|tiered --sessions N`` with a note.
 
 Each model piece runs as a CUDA graph captured per input signature on
 the card (``core.splitter.split``; the CPU counts the same signatures);
@@ -51,10 +63,9 @@ Runs on the CUDA card unless ``--device cpu``:
       --tiers glass,ph1,edge64x --precision ph1=int8,edge64x=int8 \\
       --speculate --redispatch --chaos-seed 5 --trace trace.json \\
       --metrics-out metrics.prom
+  PYTHONPATH=src python -m repro_torch.launch.serve --fleet 4 --replicas 2 \\
+      --sessions 12 --trace fleet.jsonl --metrics-out fleet.prom
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --text-encoder microbert
-
-The legacy ``--batched``/``--stream``/``--tiered`` flags and the fleet
-simulator exit with the ROADMAP item that will bring them.
 """
 from __future__ import annotations
 
@@ -206,26 +217,42 @@ def _print_batch(eng, n_sessions):
           f"cache entries {len(eng.cache)}) on {eng.device}")
 
 
-def _later(flag: str, item: str):
-    raise SystemExit(f"{flag} belongs to ROADMAP queue 1 {item}, which the "
-                     "port does not have yet")
+def _apply_legacy_shims(args):
+    """Map the pre-unification mode flags onto --engine specs, with a
+    one-line pointer to the replacement."""
+    for flag, count, spec in (("--batched", args.batched, "batch"),
+                              ("--stream", args.stream, "stream"),
+                              ("--tiered", args.tiered, "tiered")):
+        if count:
+            if args.engine:
+                raise SystemExit(f"{flag} conflicts with --engine; "
+                                 f"use --engine alone")
+            args.engine = spec
+            args.sessions = count
+            print(f"note: {flag} N is deprecated — use "
+                  f"`--engine {spec} --sessions {count}` "
+                  f"(specs compose, e.g. --engine stream+tiered)")
+    return args
 
 
 def _check_flags(args):
-    """Flags of later slices exit naming their ROADMAP item; flag/spec
-    mismatches fail loudly, as in the reference launcher. Returns the
-    spec's canonical tokens (empty for the per-event default)."""
-    if args.fleet:
-        _later("--fleet", "item 9 (fleet)")
-    for flag, on in (("--batched", args.batched), ("--stream", args.stream),
-                     ("--tiered", args.tiered)):
-        if on:
-            _later(flag, "item 10 (the legacy mode flags)")
+    """Flag/spec mismatches fail loudly, as in the reference launcher.
+    Returns the spec's canonical tokens (empty for the per-event default
+    and the fleet)."""
+    if args.fleet < 0.0:
+        raise SystemExit("--fleet RATE must be > 0 (sessions/s)")
+    if args.fleet and args.engine:
+        raise SystemExit("--fleet conflicts with --engine: the region "
+                         "simulator builds its own replica engines "
+                         "from one spec")
+    if args.replicas < 1:
+        raise SystemExit("--replicas must be >= 1")
     for flag, on in (("--trace", args.trace),
                      ("--metrics-out", args.metrics_out)):
-        if on and not args.engine:
-            raise SystemExit(f"{flag} requires --engine (the per-event "
-                             "engine predates the traced serving stack)")
+        if on and not (args.engine or args.fleet):
+            raise SystemExit(f"{flag} requires --engine or --fleet (the "
+                             "per-event engine predates the traced "
+                             "serving stack)")
     spec = ()
     if args.engine:
         from ..serving.api import spec_tokens
@@ -243,8 +270,8 @@ def _check_flags(args):
         raise SystemExit("--rejoin-at requires --outage-at")
     if args.tiers and not tiered:
         raise SystemExit("--tiers requires a tiered spec")
-    if args.deadline_ms and not stream:
-        raise SystemExit("--deadline-ms requires a stream spec")
+    if args.deadline_ms and not (stream or args.fleet):
+        raise SystemExit("--deadline-ms requires a stream spec or --fleet")
     if args.wall_clock and not (stream or tiered):
         raise SystemExit("--wall-clock requires a stream or tiered spec")
     if (args.speculate or args.redispatch) and not tiered:
@@ -417,6 +444,86 @@ def serve_unified(args, spec, dev):
     return eng
 
 
+def serve_fleet(args, dev):
+    """``--fleet RATE``: open-loop region simulation — ``--replicas N``
+    engine replicas built from ONE spec over placed parameters, Poisson
+    session arrivals at RATE sessions/s, consistent-hash + least-loaded
+    routing, deadline admission control, and the on-glass degraded shed
+    path for what the region turns away."""
+    from ..configs.emsnet import config as emsnet_config
+    from ..core import ProfileTable, profile
+    from ..fleet import (AdmissionController, AdmissionPolicy, RegionSim,
+                         fleet_mesh, generate_workload, place_fleet_params)
+
+    cfg = emsnet_config(text_encoder=args.text_encoder, vocab_size=2048)
+    splits, params = build_zoo(cfg, device=dev)
+    mesh = fleet_mesh(args.replicas, device=dev)
+    placed, placement = place_fleet_params(params, mesh)
+    payloads = sample_payloads(cfg)
+
+    def payload_fn(sid, ev):
+        return payloads[ev.modality]
+
+    tracer = None
+    if args.trace:
+        from ..obs import StreamingTracer, Tracer
+        tracer = (StreamingTracer(args.trace, buffer=512)
+                  if args.trace.endswith(".jsonl") else Tracer())
+
+    full = "text+vitals+scene"
+    base = profile(splits[full], placed[full], payloads, iters=2,
+                   device=mesh.devices[0, 0])
+    deadline = (args.deadline_ms / 1e3) if args.deadline_ms else 0.5
+    ctrl = AdmissionController(AdmissionPolicy(deadline_s=deadline),
+                               args.replicas)
+    sim = RegionSim(splits, placed, n_replicas=args.replicas,
+                    admission=ctrl, profile=ProfileTable(base=base),
+                    tracer=tracer, mesh=mesh)
+    axes = "x".join(str(v) for v in placement["axis_sizes"].values())
+    print(f"fleet: {args.replicas} replicas, params on {axes} mesh over "
+          f"{placement['devices']} device(s) "
+          f"({placement['replicated_leaves']} replicated / "
+          f"{placement['sharded_leaves']} sharded leaves, "
+          f"{placement['param_bytes'] / 1e6:.1f} MB), "
+          f"admission deadline {deadline * 1e3:.0f} ms")
+
+    horizon = args.sessions / args.fleet
+    sessions = generate_workload(args.fleet, horizon, seed=0)
+    rep = sim.run(sessions, payload_fn)
+
+    ttfp = sorted(sim.ttfp.values())
+
+    def p(q):
+        return (ttfp[min(len(ttfp) - 1, int(q * len(ttfp)))] if ttfp
+                else float("nan"))
+    print(f"\n{rep['sessions_offered']} sessions offered @ "
+          f"{args.fleet:g}/s: {rep['sessions_admitted']} admitted "
+          f"({rep['sessions_finalized']} finalized), "
+          f"{rep['sessions_shed']} shed to glass "
+          f"({rep['degraded_partials']} degraded partials)")
+    for r, pr in enumerate(rep["per_replica"]):
+        print(f"  replica {r}: {pr['sessions']:3d} sessions "
+              f"{pr['flushes']:4d} flushes "
+              f"idle-at {pr['final_clock_s']:.2f}s")
+    print(f"admitted TTFP p50 {p(0.50) * 1e3:7.1f} ms | "
+          f"p95 {p(0.95) * 1e3:7.1f} ms | "
+          f"makespan {rep['makespan_s']:.2f}s | "
+          f"{rep['sessions_finalized'] / rep['makespan_s']:.2f} "
+          f"finalized sessions/s on {dev}")
+
+    mx = sim.fleet_metrics()
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(mx.to_prometheus())
+        print(f"metrics: prometheus text -> {args.metrics_out}")
+    if tracer is not None:
+        n_ev = tracer.export(args.trace,
+                             other_data={"metrics": mx.snapshot()})
+        print(f"trace: {n_ev} events -> {args.trace} "
+              f"(audit: python -m repro_torch.obs.audit {args.trace})")
+    return sim
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--episode", type=int, default=1, choices=[1, 2, 3])
@@ -439,7 +546,8 @@ def main(argv=None):
                     help="stream/tiered specs: inter-modality lag scenario")
     ap.add_argument("--deadline-ms", type=float, default=0.0,
                     help="stream spec: coalesce arrivals within this "
-                         "window before flushing (0 = flush per arrival)")
+                         "window before flushing (0 = flush per arrival); "
+                         "--fleet: the admission deadline (default 500)")
     ap.add_argument("--ragged", action="store_true",
                     help="batch/stream specs: pack the pending rows of "
                          "each variable-length modality into ONE ragged "
@@ -481,23 +589,40 @@ def main(argv=None):
     ap.add_argument("--chaos-seed", type=int, default=-1, metavar="SEED",
                     help="tiered spec with --tiers: a seeded crash/rejoin "
                          "schedule over the remote tiers")
+    ap.add_argument("--fleet", type=float, default=0.0, metavar="RATE",
+                    help="region simulation: offer whole incident "
+                         "sessions at RATE sessions/s (open-loop "
+                         "Poisson) to --replicas engine replicas with "
+                         "admission control; --sessions N is the total "
+                         "offered count")
+    ap.add_argument("--replicas", type=int, default=2, metavar="N",
+                    help="--fleet: engine replicas (replica r runs on "
+                         "visible CUDA device r %% n)")
     ap.add_argument("--trace", default="", metavar="PATH",
-                    help="--engine: record every arrival's lifecycle and "
-                         "export a Chrome trace-event JSON (Perfetto-"
-                         "loadable, auditable with python -m "
-                         "repro_torch.obs.audit)")
+                    help="--engine/--fleet: record every arrival's "
+                         "lifecycle and export a Chrome trace-event JSON "
+                         "(Perfetto-loadable, auditable with python -m "
+                         "repro_torch.obs.audit); a .jsonl PATH in fleet "
+                         "mode streams through the bounded-memory "
+                         "StreamingTracer instead")
     ap.add_argument("--metrics-out", default="", metavar="PATH",
-                    help="--engine: write the run's metrics registry as "
-                         "Prometheus text to PATH")
-    # ---- flags of later slices: each exits naming its ROADMAP item
-    ap.add_argument("--batched", type=int, default=0, metavar="N")
-    ap.add_argument("--stream", type=int, default=0, metavar="N")
-    ap.add_argument("--tiered", type=int, default=0, metavar="N")
-    ap.add_argument("--fleet", type=float, default=0.0, metavar="RATE")
-    args = ap.parse_args(argv)
+                    help="--engine/--fleet: write the run's metrics "
+                         "registry as Prometheus text to PATH (fleet "
+                         "mode: exact fleet-wide merge across replicas)")
+    # ---- deprecated mode flags (shims onto --engine)
+    ap.add_argument("--batched", type=int, default=0, metavar="N",
+                    help="deprecated: --engine batch --sessions N")
+    ap.add_argument("--stream", type=int, default=0, metavar="N",
+                    help="deprecated: --engine stream --sessions N")
+    ap.add_argument("--tiered", type=int, default=0, metavar="N",
+                    help="deprecated: --engine tiered --sessions N")
+    args = _apply_legacy_shims(ap.parse_args(argv))
 
     spec = _check_flags(args)
     dev = _device.resolve(args.device)
+    if args.fleet:
+        serve_fleet(args, dev)
+        return
     if spec:
         serve_unified(args, spec, dev)
         return

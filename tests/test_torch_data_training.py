@@ -55,6 +55,18 @@ GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-4
 CURVE_RTOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads while this module trains: the suite runs six
+    test processes on the machine's cores, and tiny-config training
+    spread over every core in each of them spends its time at thread
+    barriers (1,330 s for this file against ~90 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def cfg():
     return tiny()

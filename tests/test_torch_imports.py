@@ -49,6 +49,7 @@ def test_package_imports_with_jax_unavailable():
         "import repro_torch.data.synthetic_nemsis, repro_torch.launch.train\n"
         "import repro_torch.training.emsnet_trainer\n"
         "import repro_torch.training.checkpoint\n"
+        "import repro_torch.fleet, repro_torch.distributed.sharding\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
     )

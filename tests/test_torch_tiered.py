@@ -405,12 +405,12 @@ def test_launcher_serves_tiered_int8_on_cpu(capsys):
       "--chaos-seed", "3", "--outage-at", "2"],
      "--chaos-seed conflicts with --outage-at"),
     (["--engine", "tiered", "--chaos-seed", "3"], "--chaos-seed needs --tiers"),
-    (["--batched", "4"], "item 10"),
-    (["--stream", "4"], "item 10"),
-    (["--tiered", "4"], "item 10"),
+    (["--batched", "4", "--engine", "batch"], "--batched conflicts with"),
+    (["--stream", "4", "--engine", "stream"], "--stream conflicts with"),
+    (["--tiered", "4", "--engine", "tiered"], "--tiered conflicts with"),
     (["--trace", "t.json"], "--trace requires --engine"),
     (["--metrics-out", "m.prom"], "--metrics-out requires --engine"),
-    (["--fleet", "4"], "item 9"),
+    (["--fleet", "4", "--engine", "batch"], "--fleet conflicts with"),
     (["--engine", "tiered+warp"], "unknown engine spec token 'warp'"),
     (["--engine", "+"], "empty spec"),
     (["--precision", "ph1=int8"], "requires a tiered spec"),
