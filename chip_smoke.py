@@ -13,9 +13,13 @@ Phases, each printing one JSON line:
           and MobileBERT per event, a padded batch, the S=512 segments
           buffer, BERT-base at B=8 S=128; the flush path's bucketed
           batches, B=16 at S=32 and 64 with ragged lengths, and its packed
-          T=1024 buffer of the batch phase's 16 text rows) and causal GQA
-          with a window:
-          max |diff| <= 1e-4, exact zeros on fully masked rows, one
+          T=1024 buffer of the batch phase's 16 text rows), causal GQA
+          with a window, and the LLM zoo's bf16 prefill (B=1 S=512 D=128
+          causal at Mistral-NeMo's 32 heads over 8, OLMoE's 16 over 16,
+          and Mistral's with a 128-token window; fp16 at OLMoE's, and
+          bf16 at D=26 with kv_lengths, rows off 16 bytes):
+          max |diff| <= 1e-4 (bf16, fp16: one step of the type at the
+          output's scale), exact zeros on fully masked rows, one
           launch counted per call, the same under every tile plan the
           kernel compiles (each timed); times of the kernel, the plain
           version and F.scaled_dot_product_attention (a yardstick only:
@@ -157,9 +161,10 @@ Phases, each printing one JSON line:
           memory and the 6N FLOP bound at 67 TFLOP/s float32.
   decode_kernel  the CUDA decode-attention kernel against its plain
           version on the card: tests/test_decode_kernel.py's shapes x
-          windows 0/24 (float32, 3e-5), a small bf16 case and Mistral-NeMo's
+          windows 0/24 (float32, 3e-5), a small bf16 case, Mistral-NeMo's
           full-width decode (B=1, W=1024, H=32, KV=8, D=128, bf16; half
-          filled, and wrapped at t=1500 with a 512 window), each within one
+          filled, and wrapped at t=1500 with a 512 window) and OLMoE's
+          (H=16, KV=16, half filled), each within one
           bf16 step of the plain result, and a cache with no valid slot
           (the mean of v); times of kernel, plain version and
           F.scaled_dot_product_attention (a yardstick only), each with the
@@ -173,20 +178,31 @@ Phases, each printing one JSON line:
           exact 0s and 1s; every case under each chunk length the kernel
           compiles (each timed); times (L2 flushed, and warm) and the
           bound.
-  llm     the prefix-cached LLMServer. (i) Both ported archs reduced to 2
+  llm     the prefix-cached LLMServer. (i) Every ported arch reduced to 2
           float32 layers on examples/llm_generate.py's mix, card vs CPU:
           the same tokens and stats, logits of every call within 1e-4, a
-          prefix hit's tokens equal to a cold server's. (ii) Each at full
-          width in bf16 (mistral-nemo-12b, then rwkv6-1.6b, one at a time):
-          a 512-token system prompt, 4 hits of it + 8 tokens (16 new tokens
-          each), one cold 520-token request, cache_len 1024: 4/4 hits, the
-          stats the mix implies, decode attention launched layers x decode
-          steps and the scan layers x (prefills + decode steps) times,
-          finite logits; an eager server (the system prompt and its first
-          hit) gives the same tokens, and two of its layer inputs are held
-          against the plain version; reports prefill and per-token decode
-          wall, graphed and eager, tokens/s, peak memory and the card's
-          busy share under the profiler.
+          prefix hit's tokens equal to a cold server's. (ii) mistral-nemo-12b,
+          rwkv6-1.6b and olmoe-1b-7b (MoE) at full width in bf16, one at a
+          time: a 512-token system prompt, 4 hits of it + 8 tokens (16 new
+          tokens each), one cold 520-token request, cache_len 1024: 4/4
+          hits, the stats the mix implies, decode attention launched
+          layers x decode steps and the scan layers x (prefills + decode
+          steps) times, finite logits; an eager server (the system prompt
+          and its first hit) gives the same tokens, and two of its layer
+          inputs are held against the plain version; for Mistral and
+          OLMoE, prefill(kernel="pallas") on the cold prompt against
+          kernel="jnp": the flash kernel launched once a layer, each
+          layer's output within one bf16 step of the plain version's on
+          its own inputs, the logits within 4 bf16 steps of their scale
+          (PALLAS_PREFILL_STEPS) and the same greedy token; reports prefill and per-token decode wall, graphed and
+          eager, tokens/s, peak memory, the weight-read bound (OLMoE's
+          active-parameter bound beside it) and the card's busy share
+          under the profiler. (iii) codeqwen1.5-7b, nemotron-4-15b and
+          qwen1.5-32b (35.2 B parameters, 70.4 GB) at full width and
+          depth in bf16 with a trimmed mix: the system prompt, one hit, the
+          cold request, graphed, then a hit with every step synchronised:
+          stats, launches, plateau; tokens/s, per-token p50/p99, peak
+          memory.
   cli     the launcher's default command, its tiered int8 command, the
           robust command (--speculate --redispatch --chaos-seed 5 --trace
           chiprun_out/robust_trace.json --metrics-out
@@ -195,7 +211,7 @@ Phases, each printing one JSON line:
           flush-path commands (--engine batch; batch+stream --ragged;
           stream --wall-clock --deadline-ms 50 --speed 5), each printing a
           CUDA graph count, python -m repro_torch.launch.llm_generate
-          (one decode graph an arch), the fleet (--fleet 4 --replicas 2
+          (one line and one decode graph an arch), the fleet (--fleet 4 --replicas 2
           --sessions 12 --trace chiprun_out/fleet_trace.jsonl --metrics-out
           chiprun_out/fleet.prom: the summary ends on cuda, the trace
           audits clean) and --batched 8 with its deprecation note, and
@@ -249,6 +265,7 @@ import torch.nn.functional as F  # noqa: E402
 # kernel computes on
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12     # bf16 and fp16 tensor cores, dense
 INT8_OP_PER_S = 1979e12      # int8 tensor cores, dense
 TOL = 1e-4          # kernel vs plain version, float32 on the card
 # outputs that fused an int8 feature, card vs CPU: float32 sums in
@@ -387,31 +404,49 @@ def bound(q, v, mask, H, KV, extra_bytes):
     """Least time the card could take: bytes each input read once and the
     output written once (K/V rows only where some query sees them) over
     HBM bandwidth, against the (q, k) pairs this data unmasks times
-    2 (D + Dv) FLOPs over the float32 rate."""
+    2 (D + Dv) FLOPs over the peak rate of the inputs' type (float32
+    outside the tensor cores; bf16 and fp16 on them)."""
     B, Sq, _, D = q.shape
     Dv = v.shape[-1]
     pairs = int(mask.sum()) * H
     key_rows = int(mask.any(dim=1).sum())
-    nbytes = 4 * (B * Sq * H * (D + Dv) + key_rows * KV * (D + Dv)) + extra_bytes
+    item = q.element_size()
+    nbytes = item * (B * Sq * H * (D + Dv) + key_rows * KV * (D + Dv)) \
+        + extra_bytes
     flops = 2 * (D + Dv) * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    rate = FP32_FLOP_PER_S if q.dtype == torch.float32 else BF16_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
 
 
+MANTISSA_BITS = {torch.bfloat16: 7, torch.float16: 10}
+
+
+def step_of_scale(x, dtype=torch.bfloat16):
+    """One step of ``dtype`` (bf16 unless given) at the size of ``x``'s
+    largest element."""
+    return 2.0 ** (math.floor(math.log2(float(x.float().abs().max())))
+                   - MANTISSA_BITS[dtype])
+
+
 def kernel_case(name, *, B, Sq, Sk, H, KV, D, causal=False, window=0,
                 lengths=None, segments=None, block=128, fused_qkv=False,
-                seed=0):
+                seed=0, dtype=torch.float32):
+    """float32 cases are held to TOL; bf16 and fp16 ones to one step of
+    their type at the output's scale (the kernel and the plain version
+    both compute in float32 and round once; the sums run in another
+    order)."""
     from repro_torch.kernels import flash_attention as FA
     g = torch.Generator().manual_seed(seed)
     dev = torch.device("cuda")
     if fused_qkv:        # the text encoder's layout: views of one qkv buffer
-        qkv = torch.randn((B, Sq, 3, H, D), generator=g).to(dev)
+        qkv = torch.randn((B, Sq, 3, H, D), generator=g).to(dev, dtype)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     else:
-        q = torch.randn((B, Sq, H, D), generator=g).to(dev)
-        k = torch.randn((B, Sk, KV, D), generator=g).to(dev)
-        v = torch.randn((B, Sk, KV, D), generator=g).to(dev)
+        q = torch.randn((B, Sq, H, D), generator=g).to(dev, dtype)
+        k = torch.randn((B, Sk, KV, D), generator=g).to(dev, dtype)
+        v = torch.randn((B, Sk, KV, D), generator=g).to(dev, dtype)
     kw = dict(causal=causal, window=window)
     extra = 0
     if lengths is not None:
@@ -429,9 +464,11 @@ def kernel_case(name, *, B, Sq, Sk, H, KV, D, causal=False, window=0,
     check(FA.flash_attention.launches == before + 1,
           f"{name}: launches {FA.flash_attention.launches} != {before + 1}")
     want = FA.flash_attention_plain(q, k, v, **kw)
-    err = float((got - want).abs().max())
+    check(got.dtype == dtype, f"{name}: output {got.dtype}, not {dtype}")
+    err = float((got.float() - want.float()).abs().max())
+    tol = TOL if dtype == torch.float32 else step_of_scale(want, dtype)
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-    check(err <= TOL, f"{name}: max |kernel - plain| = {err} > {TOL}")
+    check(err <= tol, f"{name}: max |kernel - plain| = {err} > {tol}")
     dead = ~mask.any(dim=2)                     # (B, Sq) rows seeing no key
     n_dead = int(dead.sum())
     if n_dead:
@@ -444,23 +481,29 @@ def kernel_case(name, *, B, Sq, Sk, H, KV, D, causal=False, window=0,
     # TOL of the plain version, each timed, so the plan's pick is checked
     # against the others (padding-free shapes only: the plan sees S as is)
     by_block_q = {}
+    head_pad = FA.plan_tiles(B, Sq, Sk, H, D)[1]
     if segments is None or Sq % block == 0:
-        for bq in FA.BLOCK_Q:
+        # 128-row blocks exist below head dim 128 only
+        for bq in (b for b in FA.BLOCK_Q if b < 128 or head_pad < 128):
             afn = lambda bq=bq: FA._launch(  # noqa: E731
                 q, k, v, causal=causal, window=window, scale=1.0 / math.sqrt(D),
                 kv_lengths=kw.get("kv_lengths"),
                 segment_ids=kw.get("segment_ids"), block_q=bq)
             alt = afn()
             torch.cuda.synchronize()
-            a_err = float((alt - want).abs().max())
-            check(a_err <= TOL, f"{name}: block_q={bq}: max |kernel - plain| "
-                  f"= {a_err} > {TOL}")
+            a_err = float((alt.float() - want.float()).abs().max())
+            check(a_err <= tol, f"{name}: block_q={bq}: max |kernel - plain| "
+                  f"= {a_err} > {tol}")
             if n_dead:
                 check(float(alt[dead].abs().max()) == 0.0,
                       f"{name}: block_q={bq}: masked rows are not exactly 0")
             by_block_q[bq] = {"max_abs_err": a_err, "ms": device_ms(afn)}
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa_kw = {"attn_mask": mask[:, None]}
+    # a plain causal mask as is_causal, which lets SDPA take its flash
+    # backend; any other mask as a boolean one
+    plain_causal = causal and not window and lengths is None and Sq == Sk
+    sdpa_kw = ({"is_causal": True} if plain_causal
+               else {"attn_mask": mask[:, None]})
     if KV != H:
         sdpa_kw["enable_gqa"] = True
     lfn = lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)  # noqa: E731
@@ -470,8 +513,10 @@ def kernel_case(name, *, B, Sq, Sk, H, KV, D, causal=False, window=0,
     library_ms = device_ms(lfn) if gqa_ok else None
     b_ms, b_by, flops, nbytes = bound(q, v, mask, H, KV, extra)
     row = dict(name=name, shape=dict(B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, D=D),
+               dtype=str(dtype).split(".")[-1],
                plan=FA.plan_tiles(B, Sq, Sk, H, D), by_block_q=by_block_q,
-               max_abs_err=err, zero_rows=n_dead, ms=ms, plain_ms=plain_ms,
+               max_abs_err=err, tol=tol, zero_rows=n_dead, ms=ms,
+               plain_ms=plain_ms,
                library_ms=library_ms, call_ms=call_ms(kfn),
                plain_call_ms=call_ms(pfn), bound_ms=b_ms, bound_by=b_by,
                flops=flops, bytes=nbytes)
@@ -528,6 +573,27 @@ def phase_kernel():
         "tinybert_ragged_packed", B=1, Sq=seg.numel(), Sk=seg.numel(), H=12,
         KV=12, D=26, segments=[seg.tolist()], block=8, fused_qkv=True,
         seed=8)
+    # the LLM zoo's prefill through prefill(kernel="pallas"), bf16: causal
+    # GQA at Mistral-NeMo's heads, OLMoE's (MHA), and Mistral's with a
+    # 128-token window, each over a 512-token prompt
+    rows["mistral_prefill_bf16"] = kernel_case(
+        "mistral_prefill_bf16", B=1, Sq=512, Sk=512, H=32, KV=8, D=128,
+        causal=True, dtype=torch.bfloat16, seed=9)
+    rows["olmoe_prefill_bf16"] = kernel_case(
+        "olmoe_prefill_bf16", B=1, Sq=512, Sk=512, H=16, KV=16, D=128,
+        causal=True, dtype=torch.bfloat16, seed=10)
+    rows["window_prefill_bf16"] = kernel_case(
+        "mistral_prefill_window128_bf16", B=1, Sq=512, Sk=512, H=32, KV=8,
+        D=128, causal=True, window=128, dtype=torch.bfloat16, seed=11)
+    # the half types' other load paths, on no served path: fp16 at
+    # OLMoE's prefill, and bf16 rows off 16 bytes (D=26, views of a fused
+    # qkv buffer, loaded element by element) with kv_lengths
+    rows["olmoe_prefill_fp16"] = kernel_case(
+        "olmoe_prefill_fp16", B=1, Sq=512, Sk=512, H=16, KV=16, D=128,
+        causal=True, dtype=torch.float16, seed=12)
+    rows["per_event_bf16"] = kernel_case(
+        "tinybert_lengths_bf16", B=2, Sq=64, Sk=64, H=12, KV=12, D=26,
+        lengths=[64, 0], fused_qkv=True, dtype=torch.bfloat16, seed=13)
     return rows
 
 
@@ -2207,14 +2273,15 @@ def decode_bound(q, kbuf, valid):
     (the valid ones; all W when none is, since the result is then their
     mean) read once, over HBM bandwidth; against 4 D float32 operations
     per (query head, needed slot) (a score and its share of p @ v) over
-    the float32 rate."""
+    the peak rate of the inputs' type."""
     B, _, H, D = q.shape
     W, KV = kbuf.shape[1], kbuf.shape[2]
     need = int(valid.sum()) or W
     item = q.element_size()
     nbytes = 2 * B * H * D * item + 2 * B * need * KV * D * item + 4 * W
     ops = 4 * B * H * need * D
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    rate = FP32_FLOP_PER_S if q.dtype == torch.float32 else BF16_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", ops, nbytes)
 
@@ -2312,6 +2379,10 @@ def phase_decode_kernel():
     rows["mistral_half"] = decode_case(
         "decode_mistral_half_filled", B=1, W=1024, H=32, KV=8, D=128, t=511,
         pos=ring_positions(1024, 511), dtype=torch.bfloat16, seed=1)
+    # OLMoE-1B-7B's decode: 16 heads over 16 (MHA), the same ring
+    rows["olmoe_half"] = decode_case(
+        "decode_olmoe_half_filled", B=1, W=1024, H=16, KV=16, D=128, t=511,
+        pos=ring_positions(1024, 511), dtype=torch.bfloat16, seed=9)
     rows["mistral_wrapped"] = decode_case(
         "decode_mistral_wrapped_window512", B=1, W=1024, H=32, KV=8, D=128,
         t=1500, pos=ring_positions(1024, 1500), window=512,
@@ -2474,8 +2545,28 @@ def phase_rwkv_kernel():
 
 # -------------------------------------------------------------------- llm
 
-LLM_ARCHS = ("mistral-nemo-12b", "rwkv6-1.6b")
+LLM_ARCHS = ("mistral-nemo-12b", "rwkv6-1.6b", "olmoe-1b-7b",
+             "codeqwen1.5-7b", "nemotron-4-15b", "qwen1.5-32b")
 LLM_LOGIT_TOL = 1e-4    # reduced float32 models, card vs CPU
+# served at full width with the whole mix (eager server, profiler, kernel
+# inputs captured); the other archs with the trimmed one (llm_dense)
+LLM_FULL_MIX = ("mistral-nemo-12b", "rwkv6-1.6b", "olmoe-1b-7b")
+# prefill(kernel="pallas") held against "jnp" at full width
+LLM_PALLAS_PREFILL = ("mistral-nemo-12b", "olmoe-1b-7b")
+
+
+def has_attention(cfg):
+    return any(s.mixer == "attn" for specs, _ in cfg.groups for s in specs)
+
+
+def want_launches(cfg, calls):
+    """(decode_attention, rwkv6_scan) launches a server's calls imply:
+    decode attention once a layer a decode step on an attention arch, the
+    scan once a layer a prefill or a decode step on RWKV6."""
+    L = cfg.n_layers
+    if has_attention(cfg):
+        return [L * calls["decode"], 0]
+    return [0, L * (calls["prefill"] + calls["decode"])]
 
 
 def llm_counters():
@@ -2576,8 +2667,7 @@ def llm_reduced(arch):
     check(all(a.prefix_hit and np.array_equal(a.tokens, b.tokens)
               for a, b in zip(res[1:], cold_res[1:])),
           f"{arch}: prefix-hit tokens differ from a cold server's")
-    want = ([cfg.n_layers * rec.calls["decode"], 0] if arch.startswith("mistral")
-            else [0, cfg.n_layers * (rec.calls["prefill"] + rec.calls["decode"])])
+    want = want_launches(cfg, rec.calls)
     check(launches == want, f"{arch}: launches {launches} != {want}")
     # the eager server on the card: every call's logits bit for bit
     eager = LLMServer(cfg, params, cache_len=96, jit=False, device="cuda")
@@ -2631,7 +2721,7 @@ def llm_full(arch, cpu_count):
     users = [rng.integers(1, V, 8).astype(np.int32) for _ in range(4)]
     cold_prompt = rng.integers(1, V, 520).astype(np.int32)
     L = cfg.n_layers
-    name = "decode_attention" if arch.startswith("mistral") else "rwkv6_scan"
+    name = "decode_attention" if has_attention(cfg) else "rwkv6_scan"
 
     srv = LLMServer(cfg, params, cache_len=1024, device="cuda")
     step = count_runs(srv._decode_step)
@@ -2663,8 +2753,7 @@ def llm_full(arch, cpu_count):
     want_calls = {"prefill": 2, "decode": 4 * (8 + 15) + 15}
     check(rec.calls == want_calls, f"{arch}: calls {rec.calls} != "
           f"{want_calls}")
-    want = ([L * want_calls["decode"], 0] if arch.startswith("mistral")
-            else [0, L * (want_calls["prefill"] + want_calls["decode"])])
+    want = want_launches(cfg, want_calls)
     check(launches == want, f"{arch}: launches (decode_attention, rwkv6_scan)"
           f" {launches} != {want}")
     check(bool(rec.finite), f"{arch}: non-finite logits")
@@ -2688,6 +2777,8 @@ def llm_full(arch, cpu_count):
     gen_tokens = sum(len(r.tokens) for r in res[1:])
     del srv
     gc.collect()
+    pallas = (pallas_prefill(cfg, params, cold_prompt)
+              if arch in LLM_PALLAS_PREFILL else None)
 
     # the eager server, trimmed: the system prompt and its first hit (as
     # the server runs them), then one hit with each step synchronised.
@@ -2756,6 +2847,9 @@ def llm_full(arch, cpu_count):
                decode_ms_p50=float(np.percentile(dec, 50)),
                decode_ms_p99=float(np.percentile(dec, 99)),
                weight_read_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+               active_weight_read_bound_ms=(cfg.active_param_count() * 2
+                                            / HBM_BYTES_PER_S * 1e3),
+               prefill_pallas=pallas,
                system_wall_s=t1 - t0, hits_wall_s=t2 - t1,
                cold_wall_s=t3 - t2,
                tokens_per_s=gen_tokens / (t3 - t1),
@@ -2794,11 +2888,189 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
+# prefill(kernel="pallas") against "jnp", end to end: bf16 steps of the
+# logits' scale. Each layer's flash output is held to one step of the
+# plain version's on that layer's own inputs; the two paths' logits then
+# drift apart through the layers as any two roundings do (measured on
+# the H100: 2.75 steps over Mistral-NeMo's 40 layers, 1.0 over OLMoE's
+# 16). The row reports, beside it, how far serving the same prompt as a
+# prefix hit instead of a cold prefill moves the logits.
+PALLAS_PREFILL_STEPS = 4
+
+
+def pallas_prefill(cfg, params, prompt, *, reps=3):
+    """prefill(kernel="pallas") against kernel="jnp" on one prompt at full
+    width in bf16: the flash kernel launched once a layer (the counter set
+    to 0 just before this drive and read just after), every layer's
+    kernel output within one bf16 step of its scale from the plain
+    version on the same inputs, the last token's logits within
+    PALLAS_PREFILL_STEPS bf16 steps of their scale and the same greedy
+    token wherever the top two plain logits lie further apart than twice
+    that; then each prefill timed ``reps`` more times in turns (jnp,
+    pallas, pallas, jnp, ...), the card synchronised after each."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    tokens = torch.as_tensor(prompt[None], device="cuda")
+
+    def run(kernel):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = T.prefill(params, cfg, tokens, cache_len=1024,
+                              kernel=kernel)
+        torch.cuda.synchronize()
+        return logits, (time.perf_counter() - t0) * 1e3
+
+    layer_steps = []
+    orig = ops.flash_attention
+
+    def held(q, k, v, **kw):                   # the layer's inputs, as called
+        out = orig(q, k, v, **kw)
+        plain = FA.flash_attention_plain(q, k, v, **kw)
+        layer_steps.append(float((out.float() - plain.float()).abs().max())
+                           / step_of_scale(plain))
+        return out
+
+    ops.flash_attention = held
+    try:
+        FA.flash_attention.launches = 0         # the drive starts here
+        got, first_ms = run("pallas")
+        launches = FA.flash_attention.launches  # ... and ends here
+    finally:
+        ops.flash_attention = orig
+    want, first_plain_ms = run("jnp")
+    check(launches == cfg.n_layers == len(layer_steps),
+          f"{cfg.name}: prefill(kernel='pallas') launched flash {launches} "
+          f"times, not {cfg.n_layers}")
+    check(max(layer_steps) <= 1.0, f"{cfg.name}: a layer's flash output is "
+          f"{max(layer_steps)} bf16 steps from plain")
+    step = step_of_scale(want)
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got).all()), f"{cfg.name}: non-finite logits")
+    check(err <= PALLAS_PREFILL_STEPS * step, f"{cfg.name}: pallas vs jnp "
+          f"prefill logits {err} > {PALLAS_PREFILL_STEPS} x {step}")
+    top2 = want.float().topk(2, dim=-1).values
+    gap = float((top2[..., 0] - top2[..., 1]).min())
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    check(same or gap <= 2 * PALLAS_PREFILL_STEPS * step,
+          f"{cfg.name}: pallas and jnp prefills pick different tokens "
+          f"{gap} apart")
+    # the yardstick beside it: the same prompt served as a prefix hit
+    # (prefill of all but its last 8 tokens, then 8 decode steps)
+    _, cache = T.prefill(params, cfg, tokens[:, :-8], cache_len=1024)
+    for i in range(tokens.shape[1] - 8, tokens.shape[1]):
+        hit, cache = T.decode_step(params, cfg, tokens[:, i:i + 1], cache, i)
+    del cache
+    hit_err = float((hit.float() - want.float()).abs().max())
+    ms = {"pallas": [], "jnp": []}
+    for i in range(reps):
+        for kernel in (("jnp", "pallas") if i % 2 == 0 else ("pallas", "jnp")):
+            ms[kernel].append(run(kernel)[1])
+    return dict(prompt=len(prompt), launches=launches,
+                layer_bf16_steps_max=max(layer_steps),
+                max_abs_logit_diff=err, logit_step=step,
+                logit_bf16_steps=err / step, same_argmax=same, top2_gap=gap,
+                hit_vs_cold_logit_bf16_steps=hit_err / step,
+                hit_same_argmax=bool(torch.equal(hit.argmax(-1),
+                                                 want.argmax(-1))),
+                first_ms={"pallas": first_ms, "jnp": first_plain_ms},
+                ms_p50={k: float(np.median(v)) for k, v in ms.items()},
+                ms=ms)
+
+
+def llm_dense(arch, cpu_count):
+    """(iii) a dense config at full width in bf16 with the trimmed mix: the
+    512-token system prompt, one hit of it + 8 tokens and the cold
+    520-token request, 16 new tokens each, cache_len 1024, graphed, as the
+    server runs them (tokens/s); then one more hit with each decode step
+    synchronised (per-token latency). Checked as llm_full checks: stats,
+    calls, launches, finite logits, tokens in range, the decode graph's
+    plateau against the reduced CPU server's count. Every layer is kept
+    (the row's ``depth_cut`` says so): the weights and the five caches
+    the mix holds fit on the card."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import LLMServer, Request
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(a.numel() * a.element_size() for a in leaves(params))
+    rng = np.random.default_rng(0)
+    V = cfg.vocab_size
+    system = rng.integers(1, V, 512).astype(np.int32)
+    user = rng.integers(1, V, 8).astype(np.int32)
+    cold_prompt = rng.integers(1, V, 520).astype(np.int32)
+
+    srv = LLMServer(cfg, params, cache_len=1024, device="cuda")
+    step = count_runs(srv._decode_step)
+    rec = Recorder(srv, timed=True)
+    mem0 = torch.cuda.memory_reserved()
+    for k in llm_counters():
+        k.launches = 0                          # the main path starts here
+    t0 = time.perf_counter()
+    res = [srv.serve_one(Request("system", system, max_new_tokens=1))]
+    t1 = time.perf_counter()
+    res.append(srv.serve_one(Request("u0", np.concatenate([system, user]),
+                                     max_new_tokens=16)))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    res.append(srv.serve_one(Request("cold", cold_prompt, max_new_tokens=16)))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = [k.launches for k in llm_counters()]  # ... and ends here
+    caps = captures([step])
+    want_stats = {"prefix_hits": 1, "prefix_misses": 2,
+                  "prefill_tokens": 512 + 8 + 520, "decode_steps": 15 + 15}
+    check(srv.stats == want_stats, f"{arch}: stats {srv.stats} != "
+          f"{want_stats}")
+    want_calls = {"prefill": 2, "decode": (8 + 15) + 15}
+    check(rec.calls == want_calls, f"{arch}: calls {rec.calls} != "
+          f"{want_calls}")
+    want = want_launches(cfg, want_calls)
+    check(launches == want, f"{arch}: launches (decode_attention, rwkv6_scan)"
+          f" {launches} != {want}")
+    check(bool(rec.finite), f"{arch}: non-finite logits")
+    check(all(len(r.tokens) in (1, 16) and 0 <= r.tokens.min()
+              and r.tokens.max() < V for r in res), f"{arch}: bad tokens")
+    stats, calls = dict(srv.stats), dict(rec.calls)
+    rec.time_decode = True
+    srv.serve_one(Request("latency", np.concatenate([system, user[::-1]]),
+                          max_new_tokens=16))
+    rec.time_decode = False
+    graphs = graph_row(srv.compile_count(), cpu_count, [step], caps, mem0)
+    peak = torch.cuda.max_memory_allocated()
+    dec = sorted(rec.ms["decode"])
+    row = dict(arch=arch, dtype=cfg.dtype, layers=cfg.n_layers,
+               depth_cut=None, params=cfg.param_count(),
+               weight_bytes=weight_bytes, init_s=init_s, stats=stats,
+               calls=calls, launches=launches, prefill_ms=rec.ms["prefill"],
+               decode_ms_p50=float(np.percentile(dec, 50)),
+               decode_ms_p99=float(np.percentile(dec, 99)),
+               weight_read_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+               hit_tokens_per_s=16 / (t2 - t1),
+               tokens_per_s=sum(len(r.tokens) for r in res[1:]) / (t3 - t1),
+               system_wall_s=t1 - t0, max_memory_allocated=peak,
+               total_memory=torch.cuda.get_device_properties(0).total_memory,
+               graphs=graphs, first_tokens=res[1].tokens[:8].tolist())
+    emit("llm_dense", **row)
+    del srv, params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_llm():
     reduced_rows = {arch: llm_reduced(arch) for arch in LLM_ARCHS}
     emit("llm_reduced", **reduced_rows)
-    return {arch: llm_full(arch, reduced_rows[arch]["graphs"]["compile_count"])
-            for arch in LLM_ARCHS}
+    return {arch: (llm_full if arch in LLM_FULL_MIX else llm_dense)(
+        arch, reduced_rows[arch]["graphs"]["compile_count"])
+        for arch in LLM_ARCHS}
 
 
 # ----------------------------------------------------------------- train
@@ -3613,12 +3885,15 @@ def phase_cli():
           and batched[-1].startswith("8 sessions")
           and batched[-1].endswith("on cuda"),
           f"unexpected --batched 8 output {batched[:1] + batched[-1:]}")
+    # llm_generate with no --arch: one line per arch the registry serves
+    from repro_torch.configs import ARCHS
     from repro_torch.launch.llm_generate import main as llm_main
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         llm_main([])
     llm = buf.getvalue().strip().splitlines()
-    check(len(llm) == len(LLM_ARCHS) and all(
+    check(len(llm) == len(ARCHS) and all(
+        ln.startswith(arch) for ln, arch in zip(llm, ARCHS)) and all(
         "4/4 prefix hits" in ln and ln.endswith("decode CUDA graphs 1 on cuda")
         for ln in llm), f"unexpected llm_generate output {llm}")
     # the training launcher at the full TinyBERT width, few steps
@@ -3743,7 +4018,12 @@ def main():
                          # training step launches it 0 times
                          "train": train_launches["eval"]
                          + train_launches["serve"],
-                         "train_steps": train_launches["train"]}),
+                         "train_steps": train_launches["train"],
+                         # the LLM zoo's bf16 prefill through
+                         # prefill(kernel="pallas"), one 520-token prompt
+                         **{f"llm_prefill_pallas_{a}":
+                            llm_rows[a]["prefill_pallas"]["launches"]
+                            for a in LLM_PALLAS_PREFILL}}),
                _line("flash_attention_bertbase",
                      "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:98",
@@ -3762,7 +4042,18 @@ def main():
                      "src/repro/kernels/flash_attention.py:98",
                      batch_launches["ragged"]
                      + batch_launches["batch_stream_ragged"],
-                     rows["ragged"], shape=rows["ragged"]["shape"])]
+                     rows["ragged"], shape=rows["ragged"]["shape"]),
+               # bf16 causal GQA: the LLM zoo's prefill(kernel="pallas")
+               _line("flash_attention_prefill_bf16",
+                     "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:98",
+                     sum(llm_rows[a]["prefill_pallas"]["launches"]
+                         for a in LLM_PALLAS_PREFILL),
+                     rows["mistral_prefill_bf16"],
+                     shape=rows["mistral_prefill_bf16"]["shape"],
+                     dtype="bfloat16",
+                     olmoe=_brief(rows["olmoe_prefill_bf16"]),
+                     window128=_brief(rows["window_prefill_bf16"]))]
     for name, (source, replaces, row) in KERNELS.items():
         floor = ({"floor_ms": int8_rows["launch_floor"]["ms"]}
                  if name != "int8_matmul" else {})
@@ -3772,14 +4063,18 @@ def main():
                                  "tiered": tiered_launches[name],
                                  "robust": robust_launches[name]},
                              **floor))
-    # launches on the llm path: the full-width run of the arch that runs
-    # each kernel (mistral-nemo decode attention, rwkv6 scan)
-    mistral, rwkv = (llm_rows[a] for a in LLM_ARCHS)
+    # launches on the llm path: the full-width runs (decode attention on
+    # every attention arch, the rwkv6 scan on RWKV6)
+    mistral, rwkv = llm_rows["mistral-nemo-12b"], llm_rows["rwkv6-1.6b"]
     kernels.append(_line("decode_attention",
                          "src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:68",
                          mistral["launches"][0], decode_rows["mistral_half"],
-                         shape=decode_rows["mistral_half"]["shape"]))
+                         shape=decode_rows["mistral_half"]["shape"],
+                         launches_by_path={
+                             a: llm_rows[a]["launches"][0] for a in LLM_ARCHS
+                             if llm_rows[a]["launches"][0]},
+                         olmoe=_brief(decode_rows["olmoe_half"])))
     kernels.append(_line("rwkv6_scan", "src/repro_torch/csrc/rwkv6.cu",
                          "src/repro/kernels/rwkv6.py:62",
                          rwkv["launches"][1], rwkv_rows["prefill_520"],

@@ -2,9 +2,9 @@
 reduced (smoke) variants.
 
 The port's own copy of ``repro.configs.base`` (plain dataclasses, no
-JAX): the same fields, defaults, ``q_dim``/``kv_dim``/``param_count``
-and the same ``reduced()``, so a config built here describes exactly
-the model the reference builds. Every ported architecture has one
+JAX): the same fields, defaults, ``q_dim``/``kv_dim``,
+``param_count``/``active_param_count`` and the same ``reduced()``, so a
+config built here describes exactly the model the reference builds. Every ported architecture has one
 ``<id>.py`` in this package with the published dimensions (source cited
 in its header). ``reduced()`` derives the CPU-smoke variant (one period
 per group, d_model<=512, <=4 experts) while keeping the layer-group
@@ -130,6 +130,20 @@ class ModelConfig:
             total += per * count
         if self.cond_dim:
             total += self.cond_dim * d                           # projector
+        return total
+
+    def active_param_count(self) -> int:
+        """Params active per token (MoE: only top-k experts)."""
+        if not self.n_experts:
+            return self.param_count()
+        d = self.d_model
+        total = self.param_count()
+        # subtract inactive routed experts
+        for specs, count in self.groups:
+            for s in specs:
+                if s.mlp == "moe":
+                    inactive = self.n_experts - self.experts_per_tok
+                    total -= count * inactive * 3 * d * self.moe_d_ff
         return total
 
 

@@ -1,4 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), float32 in and out.
+// Flash-attention forward for Hopper (sm_90a): q, k and v in float32,
+// bfloat16 or float16 (all three alike), float32 arithmetic, the output
+// in the inputs' type.
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention (the Pallas
 // TPU kernel) in all of its modes: kv_lengths key padding, segment_ids
@@ -48,12 +50,28 @@
 //   fused qkv projection as they are.
 // - The exponentials are __expf (ex2.approx): their error, a few ulp, is
 //   far inside the 1e-4 the outputs are held to.
+// - bf16 and fp16 inputs (the LLM zoo's prefill through the reference's
+//   kernel="pallas" switch, causal GQA at D=128). The Pallas body casts
+//   q, k and v to float32 as it loads them and writes the output in q's
+//   type; so does this kernel. Their tiles are loaded 16 bytes (8
+//   elements) a lane, converted in registers and stored to shared memory
+//   as float32, so the score and P V loops, the softmax and the
+//   accumulator are the float32 kernel's, and the output is rounded to
+//   nearest even as it is stored. Those loads are plain (cp.async cannot
+//   convert), so a tile's load is not overlapped with the previous
+//   tile's arithmetic as the float32 path's is: a simple first design,
+//   timed in PERF.md against SDPA's bf16 tensor-core path; bf16 mma is
+//   the next step.
 //
 // C interface (bound with ctypes): pointers as void*, strides in
 // elements, the CUDA stream last; returns cudaGetLastError() as an int.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -61,11 +79,12 @@ constexpr int BK = 64;                  // keys per tile: 8 lanes x 8 keys
 constexpr int LDP = BK + 8;             // row stride of P: lanes of a warp hit distinct banks
 constexpr float NEG_INF = -1e30f;       // the Pallas kernel's mask value
 
+template <typename T>
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;                             // contiguous (B, Sq, H, Dv)
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;                                 // contiguous (B, Sq, H, Dv)
   const int* kv_lengths;                // (B,) or null
   const int* seg;                       // (B, S) row stride seg_sb, or null
   int B, Sq, Sk, H, KV, D, Dv;
@@ -77,6 +96,19 @@ struct Params {
   int causal, window, q_offset;
   int vec;                              // every row starts on a 16-byte boundary
 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -99,14 +131,37 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Rows r0 .. r0 + rows - 1 of a (S, width) matrix with row stride ss into
-// dst[rows][LD], by the block's THREADS lanes; rows at or past r0 + nvalid
-// and columns at or past width (up to DP) are zero-filled.
-template <int DP, int THREADS>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+// dst[rows][LD] as float32, by the block's THREADS lanes; rows at or past
+// r0 + nvalid and columns at or past width (up to DP) are zero-filled.
+// float32 rows go by cp.async (the caller commits and waits); bf16 and
+// fp16 rows are loaded, converted and stored here.
+template <int DP, int THREADS, typename T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src,
                                            long long ss, int r0, int rows,
                                            int nvalid, int width, bool vec) {
   constexpr int LD = DP + 4;
-  if (vec) {
+  if constexpr (!std::is_same_v<T, float>) {
+    if (vec) {                          // 16 bytes: 8 elements a copy
+      constexpr int C = DP / 8;
+      for (int e = threadIdx.x; e < rows * C; e += THREADS) {
+        const int r = e / C, c = e % C;
+        float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+        if (r < nvalid && 8 * c < width) {
+          const uint4 u = __ldg(reinterpret_cast<const uint4*>(src + (r0 + r) * ss + 8 * c));
+          const T* h = reinterpret_cast<const T*>(&u);
+          lo = make_float4(to_f32(h[0]), to_f32(h[1]), to_f32(h[2]), to_f32(h[3]));
+          hi = make_float4(to_f32(h[4]), to_f32(h[5]), to_f32(h[6]), to_f32(h[7]));
+        }
+        *reinterpret_cast<float4*>(dst + r * LD + 8 * c) = lo;
+        *reinterpret_cast<float4*>(dst + r * LD + 8 * c + 4) = hi;
+      }
+    } else {
+      for (int e = threadIdx.x; e < rows * DP; e += THREADS) {
+        const int r = e / DP, d = e % DP;
+        dst[r * LD + d] = r < nvalid && d < width ? to_f32(src[(r0 + r) * ss + d]) : 0.f;
+      }
+    }
+  } else if (vec) {
     constexpr int C = DP / 4;
     for (int e = threadIdx.x; e < rows * C; e += THREADS) {
       const int r = e / C, c = e % C;
@@ -132,9 +187,9 @@ constexpr int smem_bytes() {
 }
 
 // NW warps of 4 * RPT query rows each: BQ = 16 NW RPT rows a block
-template <int DP, int RPT, int NW>
+template <int DP, int RPT, int NW, typename T>
 __global__ void __launch_bounds__(32 * NW)
-flash_fwd_kernel(const Params p) {
+flash_fwd_kernel(const Params<T> p) {
   constexpr int THREADS = 32 * NW;
   constexpr int LD = DP + 4;
   constexpr int BQ = NW * 4 * RPT;
@@ -154,9 +209,9 @@ flash_fwd_kernel(const Params p) {
   const int tx = lane & 7, ty = lane >> 3;
   const int row0 = warp * 4 * RPT + ty;  // this lane's rows: row0 + 4 r
 
-  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const float* kb = p.k + b * p.k_sb + kvh * p.k_sh;
-  const float* vb = p.v + b * p.v_sb + kvh * p.v_sh;
+  const T* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const T* kb = p.k + b * p.k_sb + kvh * p.k_sh;
+  const T* vb = p.v + b * p.v_sb + kvh * p.v_sh;
   const int* segb = p.seg ? p.seg + b * p.seg_sb : nullptr;
   const bool vec = p.vec;
 
@@ -314,44 +369,51 @@ flash_fwd_kernel(const Params p) {
     const float den = fmaxf(ls, 1e-30f);
     const int qi = q0 + row0 + 4 * r;
     if (qi >= p.Sq) continue;
-    float* orow = p.o + ((static_cast<long long>(b) * p.Sq + qi) * p.H + h) * p.Dv;
+    T* orow = p.o + ((static_cast<long long>(b) * p.Sq + qi) * p.H + h) * p.Dv;
 #pragma unroll
     for (int g = 0; g < CG; ++g) {
       const int col = 4 * tx + 32 * g;
       if (vec && col + 3 < p.Dv) {
-        *reinterpret_cast<float4*>(orow + col) = make_float4(
-            o[r][g][0] / den, o[r][g][1] / den, o[r][g][2] / den, o[r][g][3] / den);
+        if constexpr (std::is_same_v<T, float>) {
+          *reinterpret_cast<float4*>(orow + col) = make_float4(
+              o[r][g][0] / den, o[r][g][1] / den, o[r][g][2] / den, o[r][g][3] / den);
+        } else {                        // 4 elements, 8 bytes, rounded to nearest even
+          T out[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) out[e] = from_f32<T>(o[r][g][e] / den);
+          *reinterpret_cast<uint2*>(orow + col) = *reinterpret_cast<const uint2*>(out);
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (col + e < p.Dv) orow[col + e] = o[r][g][e] / den;
+          if (col + e < p.Dv) orow[col + e] = from_f32<T>(o[r][g][e] / den);
       }
     }
   }
 }
 
-template <int DP, int RPT, int NW>
-int launch(const Params& p, cudaStream_t s) {
+template <int DP, int RPT, int NW, typename T>
+int launch(const Params<T>& p, cudaStream_t s) {
   constexpr int BQ = NW * 4 * RPT;
   constexpr int bytes = smem_bytes<DP, RPT, NW>();
   static_assert(bytes <= 232448, "shared memory of one block");
   static bool configured = false;       // the attribute is set once per variant
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<DP, RPT, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        flash_fwd_kernel<DP, RPT, NW, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const dim3 grid(p.B * p.H, (p.Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<DP, RPT, NW><<<grid, 32 * NW, bytes, s>>>(p);
+  flash_fwd_kernel<DP, RPT, NW, T><<<grid, 32 * NW, bytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the tile plans of kernels/flash_attention.py::plan_tiles: 16 and 64
 // query rows on 4 warps, 128 on 8 (not at DP = 128: its tiles would need
 // more shared memory than a block has)
-template <int DP>
-int launch_rows(const Params& p, int block_q, cudaStream_t s) {
+template <int DP, typename T>
+int launch_rows(const Params<T>& p, int block_q, cudaStream_t s) {
   switch (block_q) {
     case 16: return launch<DP, 1, 4>(p, s);
     case 64: return launch<DP, 4, 4>(p, s);
@@ -366,22 +428,20 @@ bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
 }
 
-}  // namespace
-
-extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o,
-    const void* kv_lengths, const void* segment_ids,
-    int B, int Sq, int Sk, int H, int KV, int D, int Dv,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh,
-    long long seg_sb, float scale, int causal, int window, int q_offset,
-    int block_q, int head_pad, void* stream) {
-  Params p;
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
-  p.o = static_cast<float*>(o);
+template <typename T>
+int run(const void* q, const void* k, const void* v, void* o,
+        const void* kv_lengths, const void* segment_ids,
+        int B, int Sq, int Sk, int H, int KV, int D, int Dv,
+        long long q_sb, long long q_ss, long long q_sh,
+        long long k_sb, long long k_ss, long long k_sh,
+        long long v_sb, long long v_ss, long long v_sh,
+        long long seg_sb, float scale, int causal, int window, int q_offset,
+        int block_q, int head_pad, cudaStream_t s) {
+  Params<T> p;
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.o = static_cast<T*>(o);
   p.kv_lengths = static_cast<const int*>(kv_lengths);
   p.seg = static_cast<const int*>(segment_ids);
   p.B = B; p.Sq = Sq; p.Sk = Sk; p.H = H; p.KV = KV; p.D = D; p.Dv = Dv;
@@ -391,18 +451,44 @@ extern "C" int repro_flash_attention_fwd(
   p.seg_sb = seg_sb;
   p.scale = scale; p.causal = causal; p.window = window; p.q_offset = q_offset;
   // 16-byte copies need every row of q, k and v on a 16-byte boundary:
-  // aligned bases, strides and widths in multiples of 4 floats
-  bool vec = D % 4 == 0 && Dv % 4 == 0 && aligned16(q) && aligned16(k) &&
+  // aligned bases, strides and widths in multiples of 16 bytes' elements
+  constexpr long long n16 = 16 / sizeof(T);
+  bool vec = D % n16 == 0 && Dv % n16 == 0 && aligned16(q) && aligned16(k) &&
              aligned16(v) && aligned16(o);
   for (long long st : {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh})
-    vec = vec && st % 4 == 0;
+    vec = vec && st % n16 == 0;
   p.vec = vec;
   if (D > head_pad || Dv > head_pad) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_pad) {
     case 32: return launch_rows<32>(p, block_q, s);
     case 64: return launch_rows<64>(p, block_q, s);
     case 128: return launch_rows<128>(p, block_q, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and the output alike)
+extern "C" int repro_flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o,
+    const void* kv_lengths, const void* segment_ids,
+    int B, int Sq, int Sk, int H, int KV, int D, int Dv,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long seg_sb, float scale, int causal, int window, int q_offset,
+    int block_q, int head_pad, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_FLASH_RUN(T)                                                   \
+  run<T>(q, k, v, o, kv_lengths, segment_ids, B, Sq, Sk, H, KV, D, Dv, q_sb, \
+         q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, seg_sb, scale,      \
+         causal, window, q_offset, block_q, head_pad, s)
+  switch (dtype) {
+    case 0: return REPRO_FLASH_RUN(float);
+    case 1: return REPRO_FLASH_RUN(__nv_bfloat16);
+    case 2: return REPRO_FLASH_RUN(__half);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_FLASH_RUN
 }

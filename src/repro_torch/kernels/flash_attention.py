@@ -4,7 +4,9 @@ PyTorch version.
 ``flash_attention`` is the port of the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``, all modes:
 ``kv_lengths`` key padding, ``segment_ids`` (the packed ragged layout),
-causal with ``q_offset = Sk - Sq``, a sliding ``window`` and GQA. On a
+causal with ``q_offset = Sk - Sq``, a sliding ``window`` and GQA, with
+q, k and v in float32, bfloat16 or float16: like the Pallas body, it
+computes in float32 and returns q's dtype. On a
 CUDA tensor it launches ``csrc/flash_attention.cu`` (built with ``nvcc``
 for ``sm_90a`` at first use) or raises; on a CPU tensor it computes the
 same function with ``flash_attention_plain``. Nothing falls back from
@@ -32,6 +34,8 @@ MAX_HEAD_DIM = 128
 BLOCK_Q = (16, 64, 128)
 HEAD_PADS = (32, 64, 128)
 SMALL_GRID_WAVES = 4
+# the input types the kernel loads (q, k and v alike), by its dtype code
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def plan_tiles(B, Sq, Sk, H, D):
@@ -102,7 +106,7 @@ def _kernel_fn():
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = ([p] * 6 + [i] * 7 + [ll] * 10
-                       + [ctypes.c_float, i, i, i, i, i, p])
+                       + [ctypes.c_float, i, i, i, i, i, i, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -111,8 +115,9 @@ def _launch(q, k, v, *, causal, window, scale, kv_lengths, segment_ids,
             block_q=None):
     B, Sq, H, D = q.shape
     _, Sk, KV, Dv = v.shape
-    if not (q.dtype == k.dtype == v.dtype == torch.float32):
-        raise TypeError(f"the CUDA flash kernel takes float32 q/k/v, got "
+    if not (q.dtype == k.dtype == v.dtype and q.dtype in DTYPES):
+        raise TypeError(f"the CUDA flash kernel takes q/k/v of one dtype, "
+                        f"float32, bfloat16 or float16; got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if max(D, Dv) > MAX_HEAD_DIM:
         raise ValueError(f"head dim {max(D, Dv)} > {MAX_HEAD_DIM}: the CUDA "
@@ -127,7 +132,7 @@ def _launch(q, k, v, *, causal, window, scale, kv_lengths, segment_ids,
         raise ValueError(f"block_q={block_q} not in {BLOCK_Q}")
     if -(-Sq // block_q) > 65535:
         raise ValueError(f"Sq={Sq} exceeds the kernel's grid")
-    out = torch.empty((B, Sq, H, Dv), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lens = seg = None
     if kv_lengths is not None:
         lens = kv_lengths.to(device=q.device, dtype=torch.int32).contiguous()
@@ -151,7 +156,7 @@ def _launch(q, k, v, *, causal, window, scale, kv_lengths, segment_ids,
         v.stride(0), v.stride(1), v.stride(2),
         seg.stride(0) if seg is not None else 0,
         float(scale), int(causal), int(window), (Sk - Sq) if causal else 0,
-        block_q, head_pad, stream)
+        block_q, head_pad, DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -173,8 +178,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     block sizes are the CUDA kernel's own and these arguments are unused.
     The padding never changes the result.
 
-    CUDA tensors launch the kernel (float32, head dims up to 128); CPU
-    tensors take ``flash_attention_plain``.
+    CUDA tensors launch the kernel (float32, bfloat16 or float16, the
+    three alike; head dims up to 128); CPU tensors take
+    ``flash_attention_plain``. Either way the arithmetic is float32 and
+    the output has q's dtype.
 
     The kernel has no backward (nor has the Pallas kernel it ports), so a
     call under grad mode with any of q, k, v requiring grad raises, on

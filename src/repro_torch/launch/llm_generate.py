@@ -3,10 +3,11 @@
 The paper's feature cache applied to autoregressive state: requests that
 extend an already-served prompt reuse the stored decode cache (a KV ring
 buffer or an RWKV state) instead of encoding the prefix again. Runs the
-reduced variants of the ported cache families, on ``cuda`` unless
-``--device cpu`` is given:
+reduced variant of every ported architecture, one line each, on ``cuda``
+unless ``--device cpu`` is given: mistral-nemo-12b, rwkv6-1.6b,
+olmoe-1b-7b (MoE), codeqwen1.5-7b, nemotron-4-15b and qwen1.5-32b.
 
-  python -m repro_torch.launch.llm_generate [--arch rwkv6-1.6b] [--device cpu]
+  python -m repro_torch.launch.llm_generate [--arch olmoe-1b-7b] [--device cpu]
 
 A port of ``examples/llm_generate.py``; its third default family,
 ``deepseek-v3-671b`` (MLA latents), is not ported yet (ROADMAP item 11).

@@ -1,10 +1,13 @@
 """Attention of the LLM zoo: GQA self-attention with sliding windows and
 the ring-buffer decode cache.
 
-Prefill attention is ``flash_attention_plain``, masked softmax attention
-in plain PyTorch: the reference's server prefills with its plain blocked
-``flash_attention_jnp`` (``kernel="jnp"``), the same function up to
-rounding, so no kernel runs there. Decode attends one new token against
+Prefill attention follows the reference's kernel switch:
+``kernel="jnp"`` (the default, and what the reference's server runs) is
+``flash_attention_plain``, masked softmax attention in plain PyTorch,
+the same function as the reference's blocked ``flash_attention_jnp`` up
+to rounding; ``kernel="pallas"`` is ``kernels.ops.flash_attention``, the
+hand-written CUDA kernel on the card (the reference's Pallas kernel),
+its plain version on the CPU. Decode attends one new token against
 a fixed-size ring buffer through ``kernels.ops.decode_attention``: the
 hand-written CUDA kernel on the card, ``plain_attention_vs_cache`` on the
 CPU. A slot is
@@ -65,8 +68,10 @@ def attn_init(gen, cfg, *, device):
     }
 
 
-def attn_forward(p, x, positions, cfg, *, window=0):
+def attn_forward(p, x, positions, cfg, *, window=0, kernel="jnp"):
     """Prefill self-attention. Returns (out, (k, v))."""
+    if kernel not in ("jnp", "pallas"):
+        raise ValueError(f"kernel={kernel!r}: 'jnp' or 'pallas'")
     B, S, _ = x.shape
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = L.dense(p["wq"], x).reshape(B, S, H, D)
@@ -74,7 +79,10 @@ def attn_forward(p, x, positions, cfg, *, window=0):
     v = L.dense(p["wv"], x).reshape(B, S, KV, D)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    out = flash_attention_plain(q, k, v, causal=True, window=window)
+    if kernel == "pallas":
+        out = kops.flash_attention(q, k, v, causal=True, window=window)
+    else:
+        out = flash_attention_plain(q, k, v, causal=True, window=window)
     return L.dense(p["wo"], out.reshape(B, S, H * D)), (k, v)
 
 

@@ -10,18 +10,24 @@ the leading axis in Python. Decode caches are stacked the same way.
 
 Entry points:
   init_params(cfg, gen, device=...)
-  prefill(params, cfg, tokens, ...)               -> (last_logits, cache)
+  prefill(params, cfg, tokens, ..., kernel="jnp") -> (last_logits, cache)
   decode_step(params, cfg, tokens, cache, t, ...) -> (logits, cache)
   init_cache(cfg, batch, cache_len, device=...)
 
 ``decode_step`` writes the new token's entries into ``cache`` in place
 and returns it; keep a copy of a cache that must outlive the step.
+``prefill(kernel="pallas")`` runs the prompt's attention through the
+hand-written flash kernel (``kernels.flash_attention``), the reference's
+switch to its Pallas kernel; ``"jnp"`` (the default, as there) runs the
+plain attention.
 
-Ported mixers: ``attn`` (GQA, sliding windows) and ``rwkv6``; MLPs:
-``dense`` (swiglu, relu2) and ``rwkv_cmix``. MLA, Mamba, cross-attention,
-MoE, the conditioning sublayer, musicgen codebooks, conditioning
-frontends and multi-token prediction raise ``NotImplementedError``
-naming ROADMAP item 11, where they are queued.
+Ported mixers: ``attn`` (GQA, QKV bias, sliding windows) and ``rwkv6``;
+MLPs: ``dense`` (swiglu, relu2), ``moe`` (sort-based dispatch, optional
+shared experts; its load-balance loss is dropped on prefill and decode,
+as the reference drops it) and ``rwkv_cmix``. MLA, Mamba,
+cross-attention, the conditioning sublayer, musicgen codebooks,
+conditioning frontends and multi-token prediction raise
+``NotImplementedError`` naming ROADMAP item 11, where they are queued.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch
 
 from . import attention as A
 from . import layers as L
+from . import moe as M
 from . import rwkv as R
 
 
@@ -41,7 +48,7 @@ def _check_spec(spec):
         _not_ported(f"mixer {spec.mixer!r}")
     if spec.cross:
         _not_ported("the conditioning cross-attention sublayer (spec.cross)")
-    if spec.mlp not in ("dense", "rwkv_cmix", "none"):
+    if spec.mlp not in ("dense", "moe", "rwkv_cmix", "none"):
         _not_ported(f"mlp {spec.mlp!r}")
 
 
@@ -126,6 +133,8 @@ def init_layer(gen, cfg, spec, *, device):
     if spec.mlp == "dense":
         p["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dtype=dt,
                               device=device)
+    elif spec.mlp == "moe":
+        p["mlp"] = M.moe_init(gen, cfg, device=device)
     elif spec.mlp == "rwkv_cmix":
         p["mlp"] = R.cmix_init(gen, cfg, device=device)
     return p
@@ -206,7 +215,7 @@ def apply_layer(lp, spec, x, ctx, mode, cache, t):
                                                  t, cfg, window=window)
         else:
             mix, kv = A.attn_forward(lp["mixer"], h, ctx["positions"], cfg,
-                                     window=window)
+                                     window=window, kernel=ctx["kernel"])
             new_cache["kv"] = _prefill_kv_cache(kv, ctx)
     elif spec.mixer == "rwkv6":
         prev = cache["rwkv"] if mode == "decode" else None
@@ -222,6 +231,10 @@ def apply_layer(lp, spec, x, ctx, mode, cache, t):
         h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
         if spec.mlp == "dense":
             out = L.mlp(lp["mlp"], h, cfg.mlp_act)
+        elif spec.mlp == "moe":
+            if ctx["moe_pre"]:
+                h = ctx["moe_pre"](h)
+            out, _ = M.moe_forward(lp["mlp"], h, cfg)
         else:
             prev = cache["cmix"] if mode == "decode" else None
             out, new_cache["cmix"] = R.rwkv6_cmix(lp["mlp"], h, cfg,
@@ -263,14 +276,18 @@ def _logits(params, cfg, x):
     return L.dense(params["lm_head"], x)
 
 
-def _make_ctx(cfg, positions, *, window_attn=0, cache_len=0):
-    return {"cfg": cfg, "positions": positions,
-            "window_attn": window_attn, "cache_len": cache_len}
+def _make_ctx(cfg, positions, *, kernel="jnp", window_attn=0, cache_len=0,
+              moe_pre=None):
+    return {"cfg": cfg, "positions": positions, "kernel": kernel,
+            "window_attn": window_attn, "cache_len": cache_len,
+            "moe_pre": moe_pre}
 
 
-def prefill(params, cfg, tokens, *, cache_len=None, window_attn=0):
+def prefill(params, cfg, tokens, *, cache_len=None, window_attn=0,
+            kernel="jnp"):
     """Process a full prompt (B, S); returns (last_token_logits (B, 1, V),
-    cache)."""
+    cache). ``kernel``: "jnp" (plain attention) or "pallas" (the flash
+    kernel)."""
     _check_cfg(cfg)
     B, Sq = tokens.shape[0], tokens.shape[1]
     if cache_len is None:
@@ -278,7 +295,7 @@ def prefill(params, cfg, tokens, *, cache_len=None, window_attn=0):
     positions = torch.arange(Sq, dtype=torch.int32,
                              device=tokens.device).expand(B, Sq)
     x = _embed_tokens(params, cfg, tokens)
-    ctx = _make_ctx(cfg, positions, window_attn=window_attn,
+    ctx = _make_ctx(cfg, positions, kernel=kernel, window_attn=window_attn,
                     cache_len=cache_len)
     caches = {}
     for gi, (specs, count) in enumerate(cfg.groups):
@@ -293,14 +310,16 @@ def prefill(params, cfg, tokens, *, cache_len=None, window_attn=0):
     return _logits(params, cfg, x), caches
 
 
-def decode_step(params, cfg, tokens, cache, t, *, window_attn=0):
+def decode_step(params, cfg, tokens, cache, t, *, window_attn=0,
+                moe_pre=None):
     """One-token decode. tokens: (B, 1); t: the position (int or 0-d
     tensor). Writes the step into ``cache`` in place; returns (logits
-    (B, 1, V), cache)."""
+    (B, 1, V), cache). ``moe_pre``: a callable applied to each MoE
+    layer's input before its dispatch (the reference's hook)."""
     _check_cfg(cfg)
     x = _embed_tokens(params, cfg, tokens)
     t = A.position_tensor(t, x.device)
-    ctx = _make_ctx(cfg, None, window_attn=window_attn)
+    ctx = _make_ctx(cfg, None, window_attn=window_attn, moe_pre=moe_pre)
     for gi, (specs, count) in enumerate(cfg.groups):
         gp, gc = params["groups"][str(gi)], cache[str(gi)]
         for i in range(count):

@@ -167,6 +167,57 @@ def test_cuda_launch_checks_head_dim_before_building():
                    window=0, scale=1.0, kv_lengths=None, segment_ids=None)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_launch_takes_half_types_and_refuses_others(dtype):
+    """bf16 and fp16 q/k/v pass the dtype check (the head-dim check after
+    it is what refuses D=160 here); float64 and mixed types are refused
+    with a TypeError naming float32, all before any build or launch."""
+    q = torch.zeros((1, 4, 1, 160), dtype=dtype)
+    with pytest.raises(ValueError, match="head dim 160"):
+        FA._launch(q, q, q, causal=True, window=0, scale=1.0,
+                   kv_lengths=None, segment_ids=None)
+    q = torch.zeros((1, 4, 1, 16), dtype=dtype)
+    for k in (q.float(), q.double()):
+        with pytest.raises(TypeError, match="float32"):
+            FA._launch(q, k, k, causal=True, window=0, scale=1.0,
+                       kv_lengths=None, segment_ids=None)
+    with pytest.raises(TypeError, match="float32"):
+        FA._launch(q.double(), q.double(), q.double(), causal=True,
+                   window=0, scale=1.0, kv_lengths=None, segment_ids=None)
+
+
+# mantissa bits: one step of the type at a value's size is 2^(e - bits)
+MANTISSA = {"bfloat16": 7, "float16": 10}
+
+
+def _step(x, dtype):
+    """One step of ``dtype`` at the size of ``x``'s largest element."""
+    x = np.abs(np.asarray(x, np.float32)).max()
+    return 2.0 ** (np.floor(np.log2(x)) - MANTISSA[dtype])
+
+
+@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_half_inputs_match_pallas_and_keep_their_dtype(dtype, window):
+    """q, k and v in bf16 or fp16: the plain version, like the Pallas body,
+    computes in float32 and returns q's dtype, within one step of the
+    output's scale of the Pallas kernel in interpret mode (both round a
+    float32 result once; the sums run in another order)."""
+    q, k, v = _qkv(10 + window, 1, 40, 40, 8, 2, 32)
+    jq, jk, jv = (jnp.asarray(a, dtype) for a in (q, k, v))
+    want = fa_jax(jq, jk, jv, causal=True, window=window, block_q=8,
+                  block_k=8, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    plain = FA.flash_attention_plain(tq, tk, tv, causal=True, window=window)
+    assert got.dtype == plain.dtype == getattr(torch, dtype)
+    assert str(want.dtype) == dtype
+    want = np.asarray(want, np.float32)
+    diff = np.abs(got.float().numpy() - want).max()
+    assert diff <= _step(want, dtype), diff
+
+
 def test_build_targets_sm90a_per_source():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     srcs = build.sources()
@@ -196,6 +247,33 @@ def test_kernel_matches_plain_on_card():
     want = FA.flash_attention_plain(q, k, v, causal=False, kv_lengths=lens)
     assert FA.flash_attention.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-4
+    assert float(got[2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_kernel_matches_plain_on_card(dtype):
+    """Runs only where a CUDA card is present: bf16/fp16 causal GQA at
+    D=128 (the LLM zoo's prefill) and a kv_lengths batch with a zero row,
+    kernel against plain within one step of the output's scale in the
+    output's type, masked rows exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    q, k, v = (torch.from_numpy(a).to(dev, dtype)
+               for a in _qkv(11, 1, 200, 200, 8, 2, 128))
+    got = ops.flash_attention(q, k, v, causal=True, window=64)
+    want = FA.flash_attention_plain(q, k, v, causal=True, window=64)
+    name = str(dtype).split(".")[-1]
+    assert got.dtype == dtype
+    assert float((got.float() - want.float()).abs().max()) <= \
+        _step(want.float().cpu(), name)
+    q, k, v = (torch.from_numpy(a).to(dev, dtype)
+               for a in _qkv(12, 3, 64, 64, 12, 12, 26))
+    lens = torch.tensor([64, 17, 0], dtype=torch.int32, device=dev)
+    got = ops.flash_attention(q, k, v, causal=False, kv_lengths=lens)
+    want = FA.flash_attention_plain(q, k, v, causal=False, kv_lengths=lens)
+    assert float((got.float() - want.float()).abs().max()) <= \
+        _step(want.float().cpu(), name)
     assert float(got[2].abs().max()) == 0.0
 
 
