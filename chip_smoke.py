@@ -7,7 +7,11 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each printing one JSON line:
   device  the card, its power limit, the software versions; TF32 off.
-  build   every kernel under src/repro_torch/csrc built with nvcc.
+  build   every kernel under src/repro_torch/csrc built with nvcc; the
+          registers and spills ptxas reports for the tensor-core flash
+          instantiations and the scan's, and the HMMA instructions
+          cuobjdump finds in the flash kernels (each tensor-core one must
+          hold some).
   kernel  the CUDA flash-attention kernel against its plain PyTorch
           version on the card, at the serving shapes (TinyBERT, BERT-base
           and MobileBERT per event, a padded batch, the S=512 segments
@@ -17,11 +21,13 @@ Phases, each printing one JSON line:
           with a window, and the LLM zoo's bf16 prefill (B=1 S=512 D=128
           causal at Mistral-NeMo's 32 heads over 8, OLMoE's 16 over 16,
           and Mistral's with a 128-token window; fp16 at OLMoE's, and
-          bf16 at D=26 with kv_lengths, rows off 16 bytes):
-          max |diff| <= 1e-4 (bf16, fp16: one step of the type at the
-          output's scale), exact zeros on fully masked rows, one
-          launch counted per call, the same under every tile plan the
-          kernel compiles (each timed); times of the kernel, the plain
+          bf16 at D=26 with kv_lengths, rows off 16 bytes, bf16 segment
+          ids over the S=512 buffer at D=64 and bf16 causal GQA with
+          Sq=100 < Sk=300; these on the tensor-core kernel, path "mma"): max |diff| <= 1e-4 (bf16,
+          fp16: one step of the type at the output's scale), exact zeros
+          on fully masked rows, one launch counted per call, the same
+          under every tile plan the kernel compiles for the type (each
+          timed); times of the kernel, the plain
           version and F.scaled_dot_product_attention (a yardstick only:
           the port never calls it), and the least time the card could
           take for the same work.
@@ -177,7 +183,11 @@ Phases, each printing one JSON line:
           and as the model draws them, and a small scan whose decays hold
           exact 0s and 1s; every case under each chunk length the kernel
           compiles (each timed); times (L2 flushed, and warm) and the
-          bound.
+          bound. r, k and v in bf16 (as the bf16 model passes them) at
+          S=520 and S=1 of that width, and in fp16 with rows off 16 bytes:
+          bit for bit the float32 launch on the up-cast inputs under each
+          chunk length, timed beside it and beside three casts to float32
+          followed by the float32 launch.
   llm     the prefix-cached LLMServer. (i) Every ported arch reduced to 2
           float32 layers on examples/llm_generate.py's mix, card vs CPU:
           the same tokens and stats, logits of every call within 1e-4, a
@@ -194,8 +204,14 @@ Phases, each printing one JSON line:
           kernel="jnp": the flash kernel launched once a layer, each
           layer's output within one bf16 step of the plain version's on
           its own inputs, the logits within 4 bf16 steps of their scale
-          (PALLAS_PREFILL_STEPS) and the same greedy token; reports prefill and per-token decode wall, graphed and
-          eager, tokens/s, peak memory, the weight-read bound (OLMoE's
+          (PALLAS_PREFILL_STEPS) and the same greedy token; for RWKV6, the
+          scan's inputs captured from the eager server in bf16 and bit for
+          bit its float32 launch on them up-cast, and the cold prompt's
+          prefill plus 8 greedy steps with r/k/v passed as bf16 against
+          the same with them up-cast first: logits bit for bit, the same
+          tokens, both prefill walls; reports prefill and per-token
+          decode wall, graphed and eager, tokens/s, peak memory, the
+          weight-read bound (OLMoE's
           active-parameter bound beside it) and the card's busy share
           under the profiler. (iii) codeqwen1.5-7b, nemotron-4-15b and
           qwen1.5-32b (35.2 B parameters, 70.4 GB) at full width and
@@ -323,6 +339,59 @@ def phase_device():
 
 # ----------------------------------------------------------------- build
 
+def demangle(names):
+    """C++ names as ``c++filt`` gives them, or as they are without it."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        got = out.stdout.splitlines()
+        return got if out.returncode == 0 and len(got) == len(names) else names
+    except OSError:
+        return names
+
+
+def ptxas_entries(log):
+    """{entry function: {"registers", "spill_stores", "spill_loads"}} from
+    ``nvcc -Xptxas -v``'s log."""
+    entries, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = m.group(1)
+            entries[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            entries[cur].update(spill_stores=int(m.group(1)),
+                                spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            entries[cur]["registers"] = int(m.group(1))
+    return dict(zip(demangle(list(entries)), entries.values()))
+
+
+def sass_counts(lib, opcode):
+    """{kernel: count of ``opcode`` in its SASS} from ``cuobjdump -sass``
+    beside nvcc, or None where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120).stdout
+    counts, cur = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and re.search(rf"\b{opcode}\b", ln):
+            counts[cur] += 1
+    return dict(zip(demangle(list(counts)), counts.values()))
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -333,6 +402,21 @@ def phase_build():
                "ptxas": [ln.strip() for ln in r["ptxas"].splitlines()
                          if "registers" in ln or "spill" in ln]}
         for name, r in report.items()})
+    # the tensor-core flash instantiations and the scan's per input type:
+    # registers and spills, and HMMA instructions in the flash kernels
+    entries = {}
+    for name, r in report.items():
+        entries.update({k: v for k, v in ptxas_entries(r["ptxas"]).items()
+                        if "flash_mma_kernel" in k or "rwkv6_" in k})
+    hmma = sass_counts(build._target(build.CSRC / "flash_attention.cu"),
+                       "HMMA")
+    emit("build_kernels", ptxas=entries,
+         hmma=None if hmma is None else {k: n for k, n in hmma.items()
+                                         if "flash" in k})
+    if hmma is not None:
+        check(all(n > 0 for k, n in hmma.items() if "flash_mma_kernel" in k)
+              and any("flash_mma_kernel" in k for k in hmma),
+              f"no HMMA in the tensor-core flash kernel: {hmma}")
 
 
 # ---------------------------------------------------------------- kernel
@@ -433,10 +517,11 @@ def step_of_scale(x, dtype=torch.bfloat16):
 def kernel_case(name, *, B, Sq, Sk, H, KV, D, causal=False, window=0,
                 lengths=None, segments=None, block=128, fused_qkv=False,
                 seed=0, dtype=torch.float32):
-    """float32 cases are held to TOL; bf16 and fp16 ones to one step of
-    their type at the output's scale (the kernel and the plain version
-    both compute in float32 and round once; the sums run in another
-    order)."""
+    """float32 cases (the FMA kernel) are held to TOL; bf16 and fp16 ones
+    (the tensor-core kernel) to one step of their type at the output's
+    scale (the kernel and the plain version both sum in float32 and round
+    once; the sums run in another order, and the kernel's P is the sum of
+    two roundings to the input type)."""
     from repro_torch.kernels import flash_attention as FA
     g = torch.Generator().manual_seed(seed)
     dev = torch.device("cuda")
@@ -477,14 +562,20 @@ def kernel_case(name, *, B, Sq, Sk, H, KV, D, causal=False, window=0,
 
     kfn = lambda: FA.flash_attention(q, k, v, block_q=block, block_k=block, **kw)  # noqa: E731
     pfn = lambda: FA.flash_attention_plain(q, k, v, **kw)  # noqa: E731
-    # every tile plan the kernel compiles, on the same inputs: each within
-    # TOL of the plain version, each timed, so the plan's pick is checked
-    # against the others (padding-free shapes only: the plan sees S as is)
+    # every tile plan the kernel compiles for this type, on the same
+    # inputs: each within tolerance of the plain version, each timed, so
+    # the plan's pick is checked against the others (padding-free shapes
+    # only: the plan sees S as is)
     by_block_q = {}
-    head_pad = FA.plan_tiles(B, Sq, Sk, H, D)[1]
+    plan = FA.plan_tiles(B, Sq, Sk, H, D, dtype)
+    head_pad = plan[1]
+    if dtype == torch.float32:
+        # 128-row float32 blocks exist below head dim 128 only
+        plans = [b for b in FA.BLOCK_Q if b < 128 or head_pad < 128]
+    else:
+        plans = list(FA.HALF_BLOCK_Q)
     if segments is None or Sq % block == 0:
-        # 128-row blocks exist below head dim 128 only
-        for bq in (b for b in FA.BLOCK_Q if b < 128 or head_pad < 128):
+        for bq in plans:
             afn = lambda bq=bq: FA._launch(  # noqa: E731
                 q, k, v, causal=causal, window=window, scale=1.0 / math.sqrt(D),
                 kv_lengths=kw.get("kv_lengths"),
@@ -514,7 +605,8 @@ def kernel_case(name, *, B, Sq, Sk, H, KV, D, causal=False, window=0,
     b_ms, b_by, flops, nbytes = bound(q, v, mask, H, KV, extra)
     row = dict(name=name, shape=dict(B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, D=D),
                dtype=str(dtype).split(".")[-1],
-               plan=FA.plan_tiles(B, Sq, Sk, H, D), by_block_q=by_block_q,
+               path="fma" if dtype == torch.float32 else "mma",
+               plan=plan, by_block_q=by_block_q,
                max_abs_err=err, tol=tol, zero_rows=n_dead, ms=ms,
                plain_ms=plain_ms,
                library_ms=library_ms, call_ms=call_ms(kfn),
@@ -553,6 +645,7 @@ def phase_kernel():
     rows["segments"] = kernel_case(
         "tinybert_segments", B=1, Sq=512, Sk=512, H=12, KV=12, D=26,
         segments=[seg.tolist()], block=8, fused_qkv=True, seed=2)
+    seg_512 = seg
     rows["causal_gqa"] = kernel_case(
         "causal_window16_gqa", B=1, Sq=256, Sk=256, H=8, KV=2, D=64,
         causal=True, window=16, seed=3)
@@ -594,6 +687,16 @@ def phase_kernel():
     rows["per_event_bf16"] = kernel_case(
         "tinybert_lengths_bf16", B=2, Sq=64, Sk=64, H=12, KV=12, D=26,
         lengths=[64, 0], fused_qkv=True, dtype=torch.bfloat16, seed=13)
+    # the tensor-core kernel's other modes: segment ids over the packed
+    # S=512 buffer (16-byte rows at D=64), and causal with Sq < Sk
+    # (q_offset = Sk - Sq, a prefill continuing a cached prefix)
+    rows["segments_bf16"] = kernel_case(
+        "segments_d64_bf16", B=1, Sq=512, Sk=512, H=12, KV=12, D=64,
+        segments=[seg_512.tolist()], block=8, fused_qkv=True,
+        dtype=torch.bfloat16, seed=14)
+    rows["causal_offset_bf16"] = kernel_case(
+        "causal_q100_k300_gqa_bf16", B=1, Sq=100, Sk=300, H=8, KV=2, D=128,
+        causal=True, dtype=torch.bfloat16, seed=15)
     return rows
 
 
@@ -2424,14 +2527,15 @@ def phase_decode_kernel():
 
 # ------------------------------------------------------------ rwkv_kernel
 
-def rwkv_bound(B, S, H, n, *, s0):
-    """Least time the card could take for one scan: r, k, v, w, u (and
-    s0) read once, y and the final state written once, over HBM
-    bandwidth; against the float32 operations per (step, batch, head)
-    over the float32 rate: 5 n^2 (k v^T; w S + k v^T as a multiply and an
-    add; r S as a multiply and an add) and 5 n for the bonus, which
-    factors out as v_j (sum_i r_i u_i k_i)."""
-    nbytes = 4 * (5 * B * S * H * n + H * n + (1 + s0) * B * H * n * n)
+def rwkv_bound(B, S, H, n, *, s0, rkv_bytes=4):
+    """Least time the card could take for one scan: r, k, v (``rkv_bytes``
+    an element), w, u (and s0) read once, y and the final state written
+    once, over HBM bandwidth; against the float32 operations per (step,
+    batch, head) over the float32 rate: 5 n^2 (k v^T; w S + k v^T as a
+    multiply and an add; r S as a multiply and an add) and 5 n for the
+    bonus, which factors out as v_j (sum_i r_i u_i k_i)."""
+    nbytes = (3 * rkv_bytes * B * S * H * n
+              + 4 * (2 * B * S * H * n + H * n + (1 + s0) * B * H * n * n))
     ops = 5 * B * S * H * n * (n + 1)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -2504,6 +2608,67 @@ def rwkv_case(name, *, B, S, H, n, s0=False, seed=0, scaled=False,
     return row
 
 
+def rwkv_half_case(name, *, B, S, H, n, seed, dtype=torch.bfloat16,
+                   decay="range"):
+    """r, k and v in ``dtype`` (w, u, s0 float32), as RWKV6-1.6B's bf16
+    model passes them: every chunk length bit-equal to the float32 launch
+    on the up-cast inputs, then the plain version within RWKV_TOL of the
+    output's scale; timed beside the float32 launch and beside what the
+    model ran before the scan took half types (three casts to float32,
+    then the float32 launch)."""
+    from repro_torch.kernels import rwkv6 as RW
+    r, k, v, w, u, s0 = rwkv_inputs(B, S, H, n, s0=True, seed=seed,
+                                    decay=decay)
+    args = [x.to(dtype) for x in (r, k, v)] + [w, u, s0]
+    up = [x.float() for x in args[:3]] + [w, u, s0]
+    before = RW.rwkv6_scan.launches
+    y, sf = RW.rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    check(RW.rwkv6_scan.launches == before + 1,
+          f"{name}: launches {RW.rwkv6_scan.launches} != {before + 1}")
+    y32, s32 = RW._launch(*up)
+    check(y.dtype == sf.dtype == torch.float32, f"{name}: outputs "
+          f"{y.dtype}/{sf.dtype}, not float32")
+    check(torch.equal(y, y32) and torch.equal(sf, s32),
+          f"{name}: {dtype} scan differs from the float32 launch on the "
+          "up-cast inputs")
+    by_chunk = {}
+    for chunk in RW.CHUNKS:
+        afn = lambda chunk=chunk: RW._launch(*args, chunk=chunk)  # noqa: E731
+        ya, sa = afn()
+        yb, sb = RW._launch(*up, chunk=chunk)
+        torch.cuda.synchronize()
+        check(torch.equal(ya, yb) and torch.equal(sa, sb),
+              f"{name}: chunk={chunk}: not bit-equal to the float32 launch")
+        by_chunk[chunk] = {"bit_equal": True, "ms": device_ms_cold(afn)}
+    yp, sp = RW.rwkv6_scan_plain(*args)
+    err = max(float((y - yp).abs().max()), float((sf - sp).abs().max()))
+    scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
+    check(err <= RWKV_TOL * scale, f"{name}: max |kernel - plain| = {err} "
+          f"> {RWKV_TOL} x {scale}")
+    b_ms, b_by, ops, nbytes = rwkv_bound(B, S, H, n, s0=True,
+                                         rkv_bytes=args[0].element_size())
+    kfn = lambda: RW.rwkv6_scan(*args)  # noqa: E731
+    ffn = lambda: RW.rwkv6_scan(*up)  # noqa: E731
+    cfn = lambda: RW.rwkv6_scan(args[0].float(), args[1].float(),  # noqa: E731
+                                args[2].float(), w, u, s0)
+    pfn = lambda: RW.rwkv6_scan_plain(*args)  # noqa: E731
+    ms, f32_ms, cast_ms = device_ms_cold(kfn), device_ms_cold(ffn), \
+        device_ms_cold(cfn)
+    row = dict(name=name, shape=dict(B=B, S=S, H=H, n=n, s0=True),
+               dtype=str(dtype).split(".")[-1], decay=decay,
+               plan=RW.plan_chunks(B, S, H, n), by_chunk=by_chunk,
+               bit_equal_to_float32=True, max_abs_err=err, scale=scale,
+               tol=RWKV_TOL * scale, ms=ms, float32_ms=f32_ms,
+               casts_then_float32_ms=cast_ms,
+               plain_ms=device_ms_cold(pfn, reps=5 if S > 100 else 25),
+               library_ms=None, ms_l2_warm=device_ms(kfn),
+               call_ms=call_ms(kfn), bound_ms=b_ms, bound_by=b_by, ops=ops,
+               bytes=nbytes)
+    emit("rwkv_kernel", **row)
+    return row
+
+
 def phase_rwkv_kernel():
     from repro_torch.kernels import rwkv6 as RW
     rows = {}
@@ -2540,6 +2705,18 @@ def phase_rwkv_kernel():
         seed=4, scaled=True, decay="model")
     rows["edges"] = rwkv_case("rwkv_1x40x2x16_exact_0_and_1", B=1, S=40,
                               H=2, n=16, s0=True, seed=5, decay="edges")
+    # bf16 r/k/v as the bf16 model passes them: the 520-token prefill and
+    # a decode step at RWKV6-1.6B's heads; fp16 and rows off 16 bytes
+    # (n=20: element by element) on no served path
+    rows["prefill_520_bf16"] = rwkv_half_case(
+        "rwkv_prefill_1x520x32x64_bf16", B=1, S=520, H=32, n=64, seed=6,
+        decay="model")
+    rows["decode_1_bf16"] = rwkv_half_case(
+        "rwkv_decode_1x1x32x64_bf16", B=1, S=1, H=32, n=64, seed=7,
+        decay="model")
+    rows["fp16_odd"] = rwkv_half_case(
+        "rwkv_1x45x3x20_fp16", B=1, S=45, H=3, n=20, seed=8,
+        dtype=torch.float16)
     return rows
 
 
@@ -2779,6 +2956,8 @@ def llm_full(arch, cpu_count):
     gc.collect()
     pallas = (pallas_prefill(cfg, params, cold_prompt)
               if arch in LLM_PALLAS_PREFILL else None)
+    upcast = (rwkv_upcast_prefill(cfg, params, cold_prompt)
+              if name == "rwkv6_scan" else None)
 
     # the eager server, trimmed: the system prompt and its first hit (as
     # the server runs them), then one hit with each step synchronised.
@@ -2835,8 +3014,18 @@ def llm_full(arch, cpu_count):
             err = max(float((y - yp).abs().max()),
                       float((s - sp).abs().max()))
             scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
+            # the model passes r/k/v in its bf16: the same scan as the
+            # float32 launch on them up-cast, bit for bit
+            y32, s32 = RW.rwkv6_scan(*(x.float() for x in a[:3]), *a[3:])
+            bit_equal = bool(torch.equal(y, y32) and torch.equal(s, s32))
             cap.append(dict(r=list(a[0].shape), s0=a[5] is not None,
-                            max_abs_err=err, scale=scale))
+                            rkv_dtype=str(a[0].dtype).split(".")[-1],
+                            max_abs_err=err, scale=scale,
+                            bit_equal_to_float32=bit_equal))
+            check(a[0].dtype == getattr(torch, cfg.dtype), f"{arch}: the "
+                  f"scan took r in {a[0].dtype}, not the model's {cfg.dtype}")
+            check(bit_equal, f"{arch}: captured bf16 scan differs from the "
+                  "float32 launch on the up-cast inputs")
             check(err <= RWKV_TOL * scale, f"{arch}: captured scan {err} > "
                   f"{RWKV_TOL} x {scale}")
 
@@ -2849,7 +3038,7 @@ def llm_full(arch, cpu_count):
                weight_read_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
                active_weight_read_bound_ms=(cfg.active_param_count() * 2
                                             / HBM_BYTES_PER_S * 1e3),
-               prefill_pallas=pallas,
+               prefill_pallas=pallas, scan_upcast=upcast,
                system_wall_s=t1 - t0, hits_wall_s=t2 - t1,
                cold_wall_s=t3 - t2,
                tokens_per_s=gen_tokens / (t3 - t1),
@@ -2978,6 +3167,69 @@ def pallas_prefill(cfg, params, prompt, *, reps=3):
                 ms=ms)
 
 
+UPCAST_DECODE_STEPS = 8
+
+
+def rwkv_upcast_prefill(cfg, params, prompt, *, reps=3):
+    """RWKV6 with r/k/v passed to the scan in the model's bf16 (as the
+    model runs now) against the same model with them up-cast to float32
+    before the scan (as it ran before the scan took half types): the
+    prompt's prefill and UPCAST_DECODE_STEPS greedy decode steps, logits
+    bit for bit and the same tokens, the scan launched once a layer a
+    call either way (its counter set to 0 just before each drive and read
+    just after); then each prefill timed ``reps`` more times in turns
+    (upcast, bf16, bf16, upcast, ...), the card synchronised after each."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6 as RW
+    from repro_torch.models import transformer as T
+    tokens = torch.as_tensor(prompt[None], device="cuda")
+    orig = ops.rwkv6_scan
+
+    def upcast(r, k, v, w, u, s0=None):
+        return orig(r.float(), k.float(), v.float(), w, u, s0)
+
+    def run(up, *, decode=False):
+        ops.rwkv6_scan = upcast if up else orig
+        try:
+            RW.rwkv6_scan.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = T.prefill(params, cfg, tokens, cache_len=1024)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            outs, toks = [logits], []
+            pos = tokens.shape[1]
+            for i in range(UPCAST_DECODE_STEPS if decode else 0):
+                tok = outs[-1][:, -1].argmax(-1)[:, None]
+                toks.append(int(tok[0, 0]))
+                logits, cache = T.decode_step(params, cfg, tok, cache, pos + i)
+                outs.append(logits)
+            torch.cuda.synchronize()
+            return outs, toks, ms, RW.rwkv6_scan.launches
+        finally:
+            ops.rwkv6_scan = orig
+
+    got, got_toks, first_ms, launches = run(False, decode=True)
+    want, want_toks, first_up_ms, up_launches = run(True, decode=True)
+    calls = 1 + UPCAST_DECODE_STEPS
+    check(launches == up_launches == cfg.n_layers * calls,
+          f"{cfg.name}: scan launches {launches} / {up_launches} != "
+          f"{cfg.n_layers} x {calls}")
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    check(same and got_toks == want_toks, f"{cfg.name}: the bf16 scan's "
+          f"logits or tokens {got_toks} differ from the up-cast path's "
+          f"{want_toks}")
+    ms = {"bf16": [], "upcast": []}
+    for i in range(reps):
+        for kind in (("upcast", "bf16") if i % 2 == 0 else ("bf16", "upcast")):
+            ms[kind].append(run(kind == "upcast")[2])
+    return dict(prompt=len(prompt), decode_steps=UPCAST_DECODE_STEPS,
+                launches=launches, bit_equal=same, tokens=got_toks,
+                first_ms={"bf16": first_ms, "upcast": first_up_ms},
+                prefill_ms_p50={k: float(np.median(v)) for k, v in ms.items()},
+                prefill_ms=ms)
+
+
 def llm_dense(arch, cpu_count):
     """(iii) a dense config at full width in bf16 with the trimmed mix: the
     512-token system prompt, one hit of it + 8 tokens and the cold
@@ -3066,11 +3318,14 @@ def llm_dense(arch, cpu_count):
 
 
 def phase_llm():
+    """{arch: its full-width row} and, under "reduced", the reduced float32
+    rows."""
     reduced_rows = {arch: llm_reduced(arch) for arch in LLM_ARCHS}
     emit("llm_reduced", **reduced_rows)
-    return {arch: (llm_full if arch in LLM_FULL_MIX else llm_dense)(
+    rows = {arch: (llm_full if arch in LLM_FULL_MIX else llm_dense)(
         arch, reduced_rows[arch]["graphs"]["compile_count"])
         for arch in LLM_ARCHS}
+    return {**rows, "reduced": reduced_rows}
 
 
 # ----------------------------------------------------------------- train
@@ -4052,8 +4307,11 @@ def main():
                      rows["mistral_prefill_bf16"],
                      shape=rows["mistral_prefill_bf16"]["shape"],
                      dtype="bfloat16",
+                     path=rows["mistral_prefill_bf16"]["path"],
+                     plan=rows["mistral_prefill_bf16"]["plan"],
                      olmoe=_brief(rows["olmoe_prefill_bf16"]),
-                     window128=_brief(rows["window_prefill_bf16"]))]
+                     window128=_brief(rows["window_prefill_bf16"]),
+                     olmoe_fp16=_brief(rows["olmoe_prefill_fp16"]))]
     for name, (source, replaces, row) in KERNELS.items():
         floor = ({"floor_ms": int8_rows["launch_floor"]["ms"]}
                  if name != "int8_matmul" else {})
@@ -4075,13 +4333,23 @@ def main():
                              a: llm_rows[a]["launches"][0] for a in LLM_ARCHS
                              if llm_rows[a]["launches"][0]},
                          olmoe=_brief(decode_rows["olmoe_half"])))
+    # the scan in float32 (the reduced float32 RWKV6 served on the card)
+    # and with bf16 r/k/v (RWKV6-1.6B at full width in bf16)
+    step_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     kernels.append(_line("rwkv6_scan", "src/repro_torch/csrc/rwkv6.cu",
                          "src/repro/kernels/rwkv6.py:62",
-                         rwkv["launches"][1], rwkv_rows["prefill_520"],
+                         llm_rows["reduced"]["rwkv6-1.6b"]["launches"][1],
+                         rwkv_rows["prefill_520"],
                          shape=rwkv_rows["prefill_520"]["shape"],
-                         decode_step={k: rwkv_rows["decode_1"][k] for k in
-                                      ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "max_abs_err")}))
+                         decode_step={k: rwkv_rows["decode_1"][k]
+                                      for k in step_keys}))
+    kernels.append(_line("rwkv6_scan_bf16", "src/repro_torch/csrc/rwkv6.cu",
+                         "src/repro/kernels/rwkv6.py:62",
+                         rwkv["launches"][1], rwkv_rows["prefill_520_bf16"],
+                         shape=rwkv_rows["prefill_520_bf16"]["shape"],
+                         dtype="bfloat16",
+                         decode_step={k: rwkv_rows["decode_1_bf16"][k]
+                                      for k in step_keys}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -52,28 +52,44 @@
 // y are contiguous (B, S, H, n); u is (H, n); s0 (or null) and the final
 // state are contiguous (B, H, n, n). n <= 64.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int NMAX = 64;                // head dim limit: rows of a slice
 constexpr int CW = 16;                  // state columns a block owns
 constexpr int THREADS = 512;            // 16 warps in five roles (below)
-constexpr int RS = NMAX + 4;            // padded row stride of r, k, w and their products
+constexpr int RS = NMAX + 4;            // padded row stride of float32 rows (w, the products)
 
+// r, k and v in TI (float, __nv_bfloat16 or __half, the three alike); w,
+// u, s0, y and the final state in float32
+template <typename TI>
 struct Params {
-  const float* r;
-  const float* k;
-  const float* v;
+  const TI* r;
+  const TI* k;
+  const TI* v;
   const float* w;
   const float* u;
   const float* s0;                      // or null: zeros
   float* y;
   float* sf;
   int B, S, H, n;
-  int vec;                              // rows on 16-byte boundaries (n % 4 == 0)
+  int vec;                              // rows on 16-byte boundaries
 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+// padded row stride of r and k rows in TI: 68 floats, or 72 halves (144
+// bytes, so every staged row starts on a 16-byte boundary)
+template <typename TI>
+__host__ __device__ constexpr int rs_of() { return sizeof(TI) == 4 ? RS : NMAX + 8; }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -95,25 +111,34 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// rows x PAD floats into dst (row stride ld) from src (row stride ss), by
-// lanes lane = 0 .. nlanes-1: rows at or past nvalid and columns at or
-// past width are zero-filled
-template <int PAD>
-__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
+// rows x PAD elements into dst (row stride ld) from src (row stride ss),
+// as they are, by lanes lane = 0 .. nlanes-1: rows at or past nvalid and
+// columns at or past width are zero-filled. 16-byte cp.async copies (4
+// floats or 8 halves); rows off 16 bytes element by element, by 4-byte
+// cp.async for floats and by plain loads and stores for 2-byte elements
+// (cp.async copies no fewer than 4 bytes). The caller commits; a barrier
+// makes either visible.
+template <int PAD, typename TE>
+__device__ __forceinline__ void stage(TE* dst, int ld, const TE* src,
                                       long long ss, int rows, int nvalid,
                                       int width, bool vec, int lane, int nlanes) {
   if (vec) {
-    constexpr int C = PAD / 4;
+    constexpr int W = 16 / sizeof(TE);
+    constexpr int C = PAD / W;
     for (int e = lane; e < rows * C; e += nlanes) {
       const int t = e / C, c = e % C;
-      const bool in = t < nvalid && 4 * c < width;
-      cp_async16(dst + t * ld + 4 * c, in ? src + t * ss + 4 * c : src, in);
+      const bool in = t < nvalid && W * c < width;
+      cp_async16(dst + t * ld + W * c, in ? src + t * ss + W * c : src, in);
     }
   } else {
     for (int e = lane; e < rows * PAD; e += nlanes) {
       const int t = e / PAD, c = e % PAD;
       const bool in = t < nvalid && c < width;
-      cp_async4(dst + t * ld + c, in ? src + t * ss + c : src, in);
+      if constexpr (sizeof(TE) == 4) {
+        cp_async4(dst + t * ld + c, in ? src + t * ss + c : src, in);
+      } else {
+        dst[t * ld + c] = in ? src[t * ss + c] : TE(0.f);
+      }
     }
   }
 }
@@ -129,11 +154,16 @@ constexpr int ST0 = 384;                // warps 12-15: the state through chunk 
 constexpr int L = 16;                   // steps a chunk
 constexpr int STAGES = 4;               // input buffers: chunks c .. c+3
 
-// N (2 or 4) contiguous floats from shared memory in one load
+// N (2, 4 or 8) contiguous floats from shared memory in one or two loads
 template <int N>
 __device__ __forceinline__ void lds(float (&out)[N], const float* src) {
-  static_assert(N == 2 || N == 4, "a float2 or a float4");
-  if constexpr (N == 4) {
+  static_assert(N == 2 || N == 4 || N == 8, "a float2, a float4 or two");
+  if constexpr (N == 8) {
+    const float4 x = *reinterpret_cast<const float4*>(src);
+    const float4 z = *reinterpret_cast<const float4*>(src + 4);
+    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+    out[4] = z.x; out[5] = z.y; out[6] = z.z; out[7] = z.w;
+  } else if constexpr (N == 4) {
     const float4 x = *reinterpret_cast<const float4*>(src);
     out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
   } else {
@@ -142,17 +172,58 @@ __device__ __forceinline__ void lds(float (&out)[N], const float* src) {
   }
 }
 
-__host__ __device__ constexpr int in_floats() { return 3 * L * RS + L * CW; }   // r, k, w, v of a chunk
+// two bf16 or fp16 values packed in 32 bits (the lower address in the
+// low half) as exact float32s
+__device__ __forceinline__ float2 unpack2(unsigned u, const __nv_bfloat16*) {
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+__device__ __forceinline__ float2 unpack2(unsigned u, const __half*) {
+  return make_float2(__half2float(__ushort_as_half(static_cast<unsigned short>(u & 0xffffu))),
+                     __half2float(__ushort_as_half(static_cast<unsigned short>(u >> 16))));
+}
+
+// N (2, 4 or 8) contiguous bf16 or fp16 values from shared memory in one
+// load of 2 N bytes, converted exactly to float32 in registers
+template <int N, typename TH>
+__device__ __forceinline__ void lds(float (&out)[N], const TH* src) {
+  static_assert(N == 2 || N == 4 || N == 8, "4, 8 or 16 bytes");
+  static_assert(sizeof(TH) == 2, "bf16 or fp16");
+  unsigned w[N / 2];
+  if constexpr (N == 8) {
+    const uint4 x = *reinterpret_cast<const uint4*>(src);
+    w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+  } else if constexpr (N == 4) {
+    const uint2 x = *reinterpret_cast<const uint2*>(src);
+    w[0] = x.x; w[1] = x.y;
+  } else {
+    w[0] = *reinterpret_cast<const unsigned*>(src);
+  }
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x) {
+    const float2 f = unpack2(w[x], src);
+    out[2 * x] = f.x;
+    out[2 * x + 1] = f.y;
+  }
+}
+
+// a chunk's staged inputs, in bytes: r and k (rows of rs_of<TI>() TI), w
+// (rows of RS floats), v (rows of CW TI); each region 16-byte aligned
+template <typename TI>
+__host__ __device__ constexpr int in_bytes() {
+  return static_cast<int>(2 * L * rs_of<TI>() * sizeof(TI) + 4 * L * RS + L * CW * sizeof(TI));
+}
 
 __host__ __device__ constexpr int prod_floats() { return 3 * L * RS + L * (L + 1) + NMAX; }   // r*a, k*b, r*u*k, A, a_L
 
+template <typename TI>
 constexpr int smem_bytes() {
-  return 4 * (STAGES * in_floats()    // inputs
-              + 2 * prod_floats()     // a chunk's products, two buffers
-              + 2 * NMAX * CW);          // the state slice, two buffers
+  return STAGES * in_bytes<TI>()      // inputs
+         + 4 * (2 * prod_floats()     // a chunk's products, two buffers
+                + 2 * NMAX * CW);     // the state slice, two buffers
 }
 
-__global__ void __launch_bounds__(THREADS) rwkv6_chunk_kernel(const Params p) {
+template <typename TI>
+__global__ void __launch_bounds__(THREADS) rwkv6_chunk_kernel(const Params<TI> p) {
   constexpr int G = L / 2;               // pairs (s, L-1-s) of the A phase
   constexpr int IG = A_LANES / G;        // lanes that share one pair's sum over i
   constexpr int IPT = NMAX / IG;         // i a lane sums over
@@ -161,11 +232,18 @@ __global__ void __launch_bounds__(THREADS) rwkv6_chunk_kernel(const Params p) {
   constexpr int AS = L + 1;              // row stride of A
   constexpr int VW = 4;                  // floats a lane loads at once in the A phase
   static_assert(IG <= 32 && IG >= L - 1 && IPT % VW == 0 && JPT == 2, "tile plan");
+  constexpr int RSI = rs_of<TI>();       // row stride of staged r and k
+  static_assert(in_bytes<TI>() % 16 == 0 && (L * RSI * sizeof(TI)) % 16 == 0, "16-byte regions");
 
   extern __shared__ float4 smem4[];
-  float* in = reinterpret_cast<float*>(smem4);
-  float* prod = in + STAGES * in_floats();
+  unsigned char* in = reinterpret_cast<unsigned char*>(smem4);
+  float* prod = reinterpret_cast<float*>(in + STAGES * in_bytes<TI>());
   float* St = prod + 2 * prod_floats();
+  // the staged inputs of chunk c: r, k (TI), w (float32), v (TI)
+  auto in_r = [&](int c) { return reinterpret_cast<TI*>(in + (c % STAGES) * in_bytes<TI>()); };
+  auto in_k = [&](int c) { return in_r(c) + L * RSI; };
+  auto in_w = [&](int c) { return reinterpret_cast<float*>(in_k(c) + L * RSI); };
+  auto in_v = [&](int c) { return reinterpret_cast<TI*>(in_w(c) + L * RS); };
 
   const int ncb = (p.n + CW - 1) / CW;
   const int bh = blockIdx.x / ncb, cb = blockIdx.x % ncb;
@@ -178,13 +256,12 @@ __global__ void __launch_bounds__(THREADS) rwkv6_chunk_kernel(const Params p) {
   auto steps_of = [&](int c) { return min(L, p.S - c * L); };
 
   auto stage_chunk = [&](int c, int lane, int nlanes) {
-    float* R = in + (c % STAGES) * in_floats();
     const long long o = base + static_cast<long long>(c) * L * row;
     const int nv = steps_of(c);
-    stage<NMAX>(R, RS, p.r + o, row, L, nv, n, vec, lane, nlanes);
-    stage<NMAX>(R + L * RS, RS, p.k + o, row, L, nv, n, vec, lane, nlanes);
-    stage<NMAX>(R + 2 * L * RS, RS, p.w + o, row, L, nv, n, vec, lane, nlanes);
-    stage<CW>(R + 3 * L * RS, CW, p.v + o + j0, row, L, nv, min(CW, n - j0), vec,
+    stage<NMAX>(in_r(c), RSI, p.r + o, row, L, nv, n, vec, lane, nlanes);
+    stage<NMAX>(in_k(c), RSI, p.k + o, row, L, nv, n, vec, lane, nlanes);
+    stage<NMAX>(in_w(c), RS, p.w + o, row, L, nv, n, vec, lane, nlanes);
+    stage<CW>(in_v(c), CW, p.v + o + j0, row, L, nv, min(CW, n - j0), vec,
               lane, nlanes);
     cp_async_commit();
   };
@@ -192,9 +269,9 @@ __global__ void __launch_bounds__(THREADS) rwkv6_chunk_kernel(const Params p) {
   // The producers: the products of chunk c from its inputs, into buffer c & 1
   auto produce = [&](int c) {
     const int steps = steps_of(c);
-    const float* R = in + (c % STAGES) * in_floats();
-    const float* K = R + L * RS;
-    const float* W = K + L * RS;
+    const TI* R = in_r(c);
+    const TI* K = in_k(c);
+    const float* W = in_w(c);
     float* P = prod + (c & 1) * prod_floats();
     float* ra = P;
     float* kb = ra + L * RS;
@@ -223,12 +300,12 @@ __global__ void __launch_bounds__(THREADS) rwkv6_chunk_kernel(const Params p) {
         for (int q = 0; q < IPT; q += VW) {
           if (fresh) {
             float kx[VW];
-            lds(kx, K + s * RS + ig * IPT + q);
+            lds(kx, K + s * RSI + ig * IPT + q);
 #pragma unroll
             for (int x = 0; x < VW; ++x) kp[q + x] = kx[x];
           }
           float rx[VW], wx[VW];
-          lds(rx, R + t * RS + ig * IPT + q);
+          lds(rx, R + t * RSI + ig * IPT + q);
           lds(wx, W + t * RS + ig * IPT + q);
 #pragma unroll
           for (int x = 0; x < VW; ++x) {
@@ -267,8 +344,8 @@ __global__ void __launch_bounds__(THREADS) rwkv6_chunk_kernel(const Params p) {
       float rv[L], kv[L], wv[L];
 #pragma unroll
       for (int t = 0; t < L; ++t) {
-        rv[t] = R[t * RS + i];
-        kv[t] = K[t * RS + i];
+        rv[t] = to_f32(R[t * RSI + i]);
+        kv[t] = to_f32(K[t * RSI + i]);
         wv[t] = t < steps ? W[t * RS + i] : 1.f;
       }
       float a = 1.f;
@@ -285,7 +362,7 @@ __global__ void __launch_bounds__(THREADS) rwkv6_chunk_kernel(const Params p) {
       float kv[L], wv[L];
 #pragma unroll
       for (int t = 0; t < L; ++t) {
-        kv[t] = K[t * RS + i];
+        kv[t] = to_f32(K[t * RSI + i]);
         wv[t] = t < steps ? W[t * RS + i] : 1.f;
       }
       float bb = 1.f;
@@ -333,7 +410,7 @@ __global__ void __launch_bounds__(THREADS) rwkv6_chunk_kernel(const Params p) {
         asm volatile("cp.async.wait_group 1;\n" ::: "memory");   // iteration, has landed
     } else {
       const int steps = steps_of(c);
-      const float* V = in + (c % STAGES) * in_floats() + 3 * L * RS;
+      const TI* V = in_v(c);
       const float* P = prod + (c & 1) * prod_floats();
       const float* ra = P;
       const float* kb = ra + L * RS;
@@ -378,14 +455,14 @@ __global__ void __launch_bounds__(THREADS) rwkv6_chunk_kernel(const Params p) {
           }
 #pragma unroll
           for (int jj = 0; jj < JPT; ++jj)
-            acc[0][jj] = fmaf(dg, V[yt * CW + yj + jj], acc[0][jj]);
+            acc[0][jj] = fmaf(dg, to_f32(V[yt * CW + yj + jj]), acc[0][jj]);
 #pragma unroll
           for (int s = 0; s < L - 1; ++s) {
             if (s < yt) {
               const float a = A[yt * AS + s];
 #pragma unroll
               for (int jj = 0; jj < JPT; ++jj)
-                acc[(s + 1) & 3][jj] = fmaf(a, V[s * CW + yj + jj], acc[(s + 1) & 3][jj]);
+                acc[(s + 1) & 3][jj] = fmaf(a, to_f32(V[s * CW + yj + jj]), acc[(s + 1) & 3][jj]);
             }
           }
           float* yrow = p.y + base + static_cast<long long>(c * L + yt) * row + j0 + yj;
@@ -402,12 +479,10 @@ __global__ void __launch_bounds__(THREADS) rwkv6_chunk_kernel(const Params p) {
         for (int s = 0; s < L; ++s) {
           if (s < steps) {
             const float x = kb[s * RS + si];
-            const float4 v0 = *reinterpret_cast<const float4*>(V + s * CW + sj);
-            const float4 v1 = *reinterpret_cast<const float4*>(V + s * CW + sj + 4);
-            st[0] = fmaf(x, v0.x, st[0]); st[1] = fmaf(x, v0.y, st[1]);
-            st[2] = fmaf(x, v0.z, st[2]); st[3] = fmaf(x, v0.w, st[3]);
-            st[4] = fmaf(x, v1.x, st[4]); st[5] = fmaf(x, v1.y, st[5]);
-            st[6] = fmaf(x, v1.z, st[6]); st[7] = fmaf(x, v1.w, st[7]);
+            float vs[8];
+            lds(vs, V + s * CW + sj);
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) st[jj] = fmaf(x, vs[jj], st[jj]);
           }
         }
         float* Sn = St + ((c + 1) & 1) * NMAX * CW + si * CW + sj;
@@ -436,7 +511,8 @@ __global__ void __launch_bounds__(THREADS) rwkv6_chunk_kernel(const Params p) {
 // whole cost.
 constexpr int STEP_THREADS = 2 * NMAX;  // two lanes per state row
 
-__global__ void __launch_bounds__(STEP_THREADS) rwkv6_step_kernel(const Params p) {
+template <typename TI>
+__global__ void __launch_bounds__(STEP_THREADS) rwkv6_step_kernel(const Params<TI> p) {
   __shared__ float ypart[STEP_THREADS / 32][CW];
   const int ncb = (p.n + CW - 1) / CW;
   const int bh = blockIdx.x / ncb, cb = blockIdx.x % ncb;
@@ -458,14 +534,14 @@ __global__ void __launch_bounds__(STEP_THREADS) rwkv6_step_kernel(const Params p
 
   for (int t = 0; t < p.S; ++t) {
     const long long o = base + static_cast<long long>(t) * row;
-    const float ri = row_ok ? p.r[o + si] : 0.f;
-    const float ki = row_ok ? p.k[o + si] : 0.f;
+    const float ri = row_ok ? to_f32(p.r[o + si]) : 0.f;
+    const float ki = row_ok ? to_f32(p.k[o + si]) : 0.f;
     const float wi = row_ok ? p.w[o + si] : 0.f;
     float part[8];
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
       const int j = j0 + sj + jj;
-      const float vj = j < n ? p.v[o + j] : 0.f;
+      const float vj = j < n ? to_f32(p.v[o + j]) : 0.f;
       const float kv = ki * vj;
       part[jj] = ri * fmaf(ui, kv, st[jj]);
       st[jj] = fmaf(wi, st[jj], kv);
@@ -493,23 +569,26 @@ __global__ void __launch_bounds__(STEP_THREADS) rwkv6_step_kernel(const Params p
     if (col_ok[jj]) p.sf[sbase + jj] = st[jj];
 }
 
-int launch_steps(const Params& p, cudaStream_t s) {
+template <typename TI>
+int launch_steps(const Params<TI>& p, cudaStream_t s) {
   const int ncb = (p.n + CW - 1) / CW;
-  rwkv6_step_kernel<<<p.B * p.H * ncb, STEP_THREADS, 0, s>>>(p);
+  rwkv6_step_kernel<TI><<<p.B * p.H * ncb, STEP_THREADS, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_chunks(const Params& p, cudaStream_t s) {
-  constexpr int bytes = smem_bytes();
-  static bool configured = false;       // the attribute is set once
+template <typename TI>
+int launch_chunks(const Params<TI>& p, cudaStream_t s) {
+  constexpr int bytes = smem_bytes<TI>();
+  static_assert(bytes <= 232448, "shared memory of one block");
+  static bool configured = false;       // the attribute is set once per type
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        rwkv6_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        rwkv6_chunk_kernel<TI>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const int ncb = (p.n + CW - 1) / CW;
-  rwkv6_chunk_kernel<<<p.B * p.H * ncb, THREADS, bytes, s>>>(p);
+  rwkv6_chunk_kernel<TI><<<p.B * p.H * ncb, THREADS, bytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -517,28 +596,45 @@ bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
 }
 
-}  // namespace
-
-extern "C" int repro_rwkv6_scan(
-    const void* r, const void* k, const void* v, const void* w,
-    const void* u, const void* s0, void* y, void* sf,
-    int B, int S, int H, int n, int chunk, void* stream) {
-  if (n < 1 || n > NMAX || S < 1) return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  p.r = static_cast<const float*>(r);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
+template <typename TI>
+int run(const void* r, const void* k, const void* v, const void* w,
+        const void* u, const void* s0, void* y, void* sf,
+        int B, int S, int H, int n, int chunk, cudaStream_t s) {
+  Params<TI> p;
+  p.r = static_cast<const TI*>(r);
+  p.k = static_cast<const TI*>(k);
+  p.v = static_cast<const TI*>(v);
   p.w = static_cast<const float*>(w);
   p.u = static_cast<const float*>(u);
   p.s0 = static_cast<const float*>(s0);
   p.y = static_cast<float*>(y);
   p.sf = static_cast<float*>(sf);
   p.B = B; p.S = S; p.H = H; p.n = n;
-  p.vec = n % 4 == 0 && aligned16(r) && aligned16(k) && aligned16(v) && aligned16(w);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 16-byte copies: rows of r, k, v (16 / sizeof(TI) elements) and of w
+  // (4 floats) on 16-byte boundaries
+  p.vec = n % static_cast<int>(16 / sizeof(TI)) == 0 && n % 4 == 0 && aligned16(r) &&
+          aligned16(k) && aligned16(v) && aligned16(w);
   switch (chunk) {
     case 1: return launch_steps(p, s);
     case L: return launch_chunks(p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// dtype of r, k and v: 0 float32, 1 bfloat16, 2 float16 (w, u, s0, y
+// and the final state are float32 whatever it is)
+extern "C" int repro_rwkv6_scan(
+    const void* r, const void* k, const void* v, const void* w,
+    const void* u, const void* s0, void* y, void* sf,
+    int B, int S, int H, int n, int chunk, int dtype, void* stream) {
+  if (n < 1 || n > NMAX || S < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return run<float>(r, k, v, w, u, s0, y, sf, B, S, H, n, chunk, s);
+    case 1: return run<__nv_bfloat16>(r, k, v, w, u, s0, y, sf, B, S, H, n, chunk, s);
+    case 2: return run<__half>(r, k, v, w, u, s0, y, sf, B, S, H, n, chunk, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -6,11 +6,12 @@ PyTorch version.
 ``kv_lengths`` key padding, ``segment_ids`` (the packed ragged layout),
 causal with ``q_offset = Sk - Sq``, a sliding ``window`` and GQA, with
 q, k and v in float32, bfloat16 or float16: like the Pallas body, it
-computes in float32 and returns q's dtype. On a
-CUDA tensor it launches ``csrc/flash_attention.cu`` (built with ``nvcc``
-for ``sm_90a`` at first use) or raises; on a CPU tensor it computes the
-same function with ``flash_attention_plain``. Nothing falls back from
-one to the other.
+sums in float32 and returns q's dtype. On a CUDA tensor it launches
+``csrc/flash_attention.cu`` (built with ``nvcc`` for ``sm_90a`` at first
+use) or raises: float32 on the FMA units, bf16 and fp16 on the tensor
+cores with float32 accumulators. On a CPU tensor it computes the same
+function with ``flash_attention_plain``. Nothing falls back from one to
+the other.
 
 ``flash_attention.launches`` counts kernel launches, so a run can show
 that its attention went through the kernel; ``flash_attention.calls``
@@ -36,20 +37,31 @@ HEAD_PADS = (32, 64, 128)
 SMALL_GRID_WAVES = 4
 # the input types the kernel loads (q, k and v alike), by its dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# bf16 and fp16 run on the tensor-core kernel: 16 query rows a warp, 64
+# rows on 4 warps
+HALF_BLOCK_Q = (64,)
 
 
-def plan_tiles(B, Sq, Sk, H, D):
+def plan_tiles(B, Sq, Sk, H, D, dtype=torch.float32):
     """``(block_q, head_pad)`` for the CUDA kernel: the head dim padded to
-    the next of ``HEAD_PADS``, and the query rows a block. While a grid of
-    16-row blocks is at most ``SMALL_GRID_WAVES`` waves of the card (the
-    per-event encodes, the packed ragged buffer), 16 rows: the most
-    blocks, each with the shortest chain. Above that, the largest block
-    that Sq fills, so each staged K/V tile serves the most queries: 128
-    rows on 8 warps (head dims up to 64), else 64. Sk does not enter:
-    every plan walks the keys in 64-key tiles."""
+    the next of ``HEAD_PADS``, and the query rows a block.
+
+    float32 (the FMA kernel): while a grid of 16-row blocks is at most
+    ``SMALL_GRID_WAVES`` waves of the card (the per-event encodes, the
+    packed ragged buffer), 16 rows: the most blocks, each with the
+    shortest chain. Above that, the largest block that Sq fills, so each
+    staged K/V tile serves the most queries: 128 rows on 8 warps (head
+    dims up to 64), else 64.
+
+    bf16 and fp16 (the tensor-core kernel, ``HALF_BLOCK_Q``): 64 rows on
+    4 warps, 16 a warp, at every shape.
+
+    Sk does not enter: every plan walks the keys in 64-key tiles."""
     head_pad = next((p for p in HEAD_PADS if D <= p), None)
     if head_pad is None:
         raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}")
+    if dtype != torch.float32:
+        return HALF_BLOCK_Q[0], head_pad
     if B * H * -(-Sq // 16) <= SMALL_GRID_WAVES * build.SMS:
         return 16, head_pad
     for block_q in (128, 64):
@@ -126,10 +138,12 @@ def _launch(q, k, v, *, causal, window, scale, kv_lengths, segment_ids,
         raise ValueError("q, k and v must be on one device")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v need a unit stride on the head dim")
-    planned, head_pad = plan_tiles(B, Sq, Sk, H, max(D, Dv))
+    planned, head_pad = plan_tiles(B, Sq, Sk, H, max(D, Dv), q.dtype)
     block_q = block_q or planned           # another plan only to compare them
-    if block_q not in BLOCK_Q:
-        raise ValueError(f"block_q={block_q} not in {BLOCK_Q}")
+    allowed = BLOCK_Q if q.dtype == torch.float32 else HALF_BLOCK_Q
+    if block_q not in allowed:
+        raise ValueError(f"block_q={block_q} not in {allowed} for "
+                         f"{q.dtype}")
     if -(-Sq // block_q) > 65535:
         raise ValueError(f"Sq={Sq} exceeds the kernel's grid")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
@@ -180,8 +194,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
 
     CUDA tensors launch the kernel (float32, bfloat16 or float16, the
     three alike; head dims up to 128); CPU tensors take
-    ``flash_attention_plain``. Either way the arithmetic is float32 and
-    the output has q's dtype.
+    ``flash_attention_plain``. Either way the softmax and the sums are
+    float32 and the output has q's dtype.
 
     The kernel has no backward (nor has the Pallas kernel it ports), so a
     call under grad mode with any of q, k, v requiring grad raises, on

@@ -12,12 +12,18 @@ _wkv_scan`` compute. Per (batch, head), with the (n, n) state S:
 starting from ``s0`` (zeros when absent). Returns ``(y, final_state)``,
 the kernel's order (``_wkv_scan`` returns ``(state, y)``).
 
-On a CUDA tensor it launches ``csrc/rwkv6.cu`` (float32, head dim
-n <= 64; built with ``nvcc`` for ``sm_90a`` at first use) once per call,
-split over the state's value columns and chunked over time as
-``plan_chunks`` says, or raises; on a CPU tensor it computes
-``rwkv6_scan_plain``. Nothing falls back from one to the other.
-``rwkv6_scan.launches`` counts kernel launches.
+r, k and v may be float32, bfloat16 or float16 (the three alike), as the
+Pallas body casts them as it loads them; w, u and s0 are float32, and y
+and the final state come out float32 whatever r/k/v's type. The
+conversion is exact, so a half-type call equals the float32 call on the
+up-cast inputs bit for bit.
+
+On a CUDA tensor it launches ``csrc/rwkv6.cu`` (head dim n <= 64; built
+with ``nvcc`` for ``sm_90a`` at first use) once per call, split over the
+state's value columns and chunked over time as ``plan_chunks`` says, or
+raises; on a CPU tensor it computes ``rwkv6_scan_plain``. Nothing falls
+back from one to the other. ``rwkv6_scan.launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -30,6 +36,9 @@ MAX_HEAD_DIM = 64
 # compiles (1: one step at a time)
 COLS_PER_BLOCK = 16
 CHUNKS = (1, 16)
+# the types r, k and v may come in (the three alike), by the kernel's
+# dtype code; w, u and s0 are float32
+RKV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def plan_chunks(B, S, H, n):
@@ -47,7 +56,8 @@ def plan_chunks(B, S, H, n):
 
 def rwkv6_scan_plain(r, k, v, w, u, s0=None):
     """r/k/v/w: (B, S, H, n); u: (H, n); s0: (B, H, n, n) or None. The
-    sequential recurrence in float32, step by step as the oracle's scan.
+    sequential recurrence in float32 (every input up-cast, exactly), step
+    by step as the oracle's scan.
     Returns (y (B, S, H, n), final_state (B, H, n, n)), float32."""
     B, S, H, n = r.shape
     r, k, v, w, u = (a.float() for a in (r, k, v, w, u))
@@ -67,7 +77,7 @@ def _kernel_fn():
     fn = build.library("rwkv6").repro_rwkv6_scan
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 5 + [p]
+        fn.argtypes = [p] * 8 + [i] * 6 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -80,8 +90,10 @@ def _launch(r, k, v, w, u, s0, chunk=None):
     if S < 1 or B * H == 0:
         raise ValueError(f"empty scan: B={B}, S={S}, H={H}")
     args = (r, k, v, w, u) + ((s0,) if s0 is not None else ())
-    if any(a.dtype != torch.float32 for a in args):
-        raise TypeError("the CUDA RWKV6 kernel takes float32 r/k/v/w/u/s0, "
+    if not (r.dtype == k.dtype == v.dtype and r.dtype in RKV_DTYPES) or any(
+            a.dtype != torch.float32 for a in args[3:]):
+        raise TypeError("the CUDA RWKV6 kernel takes r/k/v of one dtype, "
+                        "float32, bfloat16 or float16, and float32 w/u/s0; "
                         f"got {[a.dtype for a in args]}")
     if any(a.device != r.device for a in args):
         raise ValueError("r, k, v, w, u and s0 must be on one device")
@@ -97,7 +109,7 @@ def _launch(r, k, v, w, u, s0, chunk=None):
     err = _kernel_fn()(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         s0.data_ptr() if s0 is not None else None, y.data_ptr(),
-        sf.data_ptr(), B, S, H, n, chunk, stream)
+        sf.data_ptr(), B, S, H, n, chunk, RKV_DTYPES[r.dtype], stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error {err}")
     rwkv6_scan.launches += 1
@@ -105,7 +117,8 @@ def _launch(r, k, v, w, u, s0, chunk=None):
 
 
 def rwkv6_scan(r, k, v, w, u, s0=None):
-    """r/k/v/w: (B, S, H, n); u: (H, n); s0: (B, H, n, n) or None.
+    """r/k/v/w: (B, S, H, n); u: (H, n); s0: (B, H, n, n) or None; r, k
+    and v float32, bfloat16 or float16, w, u and s0 float32.
     Returns (y (B, S, H, n) float32, final_state (B, H, n, n) float32).
     CUDA tensors launch the kernel; CPU tensors take ``rwkv6_scan_plain``."""
     B, S, H, n = r.shape

@@ -13,7 +13,9 @@ computed in float32 and cast back to the weight dtype before each
 product; ``w0``, ``u`` and ``ln_x`` are float32 leaves even in a bf16
 model; the decay is computed in float32; ``ln_x`` is a population-
 variance layernorm over each head's lanes; ``y * g`` is computed in
-float32, cast, then goes through ``wo``.
+float32, cast, then goes through ``wo``. r, k and v reach the scan in
+the weight dtype: its kernel up-casts them exactly as it loads them,
+where the reference casts them first, so no cast kernel runs per layer.
 """
 from __future__ import annotations
 
@@ -71,7 +73,9 @@ def _tmix_projections(p, x, x_prev, cfg):
 
 
 def _wkv_scan(r, k, v, w, u, S0):
-    """The recurrence. r/k/v/w: (B, S, H, n) float32; u: (H, n); S0:
+    """The recurrence. r/k/v: (B, S, H, n) in the model's dtype (the
+    kernel up-casts them exactly as it loads them, as the reference's
+    ``astype(float32)`` does); w: (B, S, H, n) float32; u: (H, n); S0:
     (B, H, n, n) or None (zeros). Returns (state, y), the reference's
     order; the kernel's wrapper returns (y, state)."""
     y, state = kops.rwkv6_scan(r, k, v, w, u, S0)
@@ -85,8 +89,8 @@ def rwkv6_tmix(p, x, cfg, *, state=None, x_prev=None):
         x_prev = torch.zeros((B, 1, d), dtype=x.dtype, device=x.device)
     shifted = torch.cat([x_prev, x[:, :-1, :]], dim=1)
     r, k, v, w, g = _tmix_projections(p, x, shifted, cfg)
-    state, y = _wkv_scan(r.float(), k.float(), v.float(), w.float(), p["u"],
-                         state)
+    state, y = _wkv_scan(r.contiguous(), k.contiguous(), v.contiguous(), w,
+                         p["u"], state)
     y = L.layernorm(p["ln_x"], y)                               # per-head norm
     y = (y * g.float()).reshape(B, S, d).to(x.dtype)
     out = y @ p["wo"]

@@ -7,6 +7,8 @@ the plain PyTorch version. atol 2e-5 is tests/test_kernels.py's float32
 tolerance. The CUDA kernel itself runs only on a card (chip_smoke.py and
 the card test at the end).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -338,3 +340,112 @@ def test_source_note_names_kernel_bound_and_design(source, replaces):
     assert replaces in note
     assert "What bounds it on this card" in note
     assert "What the design does about that" in note
+
+
+@pytest.mark.parametrize("shape, dtype, plan", [
+    ((1, 512, 512, 32, 128), torch.bfloat16, (64, 128)),  # Mistral prefill
+    ((1, 512, 512, 16, 128), torch.bfloat16, (64, 128)),  # OLMoE prefill
+    ((1, 512, 512, 16, 128), torch.float16, (64, 128)),
+    ((2, 64, 64, 12, 26), torch.bfloat16, (64, 32)),      # D=26 views
+    ((8, 2048, 2048, 32, 128), torch.bfloat16, (64, 128)),  # many waves
+])
+def test_half_plan_at_llm_shapes(shape, dtype, plan):
+    """bf16 and fp16 take the tensor-core kernel's plan, 64 rows on 4
+    warps at every shape; the float32 plan of the same shape is its own."""
+    assert FA.plan_tiles(*shape, dtype=dtype) == plan
+    assert plan[0] in FA.HALF_BLOCK_Q
+    assert FA.plan_tiles(*shape) == FA.plan_tiles(*shape, dtype=torch.float32)
+
+
+def test_cuda_launch_refuses_float32_plans_for_half_types():
+    """A bf16 call takes only the tensor-core kernel's row counts, before
+    any build or launch; float32 keeps its own."""
+    q = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="block_q=16"):
+        FA._launch(q, q, q, causal=False, window=0, scale=1.0,
+                   kv_lengths=None, segment_ids=None, block_q=16)
+
+
+def _mma_emulation(q, k, v, *, causal=True, window=0, kv_lengths=None,
+                   split=True, block_k=64):
+    """The tensor-core kernel's rounding points in torch: q, k, v in their
+    half type (exact in float32), S in float32 over 64-key tiles, the
+    online softmax in float32, P rounded to the input type as P_hi + P_lo
+    (or once, ``split=False``), P V summed in float32, the output rounded
+    to the input type once."""
+    dtype = q.dtype
+    B, Sq, H, D = q.shape
+    _, Sk, KV, Dv = v.shape
+    G = H // KV
+    qf = q.float().reshape(B, Sq, KV, G, D)
+    kf, vf = k.float(), v.float()
+    mask = FA.attention_mask(B, Sq, Sk, causal=causal, window=window,
+                             kv_lengths=kv_lengths)[:, None, None]
+    m = torch.full((B, KV, G, Sq), FA.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KV, G, Sq, Dv))
+    for t0 in range(0, Sk, block_k):
+        mk = mask[..., t0:t0 + block_k]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf[:, t0:t0 + block_k])
+        s = torch.where(mk, s / math.sqrt(D), torch.tensor(FA.NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(mk, torch.exp(s - m_new[..., None]), torch.tensor(0.0))
+        l = l * corr + p.sum(-1)
+        p_hi = p.to(dtype).float()
+        parts = [p_hi, (p - p_hi).to(dtype).float()] if split else [p_hi]
+        pv = sum(torch.einsum("bhgqk,bkhd->bhgqd", x, vf[:, t0:t0 + block_k])
+                 for x in parts)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("case", ["causal_gqa_d128", "window", "lengths"])
+def test_mma_rounding_points_match_pallas(case, dtype):
+    """The CUDA half-type kernel's arithmetic, emulated in torch, within
+    one step of its type at the output's scale of the Pallas kernel in
+    interpret mode on the same inputs: causal GQA at D=128 (Sk past one
+    64-key tile), a window, and kv_lengths with a zero-length row, which
+    stays exactly 0."""
+    kw = {"causal_gqa_d128": dict(shape=(1, 80, 80, 4, 2, 128), causal=True),
+          "window": dict(shape=(1, 96, 96, 4, 1, 64), causal=True, window=24),
+          "lengths": dict(shape=(3, 40, 72, 2, 2, 128), causal=False,
+                          kv_lengths=np.array([72, 17, 0], np.int32))}[case]
+    shape = kw.pop("shape")
+    q, k, v = _qkv(20, *shape)
+    jkw = {k_: (jnp.asarray(a) if isinstance(a, np.ndarray) else a)
+           for k_, a in kw.items()}
+    want = fa_jax(*(jnp.asarray(a, dtype) for a in (q, k, v)), block_q=8,
+                  block_k=8, interpret=True, **jkw)
+    want = np.asarray(want, np.float32)
+    tkw = {k_: (torch.from_numpy(a) if isinstance(a, np.ndarray) else a)
+           for k_, a in kw.items()}
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in (q, k, v))
+    got = _mma_emulation(tq, tk, tv, **tkw)
+    assert got.dtype == getattr(torch, dtype)
+    diff = np.abs(got.float().numpy() - want).max()
+    assert diff <= _step(want, dtype), diff
+    if case == "lengths":
+        assert float(got[2].float().abs().max()) == 0.0
+
+
+def test_p_split_keeps_mistral_prefill_inside_one_step():
+    """Why the kernel splits P: at Mistral's prefill shape (S=512, H=32,
+    KV=8, D=128, causal, seed 9) rounding P once to bf16 puts the output a
+    whole bf16 step of its scale from the float32 result, the tolerance
+    itself; P_hi + P_lo leaves a quarter of a step."""
+    g = torch.Generator().manual_seed(9)
+    q = torch.randn((1, 512, 32, 128), generator=g).bfloat16()
+    k = torch.randn((1, 512, 8, 128), generator=g).bfloat16()
+    v = torch.randn((1, 512, 8, 128), generator=g).bfloat16()
+    exact = FA.flash_attention_plain(q.float(), k.float(), v.float())
+    step = _step(exact.bfloat16().float().numpy(), "bfloat16")
+    rounded = exact.bfloat16().float()
+    steps = {split: float((_mma_emulation(q, k, v, split=split).float()
+                           - rounded).abs().max()) / step
+             for split in (False, True)}
+    assert steps[True] <= 0.25 < 0.75 <= steps[False] <= 1.0, steps

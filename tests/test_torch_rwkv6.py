@@ -265,3 +265,64 @@ def test_launch_refuses_a_chunk_the_kernel_does_not_compile():
     r, k, v, w, u = map(torch.from_numpy, _inputs(9, 1, 3, 2, 16))
     with pytest.raises(ValueError, match="chunk=8"):
         RW._launch(r, k, v, w, u, None, chunk=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(1, 40, 2, 64), (2, 1, 3, 64),
+                                   (1, 19, 2, 20)])
+def test_half_rkv_equal_float32_on_up_cast_inputs(shape, dtype):
+    """r, k and v in bf16 or fp16 with float32 w, u and s0 (as the bf16
+    model passes them): y and the state float32, bit-equal to the float32
+    call on the up-cast inputs, and within the file's 1e-4 of the Pallas
+    kernel in interpret mode on the same half-type inputs."""
+    r, k, v, w, u, s0 = _inputs(30 + shape[1], *shape, s0=True)
+    half = [torch.from_numpy(a).to(dtype) for a in (r, k, v)]
+    rest = [torch.from_numpy(a) for a in (w, u, s0)]
+    y, s = ops.rwkv6_scan(*half, *rest)
+    y32, s32 = ops.rwkv6_scan(*(a.float() for a in half), *rest)
+    assert y.dtype == s.dtype == torch.float32
+    assert torch.equal(y, y32) and torch.equal(s, s32)
+    jdt = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}[dtype]
+    yk, sk = rwkv_jax(*(jnp.asarray(a, jdt) for a in (r, k, v)),
+                      *(jnp.asarray(a) for a in (w, u, s0)), block_t=16,
+                      interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yk), atol=ATOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(sk), atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_launch_takes_half_rkv_and_refuses_mixed(dtype):
+    """bf16/fp16 r/k/v with float32 w/u/s0 pass the dtype check (the chunk
+    check after it is what refuses chunk=8 here); r/k/v of mixed types, or
+    a half-type w, u or s0, are refused with a TypeError naming float32,
+    all before any build or launch."""
+    r, k, v, w, u, s0 = map(torch.from_numpy, _inputs(10, 1, 3, 2, 16,
+                                                      s0=True))
+    rh, kh, vh = (a.to(dtype) for a in (r, k, v))
+    for s in (None, s0):
+        with pytest.raises(ValueError, match="chunk=8"):
+            RW._launch(rh, kh, vh, w, u, s, chunk=8)
+    other = torch.float16 if dtype == torch.bfloat16 else torch.bfloat16
+    bad = [(rh, kh.to(other), vh, w, u, s0), (rh, kh, v, w, u, s0),
+           (rh, kh, vh, w.to(dtype), u, s0), (rh, kh, vh, w, u.to(dtype), s0),
+           (rh, kh, vh, w, u, s0.to(dtype))]
+    for args in bad:
+        with pytest.raises(TypeError, match="float32"):
+            RW._launch(*args, chunk=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_kernel_equals_float32_launch_on_card(dtype):
+    """Runs only where a CUDA card is present: bf16/fp16 r/k/v bit-equal
+    to the float32 launch on the up-cast inputs at every chunk length."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    r, k, v, w, u, s0 = (torch.from_numpy(a).to(dev)
+                         for a in _inputs(11, 1, 45, 4, 64, s0=True))
+    half = [a.to(dtype) for a in (r, k, v)]
+    for chunk in RW.CHUNKS:
+        y, s = RW._launch(*half, w, u, s0, chunk=chunk)
+        y32, s32 = RW._launch(*(a.float() for a in half), w, u, s0,
+                              chunk=chunk)
+        assert torch.equal(y, y32) and torch.equal(s, s32)
