@@ -1075,18 +1075,18 @@ def phase_bertbase():
 
 # ------------------------------------------------------------------ int8
 
-def int8_bound(kind, M, K, N=0):
+def int8_bound(kind, M, K, N=0, *, in_bytes=4):
     """Least time the card could take: each input read once and each
     output written once over HBM bandwidth, against the operations these
     inputs need over the peak rate of their unit — 2 M K N int8 operations
     on the tensor cores for the GEMM; for quantize 4 float32 operations an
-    element (abs-max, divide, round, clamp) and for dequantize one
-    multiply, on the float32 units."""
+    element (abs-max, divide, round, clamp) on ``in_bytes`` an input
+    element, and for dequantize one multiply, on the float32 units."""
     if kind == "gemm":
         nbytes = M * K + K * N + 4 * M + 4 * N + 4 * M * N
         ops, rate = 2 * M * K * N, INT8_OP_PER_S
     elif kind == "quantize":
-        nbytes = 4 * M * K + M * K + 4 * M
+        nbytes = in_bytes * M * K + M * K + 4 * M
         ops, rate = 4 * M * K, FP32_FLOP_PER_S
     else:
         nbytes = M * K + 4 * M + 4 * M * K
@@ -1113,7 +1113,7 @@ def _bit_equal(name, got, want):
 
 
 def int8_case(name, kernel, fn, plain, *, bound_args, library=None,
-              plan=None):
+              plan=None, in_bytes=4):
     """One kernel call on the card against its plain version: bit-equal
     (max_abs_err is 0 then), exactly one launch counted; then times."""
     before = kernel.launches
@@ -1122,7 +1122,7 @@ def int8_case(name, kernel, fn, plain, *, bound_args, library=None,
     check(kernel.launches == before + 1,
           f"{name}: launches {kernel.launches} != {before + 1}")
     err = _bit_equal(name, got, plain())
-    b_ms, b_by, ops, nbytes = int8_bound(*bound_args)
+    b_ms, b_by, ops, nbytes = int8_bound(*bound_args, in_bytes=in_bytes)
     row = dict(name=name, kernel=kernel.__name__, shape=bound_args[1:],
                max_abs_err=err, ms=device_ms(fn), plain_ms=device_ms(plain),
                library_ms=device_ms(library) if library is not None else None,
@@ -1152,11 +1152,12 @@ def phase_int8():
     def quant(name, x):
         M, K = x.shape
         plan = Q.plan_quantize(M, K, x.stride(0), x.stride(1),
-                               Q._aligned16(x))
+                               Q._aligned(x))
         rows[name] = int8_case(name, Q.quantize_rowwise,
                                lambda: Q.quantize_rowwise(x),
                                lambda: Q.quantize_rowwise_plain(x),
-                               bound_args=("quantize", M, K), plan=plan)
+                               bound_args=("quantize", M, K), plan=plan,
+                               in_bytes=x.element_size())
 
     # activations of one int8 text layer, vitals, scene; packed features
     for M, K in ((64, 312), (64, 1200), (30, 6), (1, 3), (1, 312), (1, 64),
@@ -1190,6 +1191,25 @@ def phase_int8():
     quant("quantize_zero_rows_and_ties_6x1200", wide.to(dev))
     quant("quantize_colwise_zero_cols_and_ties_1200x6", wide.T.contiguous()
           .to(dev).T)
+    # bf16 and fp16 x (the Pallas body casts any x to float32 first), in
+    # every form: bit-equal to the float32 launch on the up-cast rows
+    for dt in (torch.bfloat16, torch.float16):
+        tag = str(dt).split(".")[-1]
+        for name, shape, view in (
+                ("64x312", (64, 312), lambda a: a),
+                ("offset_64x312", (64, 313), lambda a: a[:, 1:]),
+                ("colwise_312x936", (312, 936), lambda a: a.T),
+                ("8x4100", (8, 4100), lambda a: a),
+                ("strided_40x100", (40, 200), lambda a: a[:, ::2]),
+                ("zero_rows_and_ties_6x1200", None, lambda a: a)):
+            x = view((randn(*shape) if shape else wide.to(dev)).to(dt))
+            key = f"quantize_{tag}_{name}"
+            quant(key, x)
+            got, up = Q.quantize_rowwise(x), Q.quantize_rowwise(x.float())
+            same = all(torch.equal(a, b) for a, b in zip(got, up))
+            check(same, f"{key}: not bit-equal to the float32 launch on "
+                  "the up-cast rows")
+            rows[key].update(dtype=tag, bit_equal_to_float32=same)
     q, s = Q.quantize_rowwise(wide.to(dev))
     check(q[1, :8].tolist() == [127, 0, 2, 2, 0, -2, 126, -4]
           and q[3, :8].tolist() == [-127, 0, -2, -2, 0, 2, -126, 4]
@@ -2723,27 +2743,64 @@ def phase_rwkv_kernel():
 # -------------------------------------------------------------------- llm
 
 LLM_ARCHS = ("mistral-nemo-12b", "rwkv6-1.6b", "olmoe-1b-7b",
-             "codeqwen1.5-7b", "nemotron-4-15b", "qwen1.5-32b")
+             "codeqwen1.5-7b", "nemotron-4-15b", "qwen1.5-32b",
+             "jamba-v0.1-52b", "deepseek-v3-671b")
 LLM_LOGIT_TOL = 1e-4    # reduced float32 models, card vs CPU
+# reduced Jamba, card vs CPU: 16 layers, 14 of them selective scans, its
+# residual stream growing through them, and the two devices' float32
+# orders drifting apart layer by layer (1.09e-4 over the mix on the H100,
+# where every 2- and 4-layer model stays under 8e-6); the whole-model
+# tolerance of tests/test_archs_smoke.py, as the CPU parity test holds
+# this model to (tests/test_torch_llm.py::WHOLE_MODEL_ATOL)
+LLM_DEEP_LOGIT_TOL = {"jamba-v0.1-52b": 5e-4}
 # served at full width with the whole mix (eager server, profiler, kernel
 # inputs captured); the other archs with the trimmed one (llm_dense)
 LLM_FULL_MIX = ("mistral-nemo-12b", "rwkv6-1.6b", "olmoe-1b-7b")
 # prefill(kernel="pallas") held against "jnp" at full width
-LLM_PALLAS_PREFILL = ("mistral-nemo-12b", "olmoe-1b-7b")
+LLM_PALLAS_PREFILL = ("mistral-nemo-12b", "olmoe-1b-7b", "jamba-v0.1-52b")
+# full width, cut in depth to fit one 80 GB card in bf16: the periods
+# each group keeps (Jamba: 2 of its 4 8-layer periods, 16 layers; DeepSeek:
+# its 3 dense layers and 2 of its 58 MoE layers) and whether the MTP head
+# stays (serving never reads it; it is one more MoE layer, ~23 GB)
+LLM_DEPTH_CUTS = {"jamba-v0.1-52b": dict(counts=(2,)),
+                  "deepseek-v3-671b": dict(counts=(3, 2), mtp=False)}
+# the plain PyTorch pieces of a family without a Pallas kernel, timed
+# inside a prefill and a decode step: (module, function) pairs
+LLM_PLAIN_PARTS = {
+    "jamba-v0.1-52b": (("models.ssm", "_ssm_scan"),
+                       ("models.ssm", "mamba_forward"),
+                       ("models.ssm", "mamba_decode")),
+    "deepseek-v3-671b": (("models.attention", "mla_forward"),
+                         ("models.attention", "mla_decode"))}
 
 
-def has_attention(cfg):
-    return any(s.mixer == "attn" for specs, _ in cfg.groups for s in specs)
+def n_mixer(cfg, mixer):
+    """The layers of ``cfg`` whose mixer is ``mixer``."""
+    return sum(count * sum(s.mixer == mixer for s in specs)
+               for specs, count in cfg.groups)
 
 
 def want_launches(cfg, calls):
     """(decode_attention, rwkv6_scan) launches a server's calls imply:
-    decode attention once a layer a decode step on an attention arch, the
-    scan once a layer a prefill or a decode step on RWKV6."""
-    L = cfg.n_layers
-    if has_attention(cfg):
-        return [L * calls["decode"], 0]
-    return [0, L * (calls["prefill"] + calls["decode"])]
+    decode attention once a plain attention layer a decode step (none
+    for MLA, whose absorbed decode is no Pallas kernel in the reference
+    either), the scan once an RWKV6 layer a prefill or a decode step."""
+    return [n_mixer(cfg, "attn") * calls["decode"],
+            n_mixer(cfg, "rwkv6") * (calls["prefill"] + calls["decode"])]
+
+
+def depth_cut(cfg):
+    """``cfg`` cut in depth as LLM_DEPTH_CUTS says (``cfg`` itself where
+    it says nothing): the same widths, fewer periods."""
+    import dataclasses
+    cut = LLM_DEPTH_CUTS.get(cfg.name)
+    if cut is None:
+        return cfg
+    groups = tuple((specs, n) for (specs, _), n in zip(cfg.groups,
+                                                       cut["counts"]))
+    return dataclasses.replace(
+        cfg, groups=groups, n_layers=sum(len(s) * n for s, n in groups),
+        mtp=cut.get("mtp", cfg.mtp))
 
 
 def llm_counters():
@@ -2753,9 +2810,11 @@ def llm_counters():
 
 
 def two_layers(cfg):
+    """Each group's period stacked twice."""
     import dataclasses
-    return dataclasses.replace(cfg, groups=((cfg.groups[0][0], 2),),
-                               n_layers=2)
+    groups = tuple((specs, 2) for specs, _ in cfg.groups)
+    return dataclasses.replace(cfg, groups=groups,
+                               n_layers=sum(2 * len(s) for s, _ in groups))
 
 
 class Recorder:
@@ -2828,7 +2887,9 @@ def llm_reduced(arch):
     caps = captures([step])
     cpu = LLMServer(cfg, cpu_params, cache_len=96, device="cpu")
     cpu_rec = Recorder(cpu, keep=True)
+    calls0 = [k.calls for k in llm_counters()]
     cpu_res = llm_mix(cpu, Request)
+    cpu_calls = [k.calls - c for k, c in zip(llm_counters(), calls0)]
     check(srv.stats == cpu.stats, f"{arch}: stats {srv.stats} != CPU "
           f"{cpu.stats}")
     check(all(np.array_equal(a.tokens, b.tokens) for a, b in zip(res, cpu_res)),
@@ -2836,8 +2897,8 @@ def llm_reduced(arch):
     check(len(rec.logits) == len(cpu_rec.logits), f"{arch}: call counts differ")
     diff = max(float((a - b).abs().max())
                for a, b in zip(rec.logits, cpu_rec.logits))
-    check(diff <= LLM_LOGIT_TOL, f"{arch}: card vs CPU logits {diff} > "
-          f"{LLM_LOGIT_TOL}")
+    tol = LLM_DEEP_LOGIT_TOL.get(arch, LLM_LOGIT_TOL)
+    check(diff <= tol, f"{arch}: card vs CPU logits {diff} > {tol}")
     cold = LLMServer(cfg, params, cache_len=96, device="cuda",
                      enable_prefix_cache=False)
     cold_res = llm_mix(cold, Request)
@@ -2845,7 +2906,8 @@ def llm_reduced(arch):
               for a, b in zip(res[1:], cold_res[1:])),
           f"{arch}: prefix-hit tokens differ from a cold server's")
     want = want_launches(cfg, rec.calls)
-    check(launches == want, f"{arch}: launches {launches} != {want}")
+    check(launches == want == cpu_calls, f"{arch}: launches {launches} != "
+          f"{want} or the CPU run's calls {cpu_calls}")
     # the eager server on the card: every call's logits bit for bit
     eager = LLMServer(cfg, params, cache_len=96, jit=False, device="cuda")
     eager_rec = Recorder(eager, keep=True)
@@ -2861,7 +2923,8 @@ def llm_reduced(arch):
     graphs = graph_row(srv.compile_count(), cpu.compile_count(), [step],
                        caps, mem0)
     return dict(arch=arch, stats=cpu.stats, calls=cpu_rec.calls,
-                max_abs_logit_diff=diff, launches=launches,
+                max_abs_logit_diff=diff, logit_tol=tol, launches=launches,
+                cpu_kernel_calls=cpu_calls,
                 first_tokens=res[1].tokens.tolist(), graphs=graphs)
 
 
@@ -2898,7 +2961,7 @@ def llm_full(arch, cpu_count):
     users = [rng.integers(1, V, 8).astype(np.int32) for _ in range(4)]
     cold_prompt = rng.integers(1, V, 520).astype(np.int32)
     L = cfg.n_layers
-    name = "decode_attention" if has_attention(cfg) else "rwkv6_scan"
+    name = "decode_attention" if n_mixer(cfg, "attn") else "rwkv6_scan"
 
     srv = LLMServer(cfg, params, cache_len=1024, device="cuda")
     step = count_runs(srv._decode_step)
@@ -3063,9 +3126,12 @@ def llm_full(arch, cpu_count):
 
 
 def leaves(tree):
-    """The tensors of a nested dict."""
+    """The tensors of nested dicts, lists and tuples."""
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from leaves(v)
     else:
         yield tree
@@ -3074,7 +3140,70 @@ def leaves(tree):
 def tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
     return tree.to(device)
+
+
+PLAIN_PARTS_DECODE_STEPS = 8
+
+
+def plain_parts(cfg, params, prompt, parts):
+    """Where a family's plain PyTorch pieces (LLM_PLAIN_PARTS: no Pallas
+    kernel in the reference, none here) spend a prefill of ``prompt`` and
+    PLAIN_PARTS_DECODE_STEPS eager greedy decode steps after it: each
+    named function wrapped so that the card is synchronised before and
+    after each call, its milliseconds summed (a nested call counts in
+    both), beside the wall of the whole call, itself taken with the
+    card synchronised."""
+    import importlib
+    from repro_torch.models import transformer as T
+    tokens = torch.as_tensor(prompt[None], device="cuda")
+    spent, saved = {}, []
+
+    def timed(fn, name):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    for mod_name, name in parts:
+        mod = importlib.import_module(f"repro_torch.{mod_name}")
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, timed(getattr(mod, name), name))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, cfg, tokens, cache_len=1024)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_parts, _ = dict(spent), spent.clear()
+        t0 = time.perf_counter()
+        for i in range(PLAIN_PARTS_DECODE_STEPS):
+            tok = logits[:, -1].argmax(-1)[:, None]
+            logits, cache = T.decode_step(params, cfg, tok, cache,
+                                          tokens.shape[1] + i)
+        torch.cuda.synchronize()
+        n = PLAIN_PARTS_DECODE_STEPS
+        decode_ms = (time.perf_counter() - t0) * 1e3 / n
+        decode_parts = {k: v / n for k, v in spent.items()}
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name}: non-finite "
+          "logits in the timed prefill and decode")
+    return dict(prompt=len(prompt), prefill_ms=prefill_ms,
+                prefill_parts_ms=prefill_parts,
+                prefill_shares={k: v / prefill_ms
+                                for k, v in prefill_parts.items()},
+                decode_steps=n, decode_step_ms=decode_ms,
+                decode_parts_ms=decode_parts,
+                decode_shares={k: v / decode_ms
+                               for k, v in decode_parts.items()})
 
 
 # prefill(kernel="pallas") against "jnp", end to end: bf16 steps of the
@@ -3085,17 +3214,28 @@ def tree_to(tree, device):
 # 16). The row reports, beside it, how far serving the same prompt as a
 # prefix hit instead of a cold prefill moves the logits.
 PALLAS_PREFILL_STEPS = 4
+# Jamba's logits are held instead to the yardstick: no further from the
+# plain prefill's than the same prompt served as a prefix hit lands. Its
+# two attention layers' flash outputs are each within one bf16 step, as
+# every arch's, but 14 bf16 selective scans after them amplify any
+# rounding (the same scans make a reduced bf16 Jamba's own logits lie up
+# to ~2.5 from its float32 model, tests/test_torch_llm.py), so a one-step
+# difference in an attention output moves its logits by more steps than
+# 4; serving the prompt as a hit, plain attention only, moves them more.
+PALLAS_PREFILL_HIT_BOUND = ("jamba-v0.1-52b",)
 
 
 def pallas_prefill(cfg, params, prompt, *, reps=3):
     """prefill(kernel="pallas") against kernel="jnp" on one prompt at full
-    width in bf16: the flash kernel launched once a layer (the counter set
+    width in bf16: the flash kernel launched once a plain attention layer
+    (the counter set
     to 0 just before this drive and read just after), every layer's
     kernel output within one bf16 step of its scale from the plain
     version on the same inputs, the last token's logits within
-    PALLAS_PREFILL_STEPS bf16 steps of their scale and the same greedy
-    token wherever the top two plain logits lie further apart than twice
-    that; then each prefill timed ``reps`` more times in turns (jnp,
+    PALLAS_PREFILL_STEPS bf16 steps of their scale (PALLAS_PREFILL_HIT_BOUND:
+    within the prefix-hit yardstick) and the same greedy token wherever
+    the top two plain logits lie further apart than twice that; then
+    each prefill timed ``reps`` more times in turns (jnp,
     pallas, pallas, jnp, ...), the card synchronised after each."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
@@ -3128,22 +3268,14 @@ def pallas_prefill(cfg, params, prompt, *, reps=3):
     finally:
         ops.flash_attention = orig
     want, first_plain_ms = run("jnp")
-    check(launches == cfg.n_layers == len(layer_steps),
+    n_attn = n_mixer(cfg, "attn")
+    check(launches == n_attn == len(layer_steps),
           f"{cfg.name}: prefill(kernel='pallas') launched flash {launches} "
-          f"times, not {cfg.n_layers}")
+          f"times, not {n_attn} (one a plain attention layer)")
     check(max(layer_steps) <= 1.0, f"{cfg.name}: a layer's flash output is "
           f"{max(layer_steps)} bf16 steps from plain")
     step = step_of_scale(want)
     err = float((got.float() - want.float()).abs().max())
-    check(bool(torch.isfinite(got).all()), f"{cfg.name}: non-finite logits")
-    check(err <= PALLAS_PREFILL_STEPS * step, f"{cfg.name}: pallas vs jnp "
-          f"prefill logits {err} > {PALLAS_PREFILL_STEPS} x {step}")
-    top2 = want.float().topk(2, dim=-1).values
-    gap = float((top2[..., 0] - top2[..., 1]).min())
-    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
-    check(same or gap <= 2 * PALLAS_PREFILL_STEPS * step,
-          f"{cfg.name}: pallas and jnp prefills pick different tokens "
-          f"{gap} apart")
     # the yardstick beside it: the same prompt served as a prefix hit
     # (prefill of all but its last 8 tokens, then 8 decode steps)
     _, cache = T.prefill(params, cfg, tokens[:, :-8], cache_len=1024)
@@ -3151,6 +3283,17 @@ def pallas_prefill(cfg, params, prompt, *, reps=3):
         hit, cache = T.decode_step(params, cfg, tokens[:, i:i + 1], cache, i)
     del cache
     hit_err = float((hit.float() - want.float()).abs().max())
+    bound = (hit_err if cfg.name in PALLAS_PREFILL_HIT_BOUND
+             else PALLAS_PREFILL_STEPS * step)
+    check(bool(torch.isfinite(got).all()), f"{cfg.name}: non-finite logits")
+    check(err <= bound, f"{cfg.name}: pallas vs jnp prefill logits {err} > "
+          f"{bound} ({bound / step} bf16 steps)")
+    top2 = want.float().topk(2, dim=-1).values
+    gap = float((top2[..., 0] - top2[..., 1]).min())
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    check(same or gap <= 2 * bound,
+          f"{cfg.name}: pallas and jnp prefills pick different tokens "
+          f"{gap} apart")
     ms = {"pallas": [], "jnp": []}
     for i in range(reps):
         for kernel in (("jnp", "pallas") if i % 2 == 0 else ("pallas", "jnp")):
@@ -3158,7 +3301,8 @@ def pallas_prefill(cfg, params, prompt, *, reps=3):
     return dict(prompt=len(prompt), launches=launches,
                 layer_bf16_steps_max=max(layer_steps),
                 max_abs_logit_diff=err, logit_step=step,
-                logit_bf16_steps=err / step, same_argmax=same, top2_gap=gap,
+                logit_bf16_steps=err / step, bound_bf16_steps=bound / step,
+                same_argmax=same, top2_gap=gap,
                 hit_vs_cold_logit_bf16_steps=hit_err / step,
                 hit_same_argmax=bool(torch.equal(hit.argmax(-1),
                                                  want.argmax(-1))),
@@ -3231,20 +3375,24 @@ def rwkv_upcast_prefill(cfg, params, prompt, *, reps=3):
 
 
 def llm_dense(arch, cpu_count):
-    """(iii) a dense config at full width in bf16 with the trimmed mix: the
+    """(iii) a config at full width in bf16 with the trimmed mix: the
     512-token system prompt, one hit of it + 8 tokens and the cold
     520-token request, 16 new tokens each, cache_len 1024, graphed, as the
     server runs them (tokens/s); then one more hit with each decode step
     synchronised (per-token latency). Checked as llm_full checks: stats,
     calls, launches, finite logits, tokens in range, the decode graph's
-    plateau against the reduced CPU server's count. Every layer is kept
-    (the row's ``depth_cut`` says so): the weights and the five caches
-    the mix holds fit on the card."""
+    plateau against the reduced CPU server's count. The dense configs
+    keep every layer; Jamba and DeepSeek-V3 do not fit one card in bf16
+    and run cut in depth (LLM_DEPTH_CUTS; the row's ``depth_cut``). Then,
+    where LLM_PALLAS_PREFILL names the arch, prefill(kernel="pallas")
+    against "jnp", and where LLM_PLAIN_PARTS does, the share of its plain
+    pieces in a prefill and a decode step."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import LLMServer, Request
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = depth_cut(full)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3298,20 +3446,38 @@ def llm_dense(arch, cpu_count):
     graphs = graph_row(srv.compile_count(), cpu_count, [step], caps, mem0)
     peak = torch.cuda.max_memory_allocated()
     dec = sorted(rec.ms["decode"])
+    del srv
+    pallas = (pallas_prefill(cfg, params, cold_prompt)
+              if arch in LLM_PALLAS_PREFILL else None)
+    parts = (plain_parts(cfg, params, system, LLM_PLAIN_PARTS[arch])
+             if arch in LLM_PLAIN_PARTS else None)
+    cut = None
+    if cfg is not full:
+        cut = dict(layers_full=full.n_layers, layers=cfg.n_layers,
+                   counts_full=[n for _, n in full.groups],
+                   counts=[n for _, n in cfg.groups], mtp=cfg.mtp,
+                   params_full=full.param_count(),
+                   mixers={m: n_mixer(cfg, m) for m in ("attn", "mla",
+                                                        "mamba")})
     row = dict(arch=arch, dtype=cfg.dtype, layers=cfg.n_layers,
-               depth_cut=None, params=cfg.param_count(),
+               depth_cut=cut, params=cfg.param_count(),
+               active_params=cfg.active_param_count(),
                weight_bytes=weight_bytes, init_s=init_s, stats=stats,
                calls=calls, launches=launches, prefill_ms=rec.ms["prefill"],
                decode_ms_p50=float(np.percentile(dec, 50)),
                decode_ms_p99=float(np.percentile(dec, 99)),
                weight_read_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+               active_weight_read_bound_ms=(cfg.active_param_count() * 2
+                                            / HBM_BYTES_PER_S * 1e3),
+               prefill_pallas=pallas, plain_parts=parts,
                hit_tokens_per_s=16 / (t2 - t1),
                tokens_per_s=sum(len(r.tokens) for r in res[1:]) / (t3 - t1),
                system_wall_s=t1 - t0, max_memory_allocated=peak,
                total_memory=torch.cuda.get_device_properties(0).total_memory,
-               graphs=graphs, first_tokens=res[1].tokens[:8].tolist())
+               graphs=graphs, first_tokens=res[1].tokens[:8].tolist(),
+               max_memory_allocated_with_extras=torch.cuda.max_memory_allocated())
     emit("llm_dense", **row)
-    del srv, params, res
+    del params, res
     gc.collect()
     torch.cuda.empty_cache()
     return row
@@ -3681,6 +3847,7 @@ FLEET_TIME_SCALE = 0.01      # fleet_load.py: incidents compressed 100x
 FLEET_POINT_SESSIONS = 40    # fleet_load.py --smoke's sessions a point
 FLEET_KNEE_FACTOR = 3.0      # fleet_load.py: the p99 blow-up past the knee
 FLEET_EVENTS_PER_SESSION = 6  # 1 text + 3 vitals + 2 scene
+FLEET_MEASURE_TRIES = 3      # measured passes of a load point at most
 SHED_GLASS = {"enc:text": 0.08, "enc:vitals": 0.01, "enc:scene": 0.05,
               "tail": 0.005, "full": 0.15}     # tests/test_fleet.py
 LOAD_GLASS = {"enc:text": 0.08, "enc:vitals": 0.01, "enc:scene": 0.05,
@@ -3797,12 +3964,19 @@ class FleetLoad:
     def point(self, **kw):
         """Warm, then measure: the first pass captures every signature the
         drive meets; the second replays the identical workload and is the
-        one reported (its captures counted, expected 0)."""
+        one reported (its captures counted, expected 0). Each flush costs
+        its measured wall on the simulated clock, so a replay can coalesce
+        arrivals otherwise and meet a signature the warm pass did not; a
+        pass that captured is then one more warm pass, and the workload
+        is measured again, up to FLEET_MEASURE_TRIES passes."""
         self.run(**kw)
-        before = captures(self.fns)[0]
-        t0 = time.perf_counter()
-        sim = self.run(**kw)
-        host_s = time.perf_counter() - t0
+        for tries in range(1, FLEET_MEASURE_TRIES + 1):
+            before = captures(self.fns)[0]
+            t0 = time.perf_counter()
+            sim = self.run(**kw)
+            host_s = time.perf_counter() - t0
+            if captures(self.fns)[0] == before:
+                break
         rep = sim.report()
         check(rep["sessions_offered"]
               == rep["sessions_admitted"] + rep["sessions_shed"],
@@ -3824,7 +3998,7 @@ class FleetLoad:
             "flushes": len(sim.flush_log),
             "residual_drain_s": rep["makespan_s"] - sim._last_arrival,
             "captures": captures(self.fns)[0] - before,
-            "host_s": host_s}
+            "measured_passes": tries, "host_s": host_s}
 
     def service_rate(self, rate, seed=0):
         """Admitted events over summed flush walls on one replica, and
@@ -4167,6 +4341,31 @@ def phase_cli():
           and train_out[-1] == f"checkpoint -> {ckpt}",
           f"unexpected train launcher output {train_out[:1] + train_out[-2:]}")
     train_s = time.perf_counter() - t0
+    # the port's four examples, as a user runs them (their main(argv)),
+    # each ending its output with "on cuda"
+    import runpy
+    examples = {}
+    with tempfile.TemporaryDirectory() as td:
+        for name, argv in (
+                ("quickstart", []), ("serve_episode", []),
+                ("llm_generate", []),
+                ("train_emsnet_e2e", ["--steps", "20", "--d1-size", "2000",
+                                      "--out", os.path.join(td, "ems")])):
+            path = os.path.join(ROOT, "examples", f"torch_{name}.py")
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(path, run_name="example")["main"](argv)
+            out = buf.getvalue().strip().splitlines()
+            check(out and out[-1].endswith("on cuda"),
+                  f"examples/torch_{name}.py ended {out[-1:]}")
+            examples[name] = dict(lines=len(out), last=out[-1],
+                                  seconds=time.perf_counter() - t0)
+            if name == "llm_generate":
+                check([ln.split()[0] for ln in out] == [
+                    "mistral-nemo-12b", "rwkv6-1.6b", "deepseek-v3-671b"]
+                    and all("4/4 prefix hits" in ln for ln in out),
+                    f"unexpected torch_llm_generate output {out}")
     emit("cli", lines=len(lines), last=lines[-1], tiered_lines=len(tiered),
          tiered_int8_records=sum("[int8]" in ln for ln in tiered),
          tiered_last=tiered[-1], robust=[ln for ln in robust
@@ -4178,7 +4377,7 @@ def phase_cli():
                            if not ln.startswith("  replica ")],
                     audit=fleet_audit.summary()),
          batched=[batched[0], batched[-1]],
-         train=dict(lines=train_out, seconds=train_s))
+         train=dict(lines=train_out, seconds=train_s), examples=examples)
 
 
 KERNELS = {

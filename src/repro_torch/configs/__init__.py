@@ -3,13 +3,15 @@
 ``get_config(arch_id)``.
 
 The registry names only the architectures the port serves: dense GQA
-(Mistral-NeMo, CodeQwen1.5, Nemotron-4, Qwen1.5), RWKV6 and MoE
-(OLMoE). The JAX package's other architectures (MLA, Mamba,
-cross-attention, musicgen codebooks) are known by name and refused with
-an error that points at ROADMAP item 11, where they are queued.
+(Mistral-NeMo, CodeQwen1.5, Nemotron-4, Qwen1.5), RWKV6, MoE (OLMoE),
+the Mamba/attention hybrid (Jamba) and MLA with MoE (DeepSeek-V3). The
+JAX package's other architectures (cross-attention, musicgen codebooks)
+are known by name and refused with an error that points at ROADMAP item
+11, where they are queued.
 """
-from . import (codeqwen15_7b, emsnet, mistral_nemo_12b, nemotron_4_15b,
-               olmoe_1b_7b, qwen15_32b, rwkv6_1b6)
+from . import (codeqwen15_7b, deepseek_v3_671b, emsnet, jamba_v01_52b,
+               mistral_nemo_12b, nemotron_4_15b, olmoe_1b_7b, qwen15_32b,
+               rwkv6_1b6)
 from .base import (SHAPES, InputShape, LayerSpec,  # noqa: F401
                    MambaConfig, MLAConfig, ModelConfig, reduced)
 
@@ -20,13 +22,14 @@ _REGISTRY = {
     "codeqwen1.5-7b": codeqwen15_7b.config,
     "nemotron-4-15b": nemotron_4_15b.config,
     "qwen1.5-32b": qwen15_32b.config,
+    "jamba-v0.1-52b": jamba_v01_52b.config,
+    "deepseek-v3-671b": deepseek_v3_671b.config,
 }
 
 ARCHS = tuple(_REGISTRY)
 
 # the reference's other architectures, still to port
-NOT_PORTED = ("deepseek-v3-671b", "musicgen-large", "llama-3.2-vision-11b",
-              "jamba-v0.1-52b")
+NOT_PORTED = ("musicgen-large", "llama-3.2-vision-11b")
 
 
 def get_config(name: str) -> ModelConfig:

@@ -4,6 +4,10 @@
 // Replaces the three Pallas TPU kernels of repro/kernels/quantized.py:
 //   * quantize_rowwise  (:64)  scale = max|x| / 127 per row (1.0 on an
 //     all-zero row), q = clip(round_half_even(x / scale), -127, 127);
+//     x in float32, bfloat16 or float16, which the Pallas body casts to
+//     float32 first: the kernel converts each element exactly as it loads
+//     it, so a half-type call equals the float32 call on the up-cast rows
+//     bit for bit;
 //   * dequantize_rowwise (:89) out = float(q) * scale[m];
 //   * int8_matmul        (:123) out[m, n] = (float(acc) * sx[m]) * sw[n]
 //     with acc = sum_k xq[m, k] * wq[k, n] exact in int32.
@@ -29,9 +33,10 @@
 // from the view's strides (kernels/quantized.py):
 //   * rows (x_sk == 1, K <= 2,048): tpr threads a row (a warp at
 //     K <= 128, 3 warps at K = 312, 8 at K = 1200), so a thread holds 1-2
-//     float4 slots. Each thread issues all its loads before it uses any —
-//     16-byte loads when the row starts on 16 bytes, else 4 scalar loads
-//     in their place — so the row costs one memory round trip. The
+//     slots of 4 elements. Each thread issues all its loads before it uses
+//     any — one 16-byte (float32) or 8-byte (bf16, fp16) load a slot when
+//     the row starts on that many bytes, else 4 scalar loads in its
+//     place — so the row costs one memory round trip. The
 //     abs-max takes 5 shuffles (and one barrier across a row's warps),
 //     the scale one division, and q comes from the registers, 4 int8
 //     stored as one 32-bit word where K % 4 == 0. Nothing is read twice.
@@ -79,6 +84,8 @@
 // returns the launch's CUDA error as an int (0 on success).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,8 +104,10 @@ constexpr int LOOP_UNROLL = 8;          // loop form: loads in flight a thread
 
 enum Form { ROWS = 0, ROWS_SCALAR = 1, COLS = 2, LOOP = 3 };
 
+// T: the element type of x (float, __nv_bfloat16 or __half)
+template <typename T>
 struct Quant {
-  const float* x;                       // (M, K) view: x[m * x_sm + k * x_sk]
+  const T* x;                           // (M, K) view: x[m * x_sm + k * x_sk]
   int8_t* q;                            // (M, K) contiguous
   float* scale;                         // (M,)
   int M, K;
@@ -114,6 +123,32 @@ __device__ __forceinline__ void grid_wait() {
 }
 __device__ __forceinline__ void grid_launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// an element of x as float32, exactly
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+// 4 contiguous elements from p in one load (16 bytes of float32, 8 of a
+// half type; p aligned to that), as float32
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+}
+template <typename TH>
+__device__ __forceinline__ void load4(const TH* p, float (&v)[4]) {
+  static_assert(sizeof(TH) == 2, "bf16 or fp16");
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  const unsigned short h[4] = {
+      static_cast<unsigned short>(w.x & 0xffffu), static_cast<unsigned short>(w.x >> 16),
+      static_cast<unsigned short>(w.y & 0xffffu), static_cast<unsigned short>(w.y >> 16)};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    TH x;
+    *reinterpret_cast<unsigned short*>(&x) = h[e];
+    v[e] = to_f32(x);
+  }
 }
 
 __device__ __forceinline__ float scale_of(float amax) {
@@ -158,27 +193,27 @@ __device__ __forceinline__ float row_max(float a, int tpr) {
 }
 
 // rows form: tpr threads a row; thread t of the row holds elements
-// 4 (tpr j + t) .. + 3 for j < NV in registers. VEC: float4 loads (the
-// row starts on 16 bytes), else four scalar loads in their place.
-template <bool VEC, int NV>
+// 4 (tpr j + t) .. + 3 for j < NV in registers. VEC: one load of 4
+// elements (the row starts on 4 elements' bytes), else four scalar loads
+// in its place.
+template <typename T, bool VEC, int NV>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
-quantize_rows_kernel(const Quant a) {
+quantize_rows_kernel(const Quant<T> a) {
   const int tpr = a.tpr, t = threadIdx.x % tpr;
   const int m = blockIdx.x * (blockDim.x / tpr) + threadIdx.x / tpr;
   const bool live = m < a.M;
   const int K = a.K;
-  const float* row = a.x + static_cast<long long>(live ? m : 0) * a.x_sm;
+  const T* row = a.x + static_cast<long long>(live ? m : 0) * a.x_sm;
   float v[NV][4];
   grid_wait();
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     const int k = 4 * (tpr * j + t);
     if (VEC && live && k + 3 < K) {
-      const float4 f = *reinterpret_cast<const float4*>(row + k);
-      v[j][0] = f.x; v[j][1] = f.y; v[j][2] = f.z; v[j][3] = f.w;
+      load4(row + k, v[j]);
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) v[j][e] = live && k + e < K ? row[k + e] : 0.0f;
+      for (int e = 0; e < 4; ++e) v[j][e] = live && k + e < K ? to_f32(row[k + e]) : 0.0f;
     }
   }
   grid_launch_dependents();
@@ -211,13 +246,14 @@ quantize_rows_kernel(const Quant a) {
 
 // loop form: tpr threads a row, any strides, two passes over the row
 // with LOOP_UNROLL loads in flight a thread
+template <typename T>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
-quantize_loop_kernel(const Quant a) {
+quantize_loop_kernel(const Quant<T> a) {
   const int tpr = a.tpr, t = threadIdx.x % tpr;
   const int m = blockIdx.x * (blockDim.x / tpr) + threadIdx.x / tpr;
   const bool live = m < a.M;
   const int K = live ? a.K : 0;
-  const float* row = a.x + static_cast<long long>(live ? m : 0) * a.x_sm;
+  const T* row = a.x + static_cast<long long>(live ? m : 0) * a.x_sm;
   const long long sk = a.x_sk;
   grid_wait();
   float amax = 0.0f;
@@ -226,7 +262,7 @@ quantize_loop_kernel(const Quant a) {
 #pragma unroll
     for (int u = 0; u < LOOP_UNROLL; ++u) {
       const int k = k0 + tpr * u + t;
-      f[u] = k < K ? row[k * sk] : 0.0f;
+      f[u] = k < K ? to_f32(row[k * sk]) : 0.0f;
     }
 #pragma unroll
     for (int u = 0; u < LOOP_UNROLL; ++u) amax = fmaxf(amax, fabsf(f[u]));
@@ -240,7 +276,7 @@ quantize_loop_kernel(const Quant a) {
 #pragma unroll
     for (int u = 0; u < LOOP_UNROLL; ++u) {
       const int k = k0 + tpr * u + t;
-      f[u] = k < K ? row[k * sk] : 0.0f;
+      f[u] = k < K ? to_f32(row[k * sk]) : 0.0f;
     }
 #pragma unroll
     for (int u = 0; u < LOOP_UNROLL; ++u) {
@@ -272,9 +308,9 @@ __device__ __forceinline__ void cluster_wait() {
 // column group form a cluster; each block stores its partial abs-maxes
 // into every block's shared memory and one barrier later reads them all
 // locally, so no block reads another's memory and none waits at exit.
-template <int NR, bool CLUSTER>
+template <typename T, int NR, bool CLUSTER>
 __global__ void __launch_bounds__(COL_MAX_WARPS * 32)
-quantize_cols_kernel(const Quant a) {
+quantize_cols_kernel(const Quant<T> a) {
   __shared__ float red[COL_MAX_WARPS][32];
   __shared__ float parts[MAX_CLUSTER][32];   // [z][lane]: block z's abs-max
   __shared__ float s_col[32];
@@ -294,7 +330,8 @@ quantize_cols_kernel(const Quant a) {
 #pragma unroll
   for (int i = 0; i < NR; ++i) {
     const int kk = warp + nwarps * i;
-    v[i] = (m < a.M && kk < n) ? a.x[m + static_cast<long long>(kb + kk) * a.x_sk] : 0.0f;
+    v[i] = (m < a.M && kk < n) ? to_f32(a.x[m + static_cast<long long>(kb + kk) * a.x_sk])
+                               : 0.0f;
   }
   grid_launch_dependents();
   float amax = 0.0f;
@@ -395,31 +432,32 @@ int launch(void (*kernel)(Params...), dim3 grid, dim3 block, int cluster_y,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool VEC>
-int dispatch_rows(const Quant& a, int depth, int blocks, int warps, cudaStream_t s) {
+template <typename T, bool VEC>
+int dispatch_rows(const Quant<T>& a, int depth, int blocks, int warps, cudaStream_t s) {
   switch (depth) {
-    case 1: return launch(quantize_rows_kernel<VEC, 1>, dim3(blocks), dim3(32 * warps), 0, s, a);
-    case 2: return launch(quantize_rows_kernel<VEC, 2>, dim3(blocks), dim3(32 * warps), 0, s, a);
+    case 1: return launch(quantize_rows_kernel<T, VEC, 1>, dim3(blocks), dim3(32 * warps), 0, s, a);
+    case 2: return launch(quantize_rows_kernel<T, VEC, 2>, dim3(blocks), dim3(32 * warps), 0, s, a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int NR>
-int launch_cols(const Quant& a, int groups, int warps, int ksplit, cudaStream_t s) {
+template <typename T, int NR>
+int launch_cols(const Quant<T>& a, int groups, int warps, int ksplit, cudaStream_t s) {
   return ksplit > 1
-             ? launch(quantize_cols_kernel<NR, true>, dim3(groups, ksplit),
+             ? launch(quantize_cols_kernel<T, NR, true>, dim3(groups, ksplit),
                       dim3(32 * warps), ksplit, s, a)
-             : launch(quantize_cols_kernel<NR, false>, dim3(groups), dim3(32 * warps),
+             : launch(quantize_cols_kernel<T, NR, false>, dim3(groups), dim3(32 * warps),
                       0, s, a);
 }
 
-int dispatch_cols(const Quant& a, int depth, int groups, int warps, int ksplit,
+template <typename T>
+int dispatch_cols(const Quant<T>& a, int depth, int groups, int warps, int ksplit,
                   cudaStream_t s) {
   switch (depth) {
-    case 1: return launch_cols<1>(a, groups, warps, ksplit, s);
-    case 4: return launch_cols<4>(a, groups, warps, ksplit, s);
-    case 8: return launch_cols<8>(a, groups, warps, ksplit, s);
-    case 12: return launch_cols<12>(a, groups, warps, ksplit, s);
+    case 1: return launch_cols<T, 1>(a, groups, warps, ksplit, s);
+    case 4: return launch_cols<T, 4>(a, groups, warps, ksplit, s);
+    case 8: return launch_cols<T, 8>(a, groups, warps, ksplit, s);
+    case 12: return launch_cols<T, 12>(a, groups, warps, ksplit, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -695,24 +733,20 @@ int launch_gemm(const Gemm& g, int ksplit, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
 // The plan (kernels/quantized.py::plan_quantize): the form, its depth
-// (rows: float4 slots a thread; cols: rows of w a lane), warps a block,
-// tpr threads a row (rows and loop forms), the grid (its y is the cols
-// form's split of K: ksplit blocks of kchunk rows, a multiple of 4, none
-// empty, a cluster when ksplit > 1).
-extern "C" int repro_quantize_rowwise(const void* x, void* q, void* scale,
-                                      int M, int K, long long x_sm,
-                                      long long x_sk, int form, int depth,
-                                      int warps, int tpr, int grid, int ksplit,
-                                      int kchunk, void* stream) {
-  Quant a;
-  a.x = static_cast<const float*>(x);
+// (rows: 4-element slots a thread; cols: rows of w a lane), warps a
+// block, tpr threads a row (rows and loop forms), the grid (its y is the
+// cols form's split of K: ksplit blocks of kchunk rows, a multiple of 4,
+// none empty, a cluster when ksplit > 1).
+template <typename T>
+int quantize(const void* x, void* q, void* scale, int M, int K, long long x_sm,
+             long long x_sk, int form, int depth, int warps, int tpr, int grid,
+             int ksplit, int kchunk, cudaStream_t s) {
+  Quant<T> a;
+  a.x = static_cast<const T*>(x);
   a.q = static_cast<int8_t*>(q);
   a.scale = static_cast<float*>(scale);
   a.M = M; a.K = K; a.x_sm = x_sm; a.x_sk = x_sk; a.tpr = tpr; a.kchunk = kchunk;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (M < 1 || K < 0) return invalid;
   if (form == COLS) {
@@ -730,16 +764,37 @@ extern "C" int repro_quantize_rowwise(const void* x, void* q, void* scale,
       static_cast<long long>(grid) * rows < M || static_cast<long long>(grid - 1) * rows >= M)
     return invalid;
   if (form == LOOP)
-    return launch(quantize_loop_kernel, dim3(grid), dim3(32 * warps), 0, s, a);
+    return launch(quantize_loop_kernel<T>, dim3(grid), dim3(32 * warps), 0, s, a);
   if ((x_sk != 1 && K > 1) || depth < 1 || depth > ROWS_VECS || 4LL * tpr * depth < K)
     return invalid;
   if (form == ROWS) {
-    if (reinterpret_cast<uintptr_t>(x) % 16 || (x_sm % 4 && M > 1)) return invalid;
-    return dispatch_rows<true>(a, depth, grid, warps, s);
+    if (reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) || (x_sm % 4 && M > 1))
+      return invalid;
+    return dispatch_rows<T, true>(a, depth, grid, warps, s);
   }
   if (form == ROWS_SCALAR)
-    return dispatch_rows<false>(a, depth, grid, warps, s);
+    return dispatch_rows<T, false>(a, depth, grid, warps, s);
   return invalid;
+}
+
+}  // namespace
+
+// dtype of x: 0 float32, 1 bfloat16, 2 float16
+extern "C" int repro_quantize_rowwise(const void* x, void* q, void* scale,
+                                      int M, int K, long long x_sm,
+                                      long long x_sk, int form, int depth,
+                                      int warps, int tpr, int grid, int ksplit,
+                                      int kchunk, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return quantize<float>(x, q, scale, M, K, x_sm, x_sk, form, depth, warps,
+                                   tpr, grid, ksplit, kchunk, s);
+    case 1: return quantize<__nv_bfloat16>(x, q, scale, M, K, x_sm, x_sk, form, depth,
+                                           warps, tpr, grid, ksplit, kchunk, s);
+    case 2: return quantize<__half>(x, q, scale, M, K, x_sm, x_sk, form, depth, warps,
+                                    tpr, grid, ksplit, kchunk, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int repro_dequantize_rowwise(const void* q, const void* scale,

@@ -22,7 +22,9 @@ tensor; on the card it is read from device memory, so a decode step
 never waits for the host.
 
 ``decode_attention.launches`` counts kernel launches, so a run can show
-that its decode went through the kernel.
+that its decode went through the kernel; ``decode_attention.calls``
+counts every call on any device, so a CPU run gives the count a card
+run must launch.
 """
 from __future__ import annotations
 
@@ -134,6 +136,7 @@ def decode_attention(q, kbuf, vbuf, slot_pos, t, *, window=0, scale=None):
     q's dtype. CUDA tensors launch the kernel; CPU tensors take
     ``decode_attention_plain``."""
     B, one, H, D = q.shape
+    decode_attention.calls += 1
     KV = kbuf.shape[2]
     if one != 1:
         raise ValueError(f"decode attention takes one query token, got {one}")
@@ -153,3 +156,4 @@ def decode_attention(q, kbuf, vbuf, slot_pos, t, *, window=0, scale=None):
 
 
 decode_attention.launches = 0
+decode_attention.calls = 0

@@ -33,6 +33,6 @@ def quantized_matmul(x, wq, sw):
 # every counter a kernel wrapper ticks in Python, as (wrapper, attribute):
 # ``graphs.Graphed`` adds a capture's ticks again on each replay
 COUNTERS = tuple((fn, attr) for fn in (flash_attention, quantize_rowwise,
-                                       dequantize_rowwise, int8_matmul)
-                 for attr in ("calls", "launches")) + (
-    (decode_attention, "launches"), (rwkv6_scan, "launches"))
+                                       dequantize_rowwise, int8_matmul,
+                                       decode_attention, rwkv6_scan)
+                 for attr in ("calls", "launches"))

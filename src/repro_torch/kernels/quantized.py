@@ -6,7 +6,9 @@ Ports of the Pallas TPU kernels of ``repro/kernels/quantized.py``:
   * ``quantize_rowwise`` — per-row symmetric int8:
     ``scale[m] = max_k |x[m, k]| / 127`` (1.0 for an all-zero row),
     ``q = clip(round(x / scale), -127, 127)`` with round half to even
-    (``jnp.round``), so ``|dequant(quant(x)) - x| <= scale / 2``;
+    (``jnp.round``), so ``|dequant(quant(x)) - x| <= scale / 2``; ``x``
+    in float32, bfloat16 or float16, each element up-cast exactly to
+    float32 first, as the Pallas body casts it;
   * ``dequantize_rowwise`` — ``q.float() * scale``;
   * ``int8_matmul`` — ``out[m, n] = (float(acc) * sx[m]) * sw[n]`` with
     ``acc = sum_k xq[m, k] * wq[k, n]`` exact in int32, for
@@ -19,8 +21,8 @@ function with the plain version.
 
   * ``plan_quantize`` picks the quantize kernel's form from the view's
     strides: ``rows`` (1-8 warps a row, every load of the row in flight
-    at once and held in registers, float4 loads where the row starts on
-    16 bytes, else ``rows_scalar``), ``cols`` (the view ``w.T`` that
+    at once and held in registers, 4 elements a load where the row starts
+    on their 16 (float32) or 8 (bf16, fp16) bytes, else ``rows_scalar``), ``cols`` (the view ``w.T`` that
     ``quantize_colwise`` passes: 32 columns of ``w`` a block, read 128
     bytes at a time, K split over a thread-block cluster) or ``loop``
     (rows over either form's cap, any other strides).
@@ -73,9 +75,9 @@ def plan_k_splits(M, K, N):
 
 # csrc/quantized.cu's quantize kernel
 MAX_WARPS = 8              # warps a block of the rows and loop forms
-ROWS_VECS = 2              # rows form: float4 slots a thread at most
+ROWS_VECS = 2              # rows form: 4-element slots a thread at most
 ROWS_CAP = 4 * 32 * MAX_WARPS * ROWS_VECS
-ROWS_AIM = 1               # rows form: float4 slots a thread the plan aims for
+ROWS_AIM = 1               # rows form: 4-element slots a thread the plan aims for
 COL_WARPS = 16             # cols form: warps a block, unless K needs more
 COL_MAX_WARPS = 32
 COL_DEPTHS = (1, 4, 8, 12)  # cols form: rows of w a lane
@@ -83,11 +85,13 @@ COL_TILE = COL_MAX_WARPS * COL_DEPTHS[-1]   # cols form: rows of w a block
 COLS_CAP = MAX_KSPLIT * COL_TILE
 LOOP_UNROLL = 8            # loop form: loads in flight a thread
 QUANTIZE_FORMS = ("rows", "rows_scalar", "cols", "loop")
+# the input types the quantize kernel loads, by its dtype code
+QUANTIZE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 class QuantizePlan(NamedTuple):
     form: str              # one of QUANTIZE_FORMS
-    depth: int             # rows: float4 slots a thread; cols: rows of w a lane
+    depth: int             # rows: 4-element slots a thread; cols: rows of w a lane
     warps: int             # warps a block
     tpr: int               # rows, loop: threads a row (a multiple of 32)
     grid: tuple            # (x, y): y splits K over the cols form's cluster
@@ -107,14 +111,15 @@ def _row_plan(form, M, tpr, depth):
 
 
 def plan_quantize(M, K, x_sm, x_sk, aligned):
-    """How ``csrc/quantized.cu`` quantizes an (M, K) float32 view with
-    element strides ``(x_sm, x_sk)``; ``aligned`` says that each row
-    starts on 16 bytes (the base 16-byte aligned and ``x_sm % 4 == 0``,
-    or one row).
+    """How ``csrc/quantized.cu`` quantizes an (M, K) view with element
+    strides ``(x_sm, x_sk)``; ``aligned`` says that each row starts on 4
+    elements' bytes (``_aligned``: the base so aligned and
+    ``x_sm % 4 == 0``, or one row). The plan is the same for every input
+    type.
 
     * ``rows`` / ``rows_scalar`` (``x_sk == 1``, ``K <= ROWS_CAP``): a
       row takes enough warps (up to MAX_WARPS) that each thread holds
-      about ROWS_AIM float4 slots (3 warps at K = 312, 8 at K = 1200);
+      about ROWS_AIM 4-element slots (3 warps at K = 312, 8 at K = 1200);
       rows of one warp pack into blocks only past one wave of rows.
     * ``cols`` (``x_sm == 1``, the view ``w.T``, ``K <= COLS_CAP``): 32
       columns of w a block of COL_WARPS warps (more where K needs them),
@@ -171,7 +176,7 @@ def int8_matmul_plain(xq, sx, wq, sw):
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "repro_quantize_rowwise": [_P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I,
-                               _I, _I, _I, _P],
+                               _I, _I, _I, _I, _P],
     "repro_dequantize_rowwise": [_P, _P, _P, _I, _I, _P],
     "repro_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -206,33 +211,38 @@ def _device_of(*ts):
 
 # ---------------------------------------------------------------- wrappers
 
-def _aligned16(x):
-    """Every row of the float32 view x starts on 16 bytes."""
-    return x.data_ptr() % 16 == 0 and (x.stride(0) % 4 == 0 or x.shape[0] == 1)
+def _aligned(x):
+    """Every row of the view x starts on 4 elements' bytes (16 for
+    float32, 8 for bf16 and fp16): the rows form's one-load slots."""
+    return (x.data_ptr() % (4 * x.element_size()) == 0
+            and (x.stride(0) % 4 == 0 or x.shape[0] == 1))
 
 
 def quantize_rowwise(x):
-    """x (M, K) float32 -> (q int8 (M, K) contiguous, scale float32
-    (M, 1)). The CUDA kernel reads ``x`` through its strides, so a
-    transposed view quantizes without a copy."""
+    """x (M, K) float32, bfloat16 or float16 -> (q int8 (M, K)
+    contiguous, scale float32 (M, 1)). The CUDA kernel reads ``x``
+    through its strides, so a transposed view quantizes without a copy,
+    and converts each element to float32 as it loads it."""
     if x.dim() != 2:
         raise ValueError(f"quantize_rowwise takes (M, K), got {tuple(x.shape)}")
     quantize_rowwise.calls += 1
     if _device_of(x).type == "cpu":
         return quantize_rowwise_plain(x)
-    if x.dtype != torch.float32:
-        raise TypeError(f"the CUDA quantize kernel takes float32, got {x.dtype}")
+    if x.dtype not in QUANTIZE_DTYPES:
+        raise TypeError(f"the CUDA quantize kernel takes float32, bfloat16 "
+                        f"or float16, got {x.dtype}")
     if x.shape[0] == 0:
         return (torch.empty(x.shape, dtype=torch.int8, device=x.device),
                 torch.empty((0, 1), dtype=torch.float32, device=x.device))
     M, K = x.shape
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     scale = torch.empty((M, 1), dtype=torch.float32, device=x.device)
-    plan = plan_quantize(M, K, x.stride(0), x.stride(1), _aligned16(x))
+    plan = plan_quantize(M, K, x.stride(0), x.stride(1), _aligned(x))
     _check(_kernel_fn("repro_quantize_rowwise")(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), M, K, x.stride(0),
         x.stride(1), QUANTIZE_FORMS.index(plan.form), plan.depth, plan.warps,
-        plan.tpr, plan.grid[0], plan.grid[1], plan.kchunk, _stream(x)),
+        plan.tpr, plan.grid[0], plan.grid[1], plan.kchunk,
+        QUANTIZE_DTYPES[x.dtype], _stream(x)),
         "quantize_rowwise")
     quantize_rowwise.launches += 1
     return q, scale

@@ -23,7 +23,7 @@ with ``nvcc`` for ``sm_90a`` at first use) once per call, split over the
 state's value columns and chunked over time as ``plan_chunks`` says, or
 raises; on a CPU tensor it computes ``rwkv6_scan_plain``. Nothing falls
 back from one to the other. ``rwkv6_scan.launches`` counts kernel
-launches.
+launches, ``rwkv6_scan.calls`` every call on any device.
 """
 from __future__ import annotations
 
@@ -122,6 +122,7 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
     Returns (y (B, S, H, n) float32, final_state (B, H, n, n) float32).
     CUDA tensors launch the kernel; CPU tensors take ``rwkv6_scan_plain``."""
     B, S, H, n = r.shape
+    rwkv6_scan.calls += 1
     for name, a in (("k", k), ("v", v), ("w", w)):
         if a.shape != r.shape:
             raise ValueError(f"{name} shape {tuple(a.shape)} != r shape "
@@ -138,3 +139,4 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
 
 
 rwkv6_scan.launches = 0
+rwkv6_scan.calls = 0

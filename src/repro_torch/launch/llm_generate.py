@@ -2,15 +2,17 @@
 
 The paper's feature cache applied to autoregressive state: requests that
 extend an already-served prompt reuse the stored decode cache (a KV ring
-buffer or an RWKV state) instead of encoding the prefix again. Runs the
-reduced variant of every ported architecture, one line each, on ``cuda``
-unless ``--device cpu`` is given: mistral-nemo-12b, rwkv6-1.6b,
-olmoe-1b-7b (MoE), codeqwen1.5-7b, nemotron-4-15b and qwen1.5-32b.
+buffer, MLA latents, or a Mamba or RWKV state) instead of encoding the
+prefix again. Runs the reduced variant of every ported architecture, one
+line each, on ``cuda`` unless ``--device cpu`` is given:
+mistral-nemo-12b, rwkv6-1.6b, olmoe-1b-7b (MoE), codeqwen1.5-7b,
+nemotron-4-15b, qwen1.5-32b, jamba-v0.1-52b (Mamba + attention) and
+deepseek-v3-671b (MLA + MoE).
 
   python -m repro_torch.launch.llm_generate [--arch olmoe-1b-7b] [--device cpu]
 
-A port of ``examples/llm_generate.py``; its third default family,
-``deepseek-v3-671b`` (MLA latents), is not ported yet (ROADMAP item 11).
+``examples/torch_llm_generate.py`` runs the reference example's three
+cache families through this launcher.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Attention of the LLM zoo: GQA self-attention with sliding windows and
-the ring-buffer decode cache.
+"""Attention of the LLM zoo: GQA self-attention with sliding windows,
+DeepSeek's multi-head latent attention (MLA) and the ring-buffer decode
+caches.
 
 Prefill attention follows the reference's kernel switch:
 ``kernel="jnp"`` (the default, and what the reference's server runs) is
@@ -18,7 +19,17 @@ Decode writes the new token's K, V and position into the cache IN PLACE
 (the reference's arrays are immutable and it returns new ones); callers
 that keep a cache for later (the server's prefix cache) store a copy.
 
-MLA (DeepSeek) and cross-attention are not ported yet (ROADMAP item 11).
+MLA follows the reference: prefill decompresses the latents and runs
+``flash_attention_plain`` with a query/key head dim (``qk_nope +
+qk_rope``, 192 at full width) other than the value's (``v_dim``, 128),
+whatever ``kernel`` says, as the reference's ``mla_forward`` runs its
+plain blocked attention whatever ``kernel`` says (the CUDA flash kernel
+takes one head dim for q, k and v, up to 128). Decode is the absorbed
+form: scores and context in the latent space, float32, against a ring
+buffer of latents (``ckv``, ``krope``, ``pos``) written in place. The
+reference writes neither in a Pallas kernel, so neither has one here.
+
+Cross-attention is not ported yet (ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -28,7 +39,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels.decode_attention import decode_attention_plain
-from ..kernels.flash_attention import flash_attention_plain
+from ..kernels.flash_attention import NEG_INF, flash_attention_plain
 from . import layers as L
 
 # the oracle of the decode kernel is its plain version
@@ -112,5 +123,111 @@ def attn_cache_init(cfg, batch, length, dtype, *, device):
     return {
         "k": torch.zeros((batch, length, KV, D), dtype=dtype, device=device),
         "v": torch.zeros((batch, length, KV, D), dtype=dtype, device=device),
+        "pos": torch.full((length,), -1, dtype=torch.int32, device=device),
+    }
+
+
+# ----------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ----------------------------------------------------------------------
+
+def mla_init(gen, cfg, *, device):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    kw = dict(dtype=L.pdtype(cfg), device=device)
+    return {
+        "wq_a": L.dense_init(gen, d, m.q_lora_rank, **kw),
+        "q_norm": L.rmsnorm_init(m.q_lora_rank, **kw),
+        "wq_b": L.dense_init(gen, m.q_lora_rank,
+                             H * (m.qk_nope_dim + m.qk_rope_dim), **kw),
+        "wkv_a": L.dense_init(gen, d, m.kv_lora_rank + m.qk_rope_dim, **kw),
+        "kv_norm": L.rmsnorm_init(m.kv_lora_rank, **kw),
+        "wk_b": L.dense_init(gen, m.kv_lora_rank, H * m.qk_nope_dim, **kw),
+        "wv_b": L.dense_init(gen, m.kv_lora_rank, H * m.v_dim, **kw),
+        "wo": L.dense_init(gen, H * m.v_dim, d, **kw),
+    }
+
+
+def _mla_q(p, x, positions, cfg):
+    m, H = cfg.mla, cfg.n_heads
+    B, S, _ = x.shape
+    q = L.dense(p["wq_b"], L.rmsnorm(p["q_norm"], L.dense(p["wq_a"], x)))
+    q = q.reshape(B, S, H, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    return q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_ckv(p, x, positions, cfg):
+    m = cfg.mla
+    kv = L.dense(p["wkv_a"], x)
+    ckv = L.rmsnorm(p["kv_norm"], kv[..., :m.kv_lora_rank])
+    k_rope = L.apply_rope(kv[..., m.kv_lora_rank:], positions, cfg.rope_theta)
+    return ckv, k_rope
+
+
+def _mla_scale(m):
+    return 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+
+
+def mla_forward(p, x, positions, cfg, *, window=0, kernel="jnp"):
+    """Prefill: decompress the latents and run MHA. Returns (out, (ckv,
+    k_rope)). ``kernel`` is taken and, as in the reference, not read."""
+    if kernel not in ("jnp", "pallas"):
+        raise ValueError(f"kernel={kernel!r}: 'jnp' or 'pallas'")
+    m, H = cfg.mla, cfg.n_heads
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    ckv, k_rope = _mla_ckv(p, x, positions, cfg)
+    wk_b = p["wk_b"]["w"].reshape(m.kv_lora_rank, H, m.qk_nope_dim)
+    wv_b = p["wv_b"]["w"].reshape(m.kv_lora_rank, H, m.v_dim)
+    k_nope = torch.einsum("bsr,rhn->bshn", ckv, wk_b)
+    vdec = torch.einsum("bsr,rhv->bshv", ckv, wv_b)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_dim)], dim=-1)
+    out = flash_attention_plain(q, k, vdec, causal=True, window=window,
+                                scale=_mla_scale(m))
+    out = L.dense(p["wo"], out.reshape(B, S, H * m.v_dim))
+    return out, (ckv, k_rope)
+
+
+def mla_decode(p, x, cache, t, cfg, *, window=0):
+    """Absorbed-matrix decode against the latent cache: scores and context
+    computed in the kv_lora latent space, float32. cache: {ckv, krope,
+    pos}, written in place. Returns (out, cache)."""
+    m, H = cfg.mla, cfg.n_heads
+    B = x.shape[0]
+    t = position_tensor(t, x.device)
+    tpos = t.reshape(1, 1).expand(B, 1)
+    q_nope, q_rope = _mla_q(p, x, tpos, cfg)           # (B, 1, H, *)
+    ckv_new, krope_new = _mla_ckv(p, x, tpos, cfg)     # (B, 1, r), (B, 1, p)
+    cbuf = ring_write(cache["ckv"], ckv_new, t)
+    rbuf = ring_write(cache["krope"], krope_new, t)
+    pos = ring_write(cache["pos"][None], t.reshape(1, 1), t)[0]
+
+    wk_b = p["wk_b"]["w"].reshape(m.kv_lora_rank, H, m.qk_nope_dim).float()
+    wv_b = p["wv_b"]["w"].reshape(m.kv_lora_rank, H, m.v_dim).float()
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), wk_b)
+    s = (torch.einsum("bqhr,bkr->bhqk", q_lat, cbuf.float())
+         + torch.einsum("bqhp,bkp->bhqk", q_rope.float(), rbuf.float()))
+    s = s * _mla_scale(m)
+    valid = (pos >= 0) & (pos <= t)
+    if window:
+        valid &= t - pos < window
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhqk,bkr->bqhr", w, cbuf.float())
+    out = torch.einsum("bqhr,rhv->bqhv", ctx, wv_b)
+    out = L.dense(p["wo"], out.reshape(B, 1, H * m.v_dim).to(x.dtype))
+    return out, {"ckv": cbuf, "krope": rbuf, "pos": pos}
+
+
+def mla_cache_init(cfg, batch, length, dtype, *, device):
+    m = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, length, m.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, length, m.qk_rope_dim), dtype=dtype,
+                             device=device),
         "pos": torch.full((length,), -1, dtype=torch.int32, device=device),
     }

@@ -29,12 +29,31 @@ def pdtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+# a leaf of more elements than DRAW_CHUNK is drawn a slice of its first
+# axis at a time, each slice of about DRAW_SLICE elements (1 GiB in
+# float32): DeepSeek-V3's 256-expert weights, 3.8 G elements, would hold
+# 14 GiB of float32 whole. Every smaller leaf is drawn whole, as before.
+DRAW_CHUNK = 1 << 30
+DRAW_SLICE = 1 << 28
+
+
 def normal(gen: torch.Generator, shape, scale: float, *, dtype=torch.float32,
            device):
     """``N(0, 1) * scale`` drawn in float32 on the generator's device, then
-    cast to ``dtype`` on ``device`` (the reference's ``(normal * s).astype``)."""
-    x = torch.randn(shape, generator=gen, device=gen.device) * scale
-    return x.to(device=device, dtype=dtype)
+    cast to ``dtype`` on ``device`` (the reference's ``(normal * s).astype``).
+    The scale is applied in place; a leaf over ``DRAW_CHUNK`` elements is
+    drawn and cast slice by slice along its first axis."""
+    shape = tuple(shape)
+    if math.prod(shape) <= DRAW_CHUNK or len(shape) < 2:
+        x = torch.randn(shape, generator=gen, device=gen.device).mul_(scale)
+        return x.to(device=device, dtype=dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, DRAW_SLICE // math.prod(shape[1:]))
+    for i in range(0, shape[0], rows):
+        part = torch.randn((min(rows, shape[0] - i),) + shape[1:],
+                           generator=gen, device=gen.device).mul_(scale)
+        out[i:i + rows] = part
+    return out
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,

@@ -21,12 +21,18 @@ hand-written flash kernel (``kernels.flash_attention``), the reference's
 switch to its Pallas kernel; ``"jnp"`` (the default, as there) runs the
 plain attention.
 
-Ported mixers: ``attn`` (GQA, QKV bias, sliding windows) and ``rwkv6``;
-MLPs: ``dense`` (swiglu, relu2), ``moe`` (sort-based dispatch, optional
-shared experts; its load-balance loss is dropped on prefill and decode,
-as the reference drops it) and ``rwkv_cmix``. MLA, Mamba,
-cross-attention, the conditioning sublayer, musicgen codebooks,
-conditioning frontends and multi-token prediction raise
+Ported mixers: ``attn`` (GQA, QKV bias, sliding windows), ``mla``
+(DeepSeek's latent attention: plain attention on prefill, whatever
+``kernel`` says, as the reference's; the absorbed form on decode),
+``mamba`` (Jamba's selective SSM, its cache the reference's
+``(conv_state, ssm_state)`` tuple) and ``rwkv6``; MLPs: ``dense``
+(swiglu, relu2), ``moe`` (sort-based dispatch, optional shared experts;
+its load-balance loss is dropped on prefill and decode, as the reference
+drops it) and ``rwkv_cmix``. ``init_params`` builds the multi-token
+prediction head (``params["mtp"]``) of an ``mtp`` config, so layouts and
+converted weights match; prefill and decode never read it (its forward
+belongs to training). Cross-attention, the conditioning sublayer,
+musicgen codebooks and conditioning frontends raise
 ``NotImplementedError`` naming ROADMAP item 11, where they are queued.
 """
 from __future__ import annotations
@@ -37,6 +43,9 @@ from . import attention as A
 from . import layers as L
 from . import moe as M
 from . import rwkv as R
+from . import ssm as SSM
+
+MIXERS = ("attn", "mla", "mamba", "rwkv6")
 
 
 def _not_ported(what):
@@ -44,7 +53,7 @@ def _not_ported(what):
 
 
 def _check_spec(spec):
-    if spec.mixer not in ("attn", "rwkv6"):
+    if spec.mixer not in MIXERS:
         _not_ported(f"mixer {spec.mixer!r}")
     if spec.cross:
         _not_ported("the conditioning cross-attention sublayer (spec.cross)")
@@ -57,8 +66,6 @@ def _check_cfg(cfg):
         _not_ported("multi-codebook (musicgen) embeddings")
     if cfg.cond_dim:
         _not_ported("a conditioning frontend (cond_dim)")
-    if cfg.mtp:
-        _not_ported("multi-token prediction")
     for specs, _ in cfg.groups:
         for spec in specs:
             _check_spec(spec)
@@ -71,7 +78,14 @@ def _check_cfg(cfg):
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _items(tree):
+    """(key, child) pairs of a dict, list or tuple node."""
+    return tree.items() if isinstance(tree, dict) else enumerate(tree)
 
 
 def _index(tree, i):
@@ -82,14 +96,17 @@ def _index(tree, i):
 def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], (list, tuple)):
+        return type(trees[0])(_stack([t[i] for t in trees])
+                              for i in range(len(trees[0])))
     return torch.stack(trees)
 
 
 def _write(dst, src):
     """Copy each leaf of ``src`` into the same leaf of ``dst`` (views into
     a stacked tree), skipping leaves that already are the destination."""
-    for k, v in src.items():
-        if isinstance(v, dict):
+    for k, v in _items(src):
+        if isinstance(v, (dict, list, tuple)):
             _write(dst[k], v)
         elif v is not dst[k]:
             dst[k].copy_(v)
@@ -103,9 +120,9 @@ def clone(tree):
 def copy_cache(dst, src):
     """Copy cache ``src`` into ``dst`` in place, leaf by leaf: the same
     keys, shapes and dtypes (a server's static cache). Returns ``dst``."""
-    for k, d in dst.items():
+    for k, d in _items(dst):
         s = src[k]
-        if isinstance(d, dict):
+        if isinstance(d, (dict, list, tuple)):
             copy_cache(d, s)
         elif d.shape != s.shape or d.dtype != s.dtype:
             raise ValueError(f"cache leaf {k!r}: {tuple(s.shape)} {s.dtype} "
@@ -126,6 +143,10 @@ def init_layer(gen, cfg, spec, *, device):
     p = {"norm1": L.rmsnorm_init(d, dt, device=device)}
     if spec.mixer == "attn":
         p["mixer"] = A.attn_init(gen, cfg, device=device)
+    elif spec.mixer == "mla":
+        p["mixer"] = A.mla_init(gen, cfg, device=device)
+    elif spec.mixer == "mamba":
+        p["mixer"] = SSM.mamba_init(gen, cfg, device=device)
     else:
         p["mixer"] = R.rwkv6_init(gen, cfg, device=device)
     if spec.mlp != "none":
@@ -141,19 +162,21 @@ def init_layer(gen, cfg, spec, *, device):
 
 
 def _init_group(gen, cfg, specs, count, *, device):
-    """``count`` periods stacked on a leading axis. The stacked leaves are
-    allocated once and filled period by period, so the peak is the stack
-    plus one period (a full-size model is never held twice)."""
-    def period():
-        return {str(i): init_layer(gen, cfg, s, device=device)
-                for i, s in enumerate(specs)}
-
-    first = period()
-    out = _tree_map(lambda a: torch.empty((count,) + a.shape, dtype=a.dtype,
-                                          device=a.device), first)
-    _write(_index(out, 0), first)
-    for i in range(1, count):
-        _write(_index(out, i), period())
+    """``count`` periods stacked on a leading axis. Each layer's stacked
+    leaves are allocated when its first copy is drawn, and every copy is
+    written into them as it is drawn, so the peak is the stack plus one
+    layer (a full-size model is never held twice). The draws run period
+    by period, layer by layer."""
+    out = {}
+    for i in range(count):
+        for j, spec in enumerate(specs):
+            layer = init_layer(gen, cfg, spec, device=device)
+            if i == 0:
+                out[str(j)] = _tree_map(
+                    lambda a: torch.empty((count,) + a.shape, dtype=a.dtype,
+                                          device=a.device), layer)
+            _write(_index(out[str(j)], i), layer)
+            del layer
     return out
 
 
@@ -175,6 +198,17 @@ def init_params(cfg, gen: torch.Generator, *, device):
     for gi, (specs, count) in enumerate(cfg.groups):
         params["groups"][str(gi)] = _init_group(gen, cfg, specs, count,
                                                 device=device)
+    if cfg.mtp:
+        # the reference's multi-token prediction head: one more layer of
+        # the last group's first kind behind a projection of
+        # [norm(h), norm(embed(next))]
+        params["mtp"] = {
+            "proj": L.dense_init(gen, 2 * d, d, dtype=dt, device=device),
+            "norm_h": L.rmsnorm_init(d, dt, device=device),
+            "norm_e": L.rmsnorm_init(d, dt, device=device),
+            "layer": init_layer(gen, cfg, cfg.groups[-1][0][0],
+                                device=device),
+        }
     return params
 
 
@@ -209,14 +243,22 @@ def apply_layer(lp, spec, x, ctx, mode, cache, t):
 
     # ---- mixer sublayer ----
     h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    if spec.mixer == "attn":
+    if spec.mixer in ("attn", "mla"):
         if mode == "decode":
-            mix, new_cache["kv"] = A.attn_decode(lp["mixer"], h, cache["kv"],
-                                                 t, cfg, window=window)
+            fn = A.attn_decode if spec.mixer == "attn" else A.mla_decode
+            mix, new_cache["kv"] = fn(lp["mixer"], h, cache["kv"], t, cfg,
+                                      window=window)
         else:
-            mix, kv = A.attn_forward(lp["mixer"], h, ctx["positions"], cfg,
-                                     window=window, kernel=ctx["kernel"])
-            new_cache["kv"] = _prefill_kv_cache(kv, ctx)
+            fn = A.attn_forward if spec.mixer == "attn" else A.mla_forward
+            mix, kv = fn(lp["mixer"], h, ctx["positions"], cfg,
+                         window=window, kernel=ctx["kernel"])
+            new_cache["kv"] = _prefill_kv_cache(spec, kv, ctx)
+    elif spec.mixer == "mamba":
+        if mode == "decode":
+            mix, new_cache["ssm"] = SSM.mamba_decode(lp["mixer"], h,
+                                                     cache["ssm"], cfg)
+        else:
+            mix, new_cache["ssm"] = SSM.mamba_forward(lp["mixer"], h, cfg)
     elif spec.mixer == "rwkv6":
         prev = cache["rwkv"] if mode == "decode" else None
         mix, (last_x, state) = R.rwkv6_tmix(
@@ -243,14 +285,15 @@ def apply_layer(lp, spec, x, ctx, mode, cache, t):
     return x, new_cache
 
 
-def _prefill_kv_cache(kv, ctx):
+def _prefill_kv_cache(spec, kv, ctx):
+    """The prompt's keys and values (GQA) or latents (MLA) packed into
+    the layer's ring buffer."""
     Wc = ctx["cache_len"]
     positions = ctx["positions"]
     positions = positions[0] if positions.dim() == 2 else positions
-    k, v = kv
-    kb, pos = _pack_ring(k, positions, Wc)
-    vb, _ = _pack_ring(v, positions, Wc)
-    return {"k": kb, "v": vb, "pos": pos}
+    names = ("k", "v") if spec.mixer == "attn" else ("ckv", "krope")
+    (a, pos), (b, _) = (_pack_ring(full, positions, Wc) for full in kv)
+    return {names[0]: a, names[1]: b, "pos": pos}
 
 
 def apply_period(pp, specs, x, ctx, mode, cache, t):
@@ -339,6 +382,10 @@ def init_layer_cache(cfg, spec, batch, cache_len, dtype, *, device):
     c = {}
     if spec.mixer == "attn":
         c["kv"] = A.attn_cache_init(cfg, batch, cache_len, dtype, device=device)
+    elif spec.mixer == "mla":
+        c["kv"] = A.mla_cache_init(cfg, batch, cache_len, dtype, device=device)
+    elif spec.mixer == "mamba":
+        c["ssm"] = SSM.mamba_cache_init(cfg, batch, dtype, device=device)
     else:
         c["rwkv"] = R.rwkv6_cache_init(cfg, batch, dtype, device=device)
     if spec.mlp == "rwkv_cmix":

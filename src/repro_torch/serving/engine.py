@@ -6,7 +6,7 @@ an earlier turn) reuses the stored decode cache instead of encoding the
 prefix again. The same prefix hashing over the prompt's numpy bytes,
 hit/miss/re-decode logic and ``stats`` as the reference
 ``repro.serving.engine.LLMServer``, for the cache families the port has
-(GQA KV ring buffers, RWKV6 states).
+(GQA KV ring buffers, MLA latents, Mamba and RWKV6 states).
 
 The server keeps ONE decode cache of its own, with the token and the
 position a decode step reads, and every step writes that cache in
@@ -18,13 +18,23 @@ replayed at every step after the position is filled in. A prefill
 its cache into the static one. The prefix cache holds snapshots, copied
 when an entry is stored, so a stored entry stays byte-identical however
 many later requests replay over the static cache.
+
+One fault of the reference is not inherited. A prompt identical to a
+stored one has no token left to encode, and the reference decodes the
+prompt's last token again to get logits: harmless for a KV ring buffer
+(the slot takes the same K and V again), but a recurrent state (RWKV6,
+Mamba) folds that token in a second time and the answer differs from a
+cold server's. The port keeps each stored prompt's last logits beside
+its entry (``prefix_logits``, under the same key) and an exact hit
+reuses them, decoding nothing; the stats are the reference's, which
+never counted that decode.
 """
 from __future__ import annotations
 
 import functools
 import hashlib
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +50,7 @@ class Request:
     rid: str
     prompt: np.ndarray                  # (S,) int32
     max_new_tokens: int = 16
+    cond: Optional[np.ndarray] = None   # refused: no conditioning frontend yet
     eos_id: Optional[int] = None
 
 
@@ -57,21 +68,25 @@ def _h(arr: np.ndarray) -> str:
 
 def _decode_logits(state, *, cfg):
     """One decode step over the server's static state, written in place;
-    returns the logits (B, 1, V)."""
+    returns the logits (B, 1, V). The window is a value leaf of the
+    state, so a graph is keyed by it."""
     return T.decode_step(state["params"], cfg, state["tokens"],
-                         state["cache"], state["t"])[0]
+                         state["cache"], state["t"],
+                         window_attn=state["window"])[0]
 
 
 class LLMServer:
     """Greedy server for one architecture, one request at a time (B=1),
     on ``device`` (``cuda`` unless the caller asks for the CPU); ``params``
-    must live there. The reference's ``batch_size``, ``window`` and
-    ``cond`` inputs have no caller here and are left out (a windowed
-    cache is ``transformer.decode_step(window_attn=...)``). ``jit=False``
+    must live there. ``window`` masks the plain attention layers of both
+    prefill and decode to that many positions (0: full causal), as the
+    reference's does. ``batch_size`` is stored as ``B`` and read by
+    nothing, as in the reference, which serves B=1 too. ``jit=False``
     runs the decode step eagerly, as the reference's server would
     without ``jax.jit``."""
 
-    def __init__(self, cfg, params, *, cache_len: int = 256,
+    def __init__(self, cfg, params, *, batch_size: int = 1,
+                 cache_len: int = 256, window: int = 0,
                  enable_prefix_cache: bool = True, jit: bool = True,
                  device="cuda"):
         self.device = _device.resolve(device)
@@ -81,13 +96,18 @@ class LLMServer:
                              f"{self.device}")
         self.cfg = cfg
         self.params = params
+        self.B = batch_size
         self.cache_len = cache_len
+        self.window = window
         self.enable_prefix_cache = enable_prefix_cache
         self.prefix_cache: Dict[Tuple[str, int], Tuple[dict, int]] = {}
+        # each stored prompt's last logits, under its entry's key
+        self.prefix_logits: Dict[Tuple[str, int], torch.Tensor] = {}
         self.stats = {"prefix_hits": 0, "prefix_misses": 0,
                       "prefill_tokens": 0, "decode_steps": 0}
         self._prefill = functools.partial(T.prefill, cfg=cfg,
-                                          cache_len=cache_len)
+                                          cache_len=cache_len,
+                                          window_attn=window)
         # the decode step's static state: the cache it writes in place and
         # the token and position it reads
         dev = self.device
@@ -95,7 +115,8 @@ class LLMServer:
             "params": params,
             "cache": T.init_cache(cfg, 1, cache_len, device=dev),
             "tokens": torch.zeros((1, 1), dtype=torch.int64, device=dev),
-            "t": torch.zeros((), dtype=torch.int32, device=dev)}
+            "t": torch.zeros((), dtype=torch.int32, device=dev),
+            "window": window}
         step = functools.partial(_decode_logits, cfg=cfg)
         self._decode_step = Graphed(step) if jit else step
 
@@ -136,23 +157,25 @@ class LLMServer:
         if prompt.ndim != 1:
             raise NotImplementedError("multi-codebook prompts are not "
                                       "ported yet (ROADMAP item 11)")
+        if req.cond is not None:
+            raise NotImplementedError("conditioning inputs (Request.cond) "
+                                      "are not ported yet (ROADMAP item 11)")
         S = len(prompt)
         hit = self._lookup_prefix(prompt)
         # the prompt goes to the device once; suffix tokens are views of it
         tokens = torch.as_tensor(prompt[None], device=self.device)
 
         cache = self._state["cache"]
+        key = (_h(prompt), S)
         if hit is not None and hit[0] >= 1:
             plen, stored, _ = hit
             T.copy_cache(cache, stored)
             self.stats["prefix_hits"] += 1
-            # feed the remaining prompt tokens through decode steps
-            logits = None
+            # feed the remaining prompt tokens through decode steps; a
+            # prompt identical to the stored one takes its stored logits
+            logits = self.prefix_logits[key] if plen == S else None
             for i in range(plen, S):
                 logits = self._decode(tokens[:, i:i + 1], i)
-            if logits is None:   # prompt identical to the cached prefix:
-                # decode its last token again to get logits (cheap)
-                logits = self._decode(tokens[:, S - 1:S], S - 1)
             encoded = S - plen
         else:
             self.stats["prefix_misses"] += 1
@@ -162,8 +185,10 @@ class LLMServer:
             encoded = S
         self.stats["prefill_tokens"] += encoded
 
-        if self.enable_prefix_cache:
-            self.prefix_cache[(_h(prompt), S)] = (T.clone(cache), S)
+        if self.enable_prefix_cache and encoded:
+            # (an exact hit's entry is already this cache and these logits)
+            self.prefix_cache[key] = (T.clone(cache), S)
+            self.prefix_logits[key] = logits
 
         tok = self._greedy(logits)
         out = [tok[0, 0]]
@@ -178,3 +203,6 @@ class LLMServer:
         generated = torch.stack(out).cpu().numpy().astype(np.int32)
         return Result(rid=req.rid, tokens=generated,
                       prefix_hit=hit is not None, prefill_tokens=encoded)
+
+    def serve(self, requests: List[Request]) -> List[Result]:
+        return [self.serve_one(r) for r in requests]

@@ -48,6 +48,19 @@ TEXT = "microbert"
 ALL = ("text", "vitals", "scene")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads while this module runs, as
+    ``tests/test_torch_llm.py`` does: six test processes share the
+    machine's cores, and small ops spread over every core wait at thread
+    barriers (the reduced Jamba server case took 108 s at the default
+    count in a full parallel run)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs():
     return jax_tiny(text_encoder=TEXT), tiny(text_encoder=TEXT)
 
@@ -316,8 +329,10 @@ def test_refusion_never_reencodes_cached_modalities(zoo):
 # ---------------------------------------------------------------- LLMServer
 
 def _two_layers(cfg):
-    return dataclasses.replace(cfg, groups=((cfg.groups[0][0], 2),),
-                               n_layers=2, dtype="float32")
+    """Each group's period stacked twice."""
+    groups = tuple((specs, 2) for specs, _ in cfg.groups)
+    return dataclasses.replace(cfg, groups=groups, dtype="float32",
+                               n_layers=sum(2 * len(s) for s, _ in groups))
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -328,15 +343,34 @@ def llm(request):
     return jcfg, cfg, jp, from_jax_numpy(jax.device_get(jp), "cpu")
 
 
-def _mix(srv, request_cls):
-    system = np.arange(1, 33, dtype=np.int32)
-    out = [srv.serve_one(request_cls("warm", system, max_new_tokens=1))]
+SYSTEM = np.arange(1, 33, dtype=np.int32)
+
+
+def _mix(srv, request_cls, *, again=True):
+    out = [srv.serve_one(request_cls("warm", SYSTEM, max_new_tokens=1))]
     for i in range(3):
         u = np.array([40 + i, 50 + i], np.int32)
         out.append(srv.serve_one(request_cls(
-            f"u{i}", np.concatenate([system, u]), max_new_tokens=6)))
-    out.append(srv.serve_one(request_cls("again", system, max_new_tokens=3)))
+            f"u{i}", np.concatenate([SYSTEM, u]), max_new_tokens=6)))
+    if again:
+        out.append(srv.serve_one(request_cls("again", SYSTEM,
+                                             max_new_tokens=3)))
     return out
+
+
+def _want(jcfg, jp, **kw):
+    """The reference server's results and stats on the mix, its exact
+    repeat ("again") served by its cold server: the reference decodes an
+    exact repeat's last token a second time, which steps a recurrent
+    state twice (RWKV6, Mamba); the port reuses the stored logits and
+    returns the cold server's tokens (``tests/test_torch_llm.py``)."""
+    warm = JServer(jcfg, jp, **kw)
+    want = _mix(warm, JRequest)
+    stats = dict(warm.stats)
+    warm.enable_prefix_cache = False     # now a cold server, its programs built
+    tokens = [r.tokens for r in want[:-1]] + [
+        warm.serve_one(JRequest("again", SYSTEM, max_new_tokens=3)).tokens]
+    return want, tokens, stats
 
 
 def test_llm_server_graphed_matches_eager_and_reference(llm):
@@ -344,21 +378,45 @@ def test_llm_server_graphed_matches_eager_and_reference(llm):
     (arch, B=1, cache_len) with ``jit``, none without; tokens and stats
     equal the eager server's and the reference server's."""
     jcfg, cfg, jp, p = llm
-    want = _mix(JServer(jcfg, jp, cache_len=64), JRequest)
-    jstats = JServer(jcfg, jp, cache_len=64)
-    _mix(jstats, JRequest)
+    want, want_tokens, jstats = _want(jcfg, jp, cache_len=64)
     runs = {}
     for jit in (True, False):
         srv = LLMServer(cfg, p, cache_len=64, jit=jit, device="cpu")
         runs[jit] = (srv, _mix(srv, Request))
     (graphed, res), (eager, eager_res) = runs[True], runs[False]
     assert graphed.compile_count() == 1 and eager.compile_count() == 0
-    assert graphed.stats == eager.stats == jstats.stats
-    for a, b, c in zip(res, eager_res, want):
+    assert graphed.stats == eager.stats == jstats
+    for a, b, c, tokens in zip(res, eager_res, want, want_tokens,
+                               strict=True):
         np.testing.assert_array_equal(a.tokens, b.tokens)
-        np.testing.assert_array_equal(a.tokens, np.asarray(c.tokens))
+        np.testing.assert_array_equal(a.tokens, np.asarray(tokens))
         assert (a.prefix_hit, a.prefill_tokens) == (c.prefix_hit,
                                                     c.prefill_tokens)
+
+
+def test_windowed_server_graph_is_keyed_per_window():
+    """A windowed server's decode step is one graph per window: the
+    window is a value in the step's state, so the same step over the same
+    cache at another window is another signature. Tokens and stats equal
+    the reference's windowed server's and the eager windowed server's."""
+    arch = "mistral-nemo-12b"
+    jcfg = _two_layers(jreduced(jget_config(arch), d_model=128))
+    cfg = _two_layers(reduced(get_config(arch), d_model=128))
+    jp = JT.init_params(jcfg, jax.random.PRNGKey(1))
+    p = from_jax_numpy(jax.device_get(jp), "cpu")
+    jsrv = JServer(jcfg, jp, cache_len=64, window=8)
+    want = _mix(jsrv, JRequest, again=False)
+    srv = LLMServer(cfg, p, cache_len=64, window=8, device="cpu")
+    eager = LLMServer(cfg, p, cache_len=64, window=8, jit=False, device="cpu")
+    res, eager_res = _mix(srv, Request, again=False), _mix(eager, Request,
+                                                           again=False)
+    assert srv.compile_count() == 1 and srv.stats == jsrv.stats
+    for a, b, c in zip(res, eager_res, want, strict=True):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        np.testing.assert_array_equal(a.tokens, np.asarray(c.tokens))
+    srv._state["window"] = 0
+    srv._decode(torch.zeros((1, 1), dtype=torch.int64), 40)
+    assert srv.compile_count() == 2
 
 
 def test_llm_server_snapshots_survive_the_static_cache(llm):
@@ -385,6 +443,9 @@ def test_llm_server_snapshots_survive_the_static_cache(llm):
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree

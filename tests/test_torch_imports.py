@@ -1,6 +1,7 @@
-"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` run
-on a machine without JAX, so they import neither ``jax``/``jaxlib`` nor
-the JAX package ``repro``."""
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
+port's examples (``examples/torch_*.py``) run on a machine without JAX,
+so they import neither ``jax``/``jaxlib`` nor the JAX package
+``repro``."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 BANNED = {"jax", "jaxlib", "repro"}
 
 
@@ -50,6 +51,7 @@ def test_package_imports_with_jax_unavailable():
         "import repro_torch.training.emsnet_trainer\n"
         "import repro_torch.training.checkpoint\n"
         "import repro_torch.fleet, repro_torch.distributed.sharding\n"
+        "import repro_torch.models.ssm, repro_torch.serving.kv_cache\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
     )

@@ -82,6 +82,38 @@ def test_quantize_rowwise_matches_jax(shape):
     np.testing.assert_array_equal(sp.numpy(), np.asarray(sr))
 
 
+@pytest.mark.parametrize("shape", [(64, 312), (30, 6), (8, 4100)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_quantize_half_input_matches_jax(dtype, shape):
+    """bf16 and fp16 x: the Pallas body casts x to float32 first, and so
+    does the port (the CUDA kernel as it loads each element, the plain
+    version here): against the Pallas kernel in interpret mode as the
+    float32 cases are, and bit-equal to the port's own float32 call on
+    the up-cast rows."""
+    x = (np.random.default_rng(sum(shape)).normal(size=shape) * 2.0) \
+        .astype(np.float32)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    qj, sj = JO.quantize_rowwise(jnp.asarray(x, getattr(jnp, dtype)),
+                                 interpret=True)
+    qp, sp = PO.quantize_rowwise(tx)
+    assert qp.dtype == torch.int8 and sp.dtype == torch.float32
+    _assert_q_matches(qp, sp, np.asarray(qj), np.asarray(sj))
+    q32, s32 = PO.quantize_rowwise(tx.float())
+    assert torch.equal(qp, q32) and torch.equal(sp, s32)
+
+
+def test_aligned_rows_follow_the_element_size():
+    """The rows form's one-load slots hold 4 elements: 16 bytes of
+    float32, 8 of bf16 or fp16; a view's rows must start on that."""
+    for dtype, nbytes in ((torch.float32, 16), (torch.bfloat16, 8),
+                          (torch.float16, 8)):
+        full = torch.zeros((64, 316), dtype=dtype)
+        assert full.data_ptr() % nbytes == 0
+        assert PK._aligned(full[:, :312]) and PK._aligned(full[:, 4:])
+        assert not PK._aligned(full[:, 1:313]) and not PK._aligned(full[:, 2:])
+        assert PK._aligned(full[:1, 0:1].reshape(1, 1).expand(1, 3))
+
+
 def test_quantize_zero_row_and_half_ties():
     """A row whose max is 127 has scale exactly 1.0, so x.5 entries are
     ties: they round half to even, as jnp.round does."""
