@@ -2,16 +2,15 @@
 ``get_emsnet_config(**kw)``) and the LLM zoo's registry,
 ``get_config(arch_id)``.
 
-The registry names only the architectures the port serves: dense GQA
+The registry names the reference's ten architectures: dense GQA
 (Mistral-NeMo, CodeQwen1.5, Nemotron-4, Qwen1.5), RWKV6, MoE (OLMoE),
-the Mamba/attention hybrid (Jamba) and MLA with MoE (DeepSeek-V3). The
-JAX package's other architectures (cross-attention, musicgen codebooks)
-are known by name and refused with an error that points at ROADMAP item
-11, where they are queued.
+the Mamba/attention hybrid (Jamba), MLA with MoE (DeepSeek-V3), gated
+cross-attention over image patches (Llama-3.2-Vision) and the
+multi-codebook decoder with a conditioning sublayer (MusicGen).
 """
 from . import (codeqwen15_7b, deepseek_v3_671b, emsnet, jamba_v01_52b,
-               mistral_nemo_12b, nemotron_4_15b, olmoe_1b_7b, qwen15_32b,
-               rwkv6_1b6)
+               llama32_vision_11b, mistral_nemo_12b, musicgen_large,
+               nemotron_4_15b, olmoe_1b_7b, qwen15_32b, rwkv6_1b6)
 from .base import (SHAPES, InputShape, LayerSpec,  # noqa: F401
                    MambaConfig, MLAConfig, ModelConfig, reduced)
 
@@ -24,19 +23,14 @@ _REGISTRY = {
     "qwen1.5-32b": qwen15_32b.config,
     "jamba-v0.1-52b": jamba_v01_52b.config,
     "deepseek-v3-671b": deepseek_v3_671b.config,
+    "llama-3.2-vision-11b": llama32_vision_11b.config,
+    "musicgen-large": musicgen_large.config,
 }
 
 ARCHS = tuple(_REGISTRY)
 
-# the reference's other architectures, still to port
-NOT_PORTED = ("musicgen-large", "llama-3.2-vision-11b")
-
 
 def get_config(name: str) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP item 11); the port "
-            f"serves {ARCHS}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")
     return _REGISTRY[name]()

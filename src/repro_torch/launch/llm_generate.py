@@ -2,12 +2,17 @@
 
 The paper's feature cache applied to autoregressive state: requests that
 extend an already-served prompt reuse the stored decode cache (a KV ring
-buffer, MLA latents, or a Mamba or RWKV state) instead of encoding the
-prefix again. Runs the reduced variant of every ported architecture, one
-line each, on ``cuda`` unless ``--device cpu`` is given:
-mistral-nemo-12b, rwkv6-1.6b, olmoe-1b-7b (MoE), codeqwen1.5-7b,
-nemotron-4-15b, qwen1.5-32b, jamba-v0.1-52b (Mamba + attention) and
-deepseek-v3-671b (MLA + MoE).
+buffer, MLA latents, a Mamba or RWKV state, or cross-attention keys and
+values) instead of encoding the prefix again. Runs the reduced variant
+of every architecture, one line each, on ``cuda`` unless ``--device
+cpu`` is given: mistral-nemo-12b, rwkv6-1.6b, olmoe-1b-7b (MoE),
+codeqwen1.5-7b, nemotron-4-15b, qwen1.5-32b, jamba-v0.1-52b (Mamba +
+attention), deepseek-v3-671b (MLA + MoE), llama-3.2-vision-11b (gated
+cross-attention over a stub image) and musicgen-large (4 codebooks,
+conditioned on stub text features). A conditioned arch's requests carry
+one stub input (cond_seq_len, cond_dim) drawn from a numpy generator
+with seed 0; a multi-codebook arch's prompts hold the same token values
+in each codebook's column, offset by the codebook.
 
   python -m repro_torch.launch.llm_generate [--arch olmoe-1b-7b] [--device cpu]
 
@@ -28,6 +33,25 @@ from ..models import transformer as T
 from ..serving.engine import LLMServer, Request
 
 
+def codebooks(cfg, tokens):
+    """``tokens`` (S,) as a prompt of ``cfg``: itself, or (S, ncb) with
+    codebook c's column offset by c."""
+    if cfg.n_codebooks == 1:
+        return tokens
+    return np.stack([(tokens + c) % cfg.vocab_size
+                     for c in range(cfg.n_codebooks)], axis=-1).astype(np.int32)
+
+
+def stub_cond(cfg, seed=0):
+    """The stub frontend's features (cond_seq_len, cond_dim) of a
+    conditioned arch, float32 from a numpy generator with ``seed``; else
+    None."""
+    if not cfg.cond_dim:
+        return None
+    return np.random.default_rng(seed).normal(
+        size=(cfg.cond_seq_len, cfg.cond_dim)).astype(np.float32)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=None,
@@ -39,7 +63,7 @@ def main(argv=None):
     archs = [args.arch] if args.arch else list(ARCHS)
     try:
         cfgs = {arch: reduced(get_config(arch)) for arch in archs}
-    except (NotImplementedError, KeyError) as e:
+    except KeyError as e:
         raise SystemExit(f"llm_generate: {e.args[0]}") from None
     dev = _device.resolve(args.device)
 
@@ -49,14 +73,17 @@ def main(argv=None):
                                device=dev)
         srv = LLMServer(cfg, params, cache_len=96, device=dev)
 
-        system_prompt = np.arange(1, 33, dtype=np.int32)     # shared prefix
-        users = [np.array([40 + i, 50 + i], np.int32) for i in range(4)]
+        system_prompt = codebooks(cfg, np.arange(1, 33, dtype=np.int32))
+        users = [codebooks(cfg, np.array([40 + i, 50 + i], np.int32))
+                 for i in range(4)]
+        cond = stub_cond(cfg)
 
         t0 = time.perf_counter()
-        srv.serve_one(Request("warm", system_prompt, max_new_tokens=1))
+        srv.serve_one(Request("warm", system_prompt, max_new_tokens=1,
+                              cond=cond))
         results = [srv.serve_one(Request(f"u{i}",
                                          np.concatenate([system_prompt, u]),
-                                         max_new_tokens=8))
+                                         max_new_tokens=8, cond=cond))
                    for i, u in enumerate(users)]
         dt = time.perf_counter() - t0
 

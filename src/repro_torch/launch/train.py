@@ -75,8 +75,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.model != "emsnet":
         raise SystemExit(f"--model {args.model}: LM training belongs to "
-                         "ROADMAP queue 1 item 11 (the rest of the LLM "
-                         "zoo), which the port does not have yet")
+                         "ROADMAP queue 1 item 11 (the LLM zoo's last "
+                         "part), which the port does not have yet")
     train_emsnet(args)
 
 

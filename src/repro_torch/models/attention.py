@@ -1,6 +1,6 @@
 """Attention of the LLM zoo: GQA self-attention with sliding windows,
-DeepSeek's multi-head latent attention (MLA) and the ring-buffer decode
-caches.
+cross-attention over conditioning features, DeepSeek's multi-head latent
+attention (MLA) and the ring-buffer decode caches.
 
 Prefill attention follows the reference's kernel switch:
 ``kernel="jnp"`` (the default, and what the reference's server runs) is
@@ -29,7 +29,13 @@ form: scores and context in the latent space, float32, against a ring
 buffer of latents (``ckv``, ``krope``, ``pos``) written in place. The
 reference writes neither in a Pallas kernel, so neither has one here.
 
-Cross-attention is not ported yet (ROADMAP item 11).
+Cross-attention (Llama-3.2-Vision's gated layers, MusicGen's
+conditioning sublayer) follows the reference too: ``cross_kv`` projects
+the conditioning features to keys and values once (the decode cache
+keeps them), and ``cross_attn_forward`` attends every query to every
+conditioning position through ``flash_attention_plain(causal=False)``
+on prefill and decode alike, as the reference's calls its plain blocked
+attention and takes no kernel switch. A cross projection has no bias.
 """
 from __future__ import annotations
 
@@ -64,13 +70,14 @@ def ring_write(buf, new, t):
 
 
 # ----------------------------------------------------------------------
-# GQA self-attention
+# GQA self-attention and cross-attention
 # ----------------------------------------------------------------------
 
-def attn_init(gen, cfg, *, device):
+def attn_init(gen, cfg, *, cross=False, device):
+    """``cross``: a cross-attention projection, never with a QKV bias."""
     d = cfg.d_model
     dt = L.pdtype(cfg)
-    kw = dict(bias=cfg.qkv_bias, dtype=dt, device=device)
+    kw = dict(bias=cfg.qkv_bias and not cross, dtype=dt, device=device)
     return {
         "wq": L.dense_init(gen, d, cfg.q_dim, **kw),
         "wk": L.dense_init(gen, d, cfg.kv_dim, **kw),
@@ -116,6 +123,35 @@ def attn_decode(p, x, cache, t, cfg, *, window=0):
                                 scale=1.0 / math.sqrt(D))
     out = L.dense(p["wo"], out.reshape(B, 1, H * D))
     return out, {"k": kbuf, "v": vbuf, "pos": pos}
+
+
+def cross_attn_forward(p, x, cond_kv, cfg):
+    """Cross-attention of ``x`` (B, S, d) over conditioning keys and
+    values ``cond_kv`` = (k, v), each (B, Cs, KV, D) from ``cross_kv``:
+    every query sees every conditioning position."""
+    B, S, _ = x.shape
+    H, D = cfg.n_heads, cfg.head_dim
+    q = L.dense(p["wq"], x).reshape(B, S, H, D)
+    k, v = cond_kv
+    out = flash_attention_plain(q, k, v, causal=False)
+    return L.dense(p["wo"], out.reshape(B, S, H * D))
+
+
+def cross_kv(p, cond, cfg):
+    """Project conditioning embeddings (B, Cs, d) to (k, v), each (B, Cs,
+    KV, D): once a prompt, cached thereafter."""
+    B, Cs, _ = cond.shape
+    KV, D = cfg.n_kv_heads, cfg.head_dim
+    k = L.dense(p["wk"], cond).reshape(B, Cs, KV, D)
+    v = L.dense(p["wv"], cond).reshape(B, Cs, KV, D)
+    return k, v
+
+
+def cross_cache_init(cfg, batch, dtype, *, device):
+    """A cross layer's cache: the conditioning keys and values."""
+    shape = (batch, cfg.cond_seq_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def attn_cache_init(cfg, batch, length, dtype, *, device):

@@ -25,15 +25,28 @@ Ported mixers: ``attn`` (GQA, QKV bias, sliding windows), ``mla``
 (DeepSeek's latent attention: plain attention on prefill, whatever
 ``kernel`` says, as the reference's; the absorbed form on decode),
 ``mamba`` (Jamba's selective SSM, its cache the reference's
-``(conv_state, ssm_state)`` tuple) and ``rwkv6``; MLPs: ``dense``
-(swiglu, relu2), ``moe`` (sort-based dispatch, optional shared experts;
-its load-balance loss is dropped on prefill and decode, as the reference
-drops it) and ``rwkv_cmix``. ``init_params`` builds the multi-token
-prediction head (``params["mtp"]``) of an ``mtp`` config, so layouts and
-converted weights match; prefill and decode never read it (its forward
-belongs to training). Cross-attention, the conditioning sublayer,
-musicgen codebooks and conditioning frontends raise
-``NotImplementedError`` naming ROADMAP item 11, where they are queued.
+``(conv_state, ssm_state)`` tuple), ``rwkv6`` and ``cross_attn``
+(Llama-3.2-Vision's gated cross-attention layer: ``tanh(gate_attn)``
+times the attention over the conditioning features, its float32 gate
+stacked ``(count,)``); MLPs: ``dense`` (swiglu, relu2), ``moe``
+(sort-based dispatch, optional shared experts; its load-balance loss is
+dropped on prefill and decode, as the reference drops it) and
+``rwkv_cmix``. A ``spec.cross`` layer adds MusicGen's conditioning
+sublayer (``norm_c``, ``cross``) between mixer and MLP.
+
+Conditioning: a ``cond_dim`` config takes ``prefill(..., cond=(B, Cs,
+cond_dim))``, cast to the weights' dtype and projected by ``cond_proj``;
+each cross layer projects it to keys and values once, and the cache
+keeps them (``cross`` for the mixer, ``cond`` for the sublayer), which
+prefill fills and decode passes through unchanged, so a captured decode
+graph reads them in place. Cross-attention is plain PyTorch whatever
+``kernel`` says, as the reference's. A multi-codebook config
+(``n_codebooks`` > 1, MusicGen) takes tokens (B, S, ncb), embeds them as
+the sum of one table a codebook and returns logits (B, S, ncb, V).
+
+``init_params`` builds the multi-token prediction head (``params["mtp"]``)
+of an ``mtp`` config, so layouts and converted weights match; prefill and
+decode never read it (its forward belongs to training, ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -45,30 +58,32 @@ from . import moe as M
 from . import rwkv as R
 from . import ssm as SSM
 
-MIXERS = ("attn", "mla", "mamba", "rwkv6")
-
-
-def _not_ported(what):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP item 11)")
+MIXERS = ("attn", "mla", "mamba", "rwkv6", "cross_attn")
+MLPS = ("dense", "moe", "rwkv_cmix", "none")
 
 
 def _check_spec(spec):
     if spec.mixer not in MIXERS:
-        _not_ported(f"mixer {spec.mixer!r}")
-    if spec.cross:
-        _not_ported("the conditioning cross-attention sublayer (spec.cross)")
-    if spec.mlp not in ("dense", "moe", "rwkv_cmix", "none"):
-        _not_ported(f"mlp {spec.mlp!r}")
+        raise ValueError(f"mixer {spec.mixer!r}: one of {MIXERS}")
+    if spec.mlp not in MLPS:
+        raise ValueError(f"mlp {spec.mlp!r}: one of {MLPS}")
 
 
 def _check_cfg(cfg):
-    if cfg.n_codebooks != 1:
-        _not_ported("multi-codebook (musicgen) embeddings")
-    if cfg.cond_dim:
-        _not_ported("a conditioning frontend (cond_dim)")
     for specs, _ in cfg.groups:
         for spec in specs:
             _check_spec(spec)
+
+
+def _check_cond(cfg, cond):
+    """A ``cond_dim`` config needs ``cond`` (B, Cs, cond_dim); any other
+    takes none."""
+    if cfg.cond_dim and cond is None:
+        raise ValueError(f"{cfg.name} conditions on (B, Cs, {cfg.cond_dim}) "
+                         "features: pass cond=")
+    if cond is not None and not cfg.cond_dim:
+        raise ValueError(f"{cfg.name} has no conditioning frontend "
+                         "(cond_dim 0): cond must be None")
 
 
 # ----------------------------------------------------------------------
@@ -147,8 +162,16 @@ def init_layer(gen, cfg, spec, *, device):
         p["mixer"] = A.mla_init(gen, cfg, device=device)
     elif spec.mixer == "mamba":
         p["mixer"] = SSM.mamba_init(gen, cfg, device=device)
-    else:
+    elif spec.mixer == "rwkv6":
         p["mixer"] = R.rwkv6_init(gen, cfg, device=device)
+    else:
+        p["mixer"] = A.attn_init(gen, cfg, cross=True, device=device)
+        # llama-vision's gate starts at 0: the branch adds nothing until
+        # trained
+        p["gate_attn"] = torch.zeros((), dtype=torch.float32, device=device)
+    if spec.cross:
+        p["norm_c"] = L.rmsnorm_init(d, dt, device=device)
+        p["cross"] = A.attn_init(gen, cfg, cross=True, device=device)
     if spec.mlp != "none":
         p["norm2"] = L.rmsnorm_init(d, dt, device=device)
     if spec.mlp == "dense":
@@ -193,8 +216,11 @@ def init_params(cfg, gen: torch.Generator, *, device):
         "groups": {},
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(gen, d, cfg.vocab_size, dtype=dt,
-                                         device=device)
+        params["lm_head"] = L.dense_init(
+            gen, d, cfg.n_codebooks * cfg.vocab_size, dtype=dt, device=device)
+    if cfg.cond_dim:
+        params["cond_proj"] = L.dense_init(gen, cfg.cond_dim, d, dtype=dt,
+                                           device=device)
     for gi, (specs, count) in enumerate(cfg.groups):
         params["groups"][str(gi)] = _init_group(gen, cfg, specs, count,
                                                 device=device)
@@ -266,7 +292,27 @@ def apply_layer(lp, spec, x, ctx, mode, cache, t):
             state=prev["state"] if prev else None,
             x_prev=prev["tshift"] if prev else None)
         new_cache["rwkv"] = {"tshift": last_x, "state": state}
+    else:                                           # cross_attn
+        if mode == "decode":
+            ckv = (cache["cross"]["k"], cache["cross"]["v"])
+            new_cache["cross"] = cache["cross"]     # unchanged, not copied
+        else:
+            ckv = A.cross_kv(lp["mixer"], ctx["cond_x"], cfg)
+            new_cache["cross"] = {"k": ckv[0], "v": ckv[1]}
+        mix = A.cross_attn_forward(lp["mixer"], h, ckv, cfg)
+        mix = torch.tanh(lp["gate_attn"]).to(mix.dtype) * mix
     x = x + mix
+
+    # ---- optional conditioning cross-attention sublayer (musicgen) ----
+    if spec.cross:
+        h = L.rmsnorm(lp["norm_c"], x, cfg.norm_eps)
+        if mode == "decode":
+            ckv = (cache["cond"]["k"], cache["cond"]["v"])
+            new_cache["cond"] = cache["cond"]
+        else:
+            ckv = A.cross_kv(lp["cross"], ctx["cond_x"], cfg)
+            new_cache["cond"] = {"k": ckv[0], "v": ckv[1]}
+        x = x + A.cross_attn_forward(lp["cross"], h, ckv, cfg)
 
     # ---- mlp sublayer ----
     if spec.mlp != "none":
@@ -310,35 +356,58 @@ def apply_period(pp, specs, x, ctx, mode, cache, t):
 # ----------------------------------------------------------------------
 
 def _embed_tokens(params, cfg, tokens):
-    return params["embed"]["emb"][0][tokens.long()]
+    """(B, S) tokens, or (B, S, ncb) for a multi-codebook config: the sum
+    of each codebook's embedding, in the reference's order."""
+    emb = params["embed"]["emb"]                       # (ncb, V, d)
+    tokens = tokens.long()
+    if cfg.n_codebooks == 1:
+        return emb[0][tokens]
+    return sum(emb[c][tokens[..., c]] for c in range(cfg.n_codebooks))
 
 
 def _logits(params, cfg, x):
     if cfg.tie_embeddings:
-        return x @ params["embed"]["emb"][0].T
-    return L.dense(params["lm_head"], x)
+        w = params["embed"]["emb"].reshape(cfg.n_codebooks * cfg.vocab_size,
+                                           cfg.d_model)
+        out = x @ w.T
+    else:
+        out = L.dense(params["lm_head"], x)
+    if cfg.n_codebooks > 1:
+        out = out.reshape(out.shape[:-1] + (cfg.n_codebooks, cfg.vocab_size))
+    return out
 
 
-def _make_ctx(cfg, positions, *, kernel="jnp", window_attn=0, cache_len=0,
-              moe_pre=None):
-    return {"cfg": cfg, "positions": positions, "kernel": kernel,
-            "window_attn": window_attn, "cache_len": cache_len,
-            "moe_pre": moe_pre}
+def _cond_x(params, cfg, cond):
+    """The conditioning features in the model's width: ``cond`` cast to
+    the weights' dtype, then ``cond_proj``."""
+    if cond is None:
+        return None
+    return L.dense(params["cond_proj"], cond.to(L.pdtype(cfg)))
 
 
-def prefill(params, cfg, tokens, *, cache_len=None, window_attn=0,
-            kernel="jnp"):
-    """Process a full prompt (B, S); returns (last_token_logits (B, 1, V),
-    cache). ``kernel``: "jnp" (plain attention) or "pallas" (the flash
-    kernel)."""
+def _make_ctx(cfg, positions, cond_x=None, *, kernel="jnp", window_attn=0,
+              cache_len=0, moe_pre=None):
+    return {"cfg": cfg, "positions": positions, "cond_x": cond_x,
+            "kernel": kernel, "window_attn": window_attn,
+            "cache_len": cache_len, "moe_pre": moe_pre}
+
+
+def prefill(params, cfg, tokens, *, cond=None, cache_len=None,
+            window_attn=0, kernel="jnp"):
+    """Process a full prompt (B, S), or (B, S, ncb); returns
+    (last_token_logits (B, 1, V) or (B, 1, ncb, V), cache). ``cond``: the
+    conditioning features (B, Cs, cond_dim) a ``cond_dim`` config needs.
+    ``kernel``: "jnp" (plain attention) or "pallas" (the flash kernel)."""
     _check_cfg(cfg)
+    _check_cond(cfg, cond)
     B, Sq = tokens.shape[0], tokens.shape[1]
     if cache_len is None:
         cache_len = Sq
     positions = torch.arange(Sq, dtype=torch.int32,
                              device=tokens.device).expand(B, Sq)
     x = _embed_tokens(params, cfg, tokens)
-    ctx = _make_ctx(cfg, positions, kernel=kernel, window_attn=window_attn,
+    ctx = _make_ctx(cfg, positions, _cond_x(params, cfg, cond),
+                    kernel=kernel, window_attn=window_attn,
                     cache_len=cache_len)
     caches = {}
     for gi, (specs, count) in enumerate(cfg.groups):
@@ -355,9 +424,10 @@ def prefill(params, cfg, tokens, *, cache_len=None, window_attn=0,
 
 def decode_step(params, cfg, tokens, cache, t, *, window_attn=0,
                 moe_pre=None):
-    """One-token decode. tokens: (B, 1); t: the position (int or 0-d
-    tensor). Writes the step into ``cache`` in place; returns (logits
-    (B, 1, V), cache). ``moe_pre``: a callable applied to each MoE
+    """One-token decode. tokens: (B, 1), or (B, 1, ncb); t: the position
+    (int or 0-d tensor). Writes the step into ``cache`` in place (the
+    cross and cond leaves are read, never written); returns (logits
+    (B, 1, V) or (B, 1, ncb, V), cache). ``moe_pre``: a callable applied to each MoE
     layer's input before its dispatch (the reference's hook)."""
     _check_cfg(cfg)
     x = _embed_tokens(params, cfg, tokens)
@@ -386,8 +456,12 @@ def init_layer_cache(cfg, spec, batch, cache_len, dtype, *, device):
         c["kv"] = A.mla_cache_init(cfg, batch, cache_len, dtype, device=device)
     elif spec.mixer == "mamba":
         c["ssm"] = SSM.mamba_cache_init(cfg, batch, dtype, device=device)
-    else:
+    elif spec.mixer == "rwkv6":
         c["rwkv"] = R.rwkv6_cache_init(cfg, batch, dtype, device=device)
+    else:
+        c["cross"] = A.cross_cache_init(cfg, batch, dtype, device=device)
+    if spec.cross:
+        c["cond"] = A.cross_cache_init(cfg, batch, dtype, device=device)
     if spec.mlp == "rwkv_cmix":
         c["cmix"] = torch.zeros((batch, 1, cfg.d_model), dtype=dtype,
                                 device=device)

@@ -5,8 +5,13 @@ request whose prompt extends an already-served prompt (a system prompt,
 an earlier turn) reuses the stored decode cache instead of encoding the
 prefix again. The same prefix hashing over the prompt's numpy bytes,
 hit/miss/re-decode logic and ``stats`` as the reference
-``repro.serving.engine.LLMServer``, for the cache families the port has
-(GQA KV ring buffers, MLA latents, Mamba and RWKV6 states).
+``repro.serving.engine.LLMServer``, for every cache family of the zoo:
+GQA KV ring buffers, MLA latents, Mamba and RWKV6 states, and the
+conditioning keys and values of cross-attention layers (Llama-3.2-Vision's
+``cross``, MusicGen's ``cond``), which prefill projects from
+``Request.cond`` and decode reads unchanged. A multi-codebook prompt
+(S, ncb) decodes (1, 1, ncb) tokens a step, greedy in each codebook, and
+stops at ``eos_id`` when every codebook gives it.
 
 The server keeps ONE decode cache of its own, with the token and the
 position a decode step reads, and every step writes that cache in
@@ -28,6 +33,13 @@ cold server's. The port keeps each stored prompt's last logits beside
 its entry (``prefix_logits``, under the same key) and an exact hit
 reuses them, decoding nothing; the stats are the reference's, which
 never counted that decode.
+
+Nor is a second. The reference keys a stored prompt on its tokens
+alone, so a new image (``cond``) with the same or a longer prompt is
+answered from the first image's cross keys and values. The port keys an
+entry on the prompt and on the bytes of ``cond`` (or "none"): the same
+``cond`` hits exactly where the reference's would, a new one misses and
+is prefilled.
 """
 from __future__ import annotations
 
@@ -48,9 +60,9 @@ from ..models import transformer as T
 @dataclass
 class Request:
     rid: str
-    prompt: np.ndarray                  # (S,) int32
+    prompt: np.ndarray                  # (S,) or (S, ncb) int32
     max_new_tokens: int = 16
-    cond: Optional[np.ndarray] = None   # refused: no conditioning frontend yet
+    cond: Optional[np.ndarray] = None   # (Cs, cond_dim) frontend embeddings
     eos_id: Optional[int] = None
 
 
@@ -68,8 +80,8 @@ def _h(arr: np.ndarray) -> str:
 
 def _decode_logits(state, *, cfg):
     """One decode step over the server's static state, written in place;
-    returns the logits (B, 1, V). The window is a value leaf of the
-    state, so a graph is keyed by it."""
+    returns the logits (B, 1, V), or (B, 1, ncb, V). The window is a
+    value leaf of the state, so a graph is keyed by it."""
     return T.decode_step(state["params"], cfg, state["tokens"],
                          state["cache"], state["t"],
                          window_attn=state["window"])[0]
@@ -100,9 +112,10 @@ class LLMServer:
         self.cache_len = cache_len
         self.window = window
         self.enable_prefix_cache = enable_prefix_cache
-        self.prefix_cache: Dict[Tuple[str, int], Tuple[dict, int]] = {}
+        # (prompt hash, length, cond hash) -> (cache snapshot, length)
+        self.prefix_cache: Dict[Tuple[str, int, str], Tuple[dict, int]] = {}
         # each stored prompt's last logits, under its entry's key
-        self.prefix_logits: Dict[Tuple[str, int], torch.Tensor] = {}
+        self.prefix_logits: Dict[Tuple[str, int, str], torch.Tensor] = {}
         self.stats = {"prefix_hits": 0, "prefix_misses": 0,
                       "prefill_tokens": 0, "decode_steps": 0}
         self._prefill = functools.partial(T.prefill, cfg=cfg,
@@ -114,7 +127,9 @@ class LLMServer:
         self._state = {
             "params": params,
             "cache": T.init_cache(cfg, 1, cache_len, device=dev),
-            "tokens": torch.zeros((1, 1), dtype=torch.int64, device=dev),
+            "tokens": torch.zeros((1, 1) + ((cfg.n_codebooks,)
+                                            if cfg.n_codebooks > 1 else ()),
+                                  dtype=torch.int64, device=dev),
             "t": torch.zeros((), dtype=torch.int32, device=dev),
             "window": window}
         step = functools.partial(_decode_logits, cfg=cfg)
@@ -126,8 +141,8 @@ class LLMServer:
         return _compile_count(self._decode_step)
 
     def _decode(self, tokens, t: int):
-        """Decode ``tokens`` (1, 1) at position ``t`` into the static
-        cache; returns the logits."""
+        """Decode ``tokens`` (1, 1[, ncb]) at position ``t`` into the
+        static cache; returns the logits."""
         state = self._state
         state["tokens"].copy_(tokens)
         state["t"].fill_(t)
@@ -136,15 +151,15 @@ class LLMServer:
     # -------------------------------------------------------------- util
 
     def _greedy(self, logits):
-        return torch.argmax(logits, dim=-1)            # (B, 1); first maximum
+        return torch.argmax(logits, dim=-1)    # (B, 1[, ncb]); first maximum
 
-    def _lookup_prefix(self, prompt: np.ndarray):
-        """Longest stored prefix of ``prompt`` (length quantized by whole
-        prompts we've served)."""
+    def _lookup_prefix(self, prompt: np.ndarray, ckey: str):
+        """Longest stored prefix of ``prompt`` under the conditioning
+        ``ckey`` (length quantized by whole prompts we've served)."""
         if not self.enable_prefix_cache:
             return None
         for plen in range(len(prompt), 0, -1):
-            key = (_h(prompt[:plen]), plen)
+            key = (_h(prompt[:plen]), plen, ckey)
             if key in self.prefix_cache:
                 return plen, *self.prefix_cache[key]
         return None
@@ -154,19 +169,21 @@ class LLMServer:
     def serve_one(self, req: Request) -> Result:
         """Single-request path (B=1) with prefix reuse."""
         prompt = np.asarray(req.prompt)
-        if prompt.ndim != 1:
-            raise NotImplementedError("multi-codebook prompts are not "
-                                      "ported yet (ROADMAP item 11)")
-        if req.cond is not None:
-            raise NotImplementedError("conditioning inputs (Request.cond) "
-                                      "are not ported yet (ROADMAP item 11)")
+        want = 1 if self.cfg.n_codebooks == 1 else 2
+        if prompt.ndim != want:
+            raise ValueError(f"{self.cfg.name}: a prompt of {want} dims, "
+                             f"(S,) or (S, ncb); got {prompt.shape}")
+        cond = None if req.cond is None else np.asarray(req.cond)
+        if cond is not None and cond.dtype == np.float64:
+            cond = cond.astype(np.float32)  # as jnp.asarray takes it
+        ckey = "none" if cond is None else _h(cond)   # the key's cond part
         S = len(prompt)
-        hit = self._lookup_prefix(prompt)
+        hit = self._lookup_prefix(prompt, ckey)
         # the prompt goes to the device once; suffix tokens are views of it
         tokens = torch.as_tensor(prompt[None], device=self.device)
 
         cache = self._state["cache"]
-        key = (_h(prompt), S)
+        key = (_h(prompt), S, ckey)
         if hit is not None and hit[0] >= 1:
             plen, stored, _ = hit
             T.copy_cache(cache, stored)
@@ -179,7 +196,10 @@ class LLMServer:
             encoded = S - plen
         else:
             self.stats["prefix_misses"] += 1
-            logits, fresh = self._prefill(self.params, tokens=tokens)
+            logits, fresh = self._prefill(
+                self.params, tokens=tokens,
+                cond=None if cond is None else torch.as_tensor(
+                    cond[None], device=self.device))
             T.copy_cache(cache, fresh)
             del fresh                    # freed before the snapshot below
             encoded = S
@@ -197,8 +217,9 @@ class LLMServer:
             tok = self._greedy(logits)
             self.stats["decode_steps"] += 1
             out.append(tok[0, 0])
-            # the host reads a token only to test it for eos
-            if req.eos_id is not None and int(tok[0, 0]) == req.eos_id:
+            # the host reads a token only to test it for eos (in every
+            # codebook)
+            if req.eos_id is not None and bool((tok[0, 0] == req.eos_id).all()):
                 break
         generated = torch.stack(out).cpu().numpy().astype(np.int32)
         return Result(rid=req.rid, tokens=generated,

@@ -38,6 +38,7 @@ from repro_torch.convert import from_jax_numpy
 from repro_torch.graphs import Graphed
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
+from repro_torch.launch.llm_generate import codebooks, stub_cond
 from repro_torch.models import transformer as T
 from repro_torch.serving.batch_engine import BatchedEMSServe
 from repro_torch.serving.engine import LLMServer, Request
@@ -337,24 +338,43 @@ def _two_layers(cfg):
 
 @pytest.fixture(scope="module", params=ARCHS)
 def llm(request):
+    """(reference config, port config, reference params, the same
+    converted); Llama-Vision's cross-attention gates at 0.5 (at their
+    initial 0 the image never reaches the logits)."""
     jcfg = _two_layers(jreduced(jget_config(request.param), d_model=128))
     cfg = _two_layers(reduced(get_config(request.param), d_model=128))
     jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
+    for gi, (specs, count) in enumerate(jcfg.groups):
+        for i, spec in enumerate(specs):
+            if spec.mixer == "cross_attn":
+                jp["groups"][str(gi)][str(i)]["gate_attn"] = jnp.full(
+                    (count,), 0.5, jnp.float32)
     return jcfg, cfg, jp, from_jax_numpy(jax.device_get(jp), "cpu")
 
 
 SYSTEM = np.arange(1, 33, dtype=np.int32)
 
 
+def _request(request_cls, cfg, rid, tokens, **kw):
+    """A request in ``cfg``'s form: (S,) or (S, ncb) tokens (the
+    launcher's ``codebooks``), with its stub ``cond`` where it has a
+    conditioning frontend."""
+    return request_cls(rid, codebooks(cfg, np.asarray(tokens, np.int32)),
+                       cond=stub_cond(cfg), **kw)
+
+
 def _mix(srv, request_cls, *, again=True):
-    out = [srv.serve_one(request_cls("warm", SYSTEM, max_new_tokens=1))]
+    cfg = srv.cfg
+    out = [srv.serve_one(_request(request_cls, cfg, "warm", SYSTEM,
+                                  max_new_tokens=1))]
     for i in range(3):
         u = np.array([40 + i, 50 + i], np.int32)
-        out.append(srv.serve_one(request_cls(
-            f"u{i}", np.concatenate([SYSTEM, u]), max_new_tokens=6)))
+        out.append(srv.serve_one(_request(
+            request_cls, cfg, f"u{i}", np.concatenate([SYSTEM, u]),
+            max_new_tokens=6)))
     if again:
-        out.append(srv.serve_one(request_cls("again", SYSTEM,
-                                             max_new_tokens=3)))
+        out.append(srv.serve_one(_request(request_cls, cfg, "again", SYSTEM,
+                                          max_new_tokens=3)))
     return out
 
 
@@ -368,8 +388,8 @@ def _want(jcfg, jp, **kw):
     want = _mix(warm, JRequest)
     stats = dict(warm.stats)
     warm.enable_prefix_cache = False     # now a cold server, its programs built
-    tokens = [r.tokens for r in want[:-1]] + [
-        warm.serve_one(JRequest("again", SYSTEM, max_new_tokens=3)).tokens]
+    tokens = [r.tokens for r in want[:-1]] + [warm.serve_one(_request(
+        JRequest, jcfg, "again", SYSTEM, max_new_tokens=3)).tokens]
     return want, tokens, stats
 
 
@@ -425,11 +445,11 @@ def test_llm_server_snapshots_survive_the_static_cache(llm):
     _, cfg, _, p = llm
     srv = LLMServer(cfg, p, cache_len=64, device="cpu")
     system = np.arange(1, 17, dtype=np.int32)
-    srv.serve_one(Request("sys", system, max_new_tokens=4))
+    srv.serve_one(_request(Request, cfg, "sys", system, max_new_tokens=4))
     stored = {k: T.clone(v[0]) for k, v in srv.prefix_cache.items()}
     for i in range(3):
-        r = srv.serve_one(Request(f"u{i}", np.concatenate(
-            [system, [60 + i]]).astype(np.int32), max_new_tokens=5))
+        r = srv.serve_one(_request(Request, cfg, f"u{i}", np.concatenate(
+            [system, [60 + i]]), max_new_tokens=5))
         assert r.prefix_hit
     static = {id(t) for t in _leaves(srv._state["cache"])}
     for k, before in stored.items():

@@ -2,10 +2,7 @@
 against the JAX package's ``repro.serving.kv_cache``: the same
 ``(cache_len, window_attn)`` plan for every architecture of the
 reference's registry at every input shape of ``SHAPES``, and the same
-mixer and window decisions. The port's configs serve the architectures
-it has; for the two it has not (cross-attention, musicgen) the
-reference's config objects are planned by both sides, which read only
-their groups, arch type and window."""
+mixer and window decisions, each side planning its own config."""
 import dataclasses
 
 import pytest
@@ -14,14 +11,10 @@ from repro.configs import ARCHS as JARCHS
 from repro.configs import SHAPES as JSHAPES
 from repro.configs import get_config as jget_config
 from repro.serving import kv_cache as JK
-from repro_torch.configs import ARCHS, SHAPES, get_config
+from repro_torch.configs import SHAPES, get_config
 from repro_torch.serving import kv_cache as K
 
 MIXERS = ("attn", "mla", "mamba", "rwkv6", "cross_attn")
-
-
-def _cfg(arch):
-    return get_config(arch) if arch in ARCHS else jget_config(arch)
 
 
 def test_shapes_and_policy_constants_match_reference():
@@ -33,7 +26,7 @@ def test_shapes_and_policy_constants_match_reference():
 @pytest.mark.parametrize("shape", sorted(JSHAPES))
 @pytest.mark.parametrize("arch", JARCHS)
 def test_cache_plan_matches_reference(arch, shape):
-    cfg, jcfg = _cfg(arch), jget_config(arch)
+    cfg, jcfg = get_config(arch), jget_config(arch)
     assert K.cache_plan(cfg, SHAPES[shape]) == JK.cache_plan(jcfg, JSHAPES[shape])
     assert K.uses_window(cfg, SHAPES[shape]) == \
         JK.uses_window(jcfg, JSHAPES[shape])
@@ -41,7 +34,7 @@ def test_cache_plan_matches_reference(arch, shape):
 
 @pytest.mark.parametrize("arch", JARCHS)
 def test_has_mixer_matches_reference(arch):
-    cfg, jcfg = _cfg(arch), jget_config(arch)
+    cfg, jcfg = get_config(arch), jget_config(arch)
     assert [K.has_mixer(cfg, m) for m in MIXERS] == \
         [JK.has_mixer(jcfg, m) for m in MIXERS]
 

@@ -10,8 +10,14 @@ layers), and for reduced Jamba's 16 layers the whole-model tolerance of
 where they are made. The architectures run reduced with every group's
 period stacked twice (2 layers for the one-layer periods, 4 for
 DeepSeek's dense and MoE groups, 16 for Jamba's 8-layer period), so the
-per-layer loop over the stacked axis is exercised. Mamba and MLA alone
-are ``tests/test_torch_ssm.py``'s and ``tests/test_torch_mla.py``'s.
+per-layer loop over the stacked axis is exercised (10 layers for
+Llama-3.2-Vision's 5-layer period, 4 self-attention and 1 gated
+cross-attention). The conditioned archs take a seeded ``cond``
+(``cond_seq_len`` 8, ``cond_dim`` 32) and Llama-Vision's gates are set to
+0.5 (``_open_gates``: at their initial 0 the image would never reach the
+logits); MusicGen's prompts are (B, S, 4) tokens. Mamba, MLA and
+cross-attention alone are ``tests/test_torch_ssm.py``'s,
+``tests/test_torch_mla.py``'s and ``tests/test_torch_cross_attention.py``'s.
 """
 import dataclasses
 
@@ -30,9 +36,10 @@ from repro.models import rwkv as JR
 from repro.models import transformer as JT
 from repro.serving.engine import LLMServer as JServer
 from repro.serving.engine import Request as JRequest
-from repro_torch.configs import ARCHS, NOT_PORTED, get_config, reduced
+from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.convert import from_jax_numpy, to_numpy
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.launch.llm_generate import codebooks, stub_cond
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as R
@@ -75,19 +82,53 @@ def _cfgs(arch, dtype="float32", d_model=128):
             _two_layers(reduced(get_config(arch), d_model=d_model), dtype))
 
 
+GATE = 0.5     # Llama-Vision's cross-attention gates in every test
+
+
+def _open_gates(jp, jcfg):
+    """The reference's tree with every ``gate_attn`` set to GATE."""
+    for gi, (specs, count) in enumerate(jcfg.groups):
+        for i, spec in enumerate(specs):
+            if spec.mixer == "cross_attn":
+                jp["groups"][str(gi)][str(i)]["gate_attn"] = jnp.full(
+                    (count,), GATE, jnp.float32)
+    return jp
+
+
+def _init(jcfg, seed):
+    """(reference params with open gates, the same converted)."""
+    jp = _open_gates(JT.init_params(jcfg, jax.random.PRNGKey(seed)), jcfg)
+    return jp, from_jax_numpy(jax.device_get(jp), "cpu")
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def model(request):
     jcfg, cfg = _cfgs(request.param)
-    jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, cfg, jp, from_jax_numpy(jax.device_get(jp), "cpu")
+    return (jcfg, cfg) + _init(jcfg, 0)
 
 
 def _np(x):
     return np.asarray(x.float() if isinstance(x, torch.Tensor) else x)
 
 
-def _tokens(seed, S, vocab, B=1):
-    return np.random.default_rng(seed).integers(0, vocab, (B, S)).astype(np.int32)
+def _tokens(seed, S, cfg, B=1):
+    """Random (B, S) tokens, or (B, S, ncb) for a multi-codebook cfg."""
+    shape = (B, S) + ((cfg.n_codebooks,) if cfg.n_codebooks > 1 else ())
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def _jcond(cfg, seed):
+    """The launcher's stub ``cond`` from ``seed`` as a (1, Cs, cond_dim)
+    JAX array (None for an arch without a frontend)."""
+    c = stub_cond(cfg, seed)
+    return None if c is None else jnp.asarray(c[None])
+
+
+def _tcond(cfg, seed):
+    """The same as a tensor."""
+    c = stub_cond(cfg, seed)
+    return None if c is None else torch.from_numpy(c[None])
 
 
 # ---------------------------------------------------------------- configs
@@ -104,10 +145,13 @@ def test_configs_match_reference(arch):
 
 
 def test_registry_refuses_unported_archs():
-    assert set(ARCHS) | set(NOT_PORTED) == set(JARCHS)
-    for arch in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            get_config(arch)
+    """The registry serves every architecture of the reference's (the
+    last two, cross-attention and MusicGen, since they were ported) and
+    refuses only names it does not know."""
+    assert set(ARCHS) == set(JARCHS) and len(ARCHS) == 10
+    for arch in ("llama-3.2-vision-11b", "musicgen-large"):
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+            jget_config(arch))
     with pytest.raises(KeyError):
         get_config("gpt-5")
 
@@ -147,6 +191,34 @@ def test_hybrid_and_mla_full_width_and_depth_cuts():
     cut = dataclasses.replace(ds, groups=((dense, 3), (moe, 2)), n_layers=5,
                               mtp=False)
     assert round(cut.param_count() / 1e9, 2) == 26.62
+
+
+def test_conditioned_full_width_trees():
+    """The full-width trees, shaped by the reference's ``init_params``
+    without drawing them: Llama-3.2-Vision holds 9.780 B parameters, as
+    ``param_count()`` says (to the norms and gates it leaves out);
+    MusicGen-large 4.062 B, where ``param_count()``
+    (the reference's formula, kept so the configs match) says 3.810 B: it
+    counts the conditioning sublayer's wk/wv as cond_dim x kv_dim, where
+    ``cond_proj`` runs first and makes them d_model x kv_dim."""
+    counts = {}
+    for arch in ("llama-3.2-vision-11b", "musicgen-large"):
+        shapes = jax.eval_shape(lambda k, a=arch: JT.init_params(
+            jget_config(a), k), jax.random.PRNGKey(0))
+        counts[arch] = sum(int(np.prod(a.shape))
+                           for a in jax.tree.leaves(shapes))
+    llama, music = (get_config(a) for a in counts)
+    assert round(counts["llama-3.2-vision-11b"] / 1e9, 3) == 9.780
+    assert round(llama.param_count() / 1e9, 3) == 9.780
+    # beside the formula: the final norm and the 8 gates
+    assert counts["llama-3.2-vision-11b"] - llama.param_count() == \
+        llama.d_model + 8
+    assert round(counts["musicgen-large"] / 1e9, 3) == 4.062
+    assert round(music.param_count() / 1e9, 3) == 3.810
+    # the sublayer's wk/wv, and the final and 48 norm_c norms
+    per_layer = 2 * (music.d_model - music.cond_dim) * music.kv_dim
+    assert counts["musicgen-large"] - music.param_count() == \
+        music.n_layers * per_layer + music.d_model * (music.n_layers + 1)
 
 
 # ----------------------------------------------------------------- layers
@@ -322,15 +394,34 @@ def test_init_params_layout_matches_reference(model):
     assert (jax.tree.structure(mine) == jax.tree.structure(want))
     for a, b in zip(jax.tree.leaves(mine), jax.tree.leaves(want)):
         assert a.shape == b.shape and a.dtype == b.dtype
+    # the conditioned and multi-codebook leaves, named
+    d, ncb, V = cfg.d_model, cfg.n_codebooks, cfg.vocab_size
+    assert mine["embed"]["emb"].shape == (ncb, V, d)
+    if not cfg.tie_embeddings:
+        assert mine["lm_head"]["w"].shape == (d, ncb * V)
+    assert ("cond_proj" in mine) == bool(cfg.cond_dim)
+    if cfg.cond_dim:
+        assert mine["cond_proj"]["w"].shape == (cfg.cond_dim, d)
+    layers = mine["groups"]["0"]
+    if cfg.arch_type == "vlm":
+        gate = layers["4"]["gate_attn"]
+        assert gate.shape == (2,) and gate.dtype == np.float32
+        assert set(layers["4"]["mixer"]["wk"]) == {"w"}
+    if cfg.arch_type == "audio":
+        assert {"norm_c", "cross"} <= set(layers["0"])
+        assert layers["0"]["cross"]["wk"]["w"].shape == (2, d, cfg.kv_dim)
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v3-671b",
+                                  "llama-3.2-vision-11b", "musicgen-large"])
 def test_bf16_converted_tree_matches_init_layout(arch):
-    """A bf16 model of the new families converted from the reference
+    """A bf16 model of the newer families converted from the reference
     (``convert.from_jax_numpy``) and the port's own ``init_params``: the
     same tree leaf for leaf, the MTP head included, with the same torch
-    dtypes: Mamba's ``A_log``, ``D`` and ``dt_bias`` and the routers
-    float32, every other weight bf16."""
+    dtypes: Mamba's ``A_log``, ``D`` and ``dt_bias``, the routers and
+    Llama-Vision's ``gate_attn`` float32, every other weight bf16
+    (MusicGen's ``cond_proj``, conditioning sublayer and (4, V, d)
+    embedding among them)."""
     jcfg, cfg = _cfgs(arch, dtype="bfloat16")
     conv = from_jax_numpy(jax.device_get(
         JT.init_params(jcfg, jax.random.PRNGKey(0))), "cpu")
@@ -343,8 +434,11 @@ def test_bf16_converted_tree_matches_init_layout(arch):
         assert (a.shape, a.dtype) == (b.shape, b.dtype), path
         if a.dtype == torch.float32:
             f32.add(jax.tree_util.keystr(path[-1:]))
-    assert f32 == ({"['A_log']", "['D']", "['dt_bias']", "['router']"}
-                   if arch.startswith("jamba") else {"['router']"})
+    assert f32 == {
+        "jamba-v0.1-52b": {"['A_log']", "['D']", "['dt_bias']", "['router']"},
+        "deepseek-v3-671b": {"['router']"},
+        "llama-3.2-vision-11b": {"['gate_attn']"},
+        "musicgen-large": set()}[arch]
 
 
 def test_large_leaves_are_drawn_in_slices(monkeypatch):
@@ -385,24 +479,59 @@ def _caches_close(got, want, atol=ATOL):
 def test_prefill_and_decode_match_reference(model):
     """prefill of a 21-token prompt into a 16-slot cache (the ring wraps
     for the attention and MLA archs), then 5 decode steps: logits at 1e-5
-    (``_atol``: 5e-4 for Jamba) and the caches (``_caches_close``) after
-    every call, the same greedy token from every call."""
+    (``_atol``: 5e-4 for Jamba) and the caches (``_caches_close``; the
+    conditioned archs' cross/cond keys and values among them) after every
+    call, the same greedy token from every call (in every codebook)."""
     jcfg, cfg, jp, p = model
     atol = _atol(cfg)
-    tokens = _tokens(9, 21, cfg.vocab_size)
-    jlog, jcache = JT.prefill(jp, jcfg, jnp.asarray(tokens), cache_len=16)
-    log, cache = T.prefill(p, cfg, torch.from_numpy(tokens), cache_len=16)
+    tokens = _tokens(9, 21, cfg)
+    jlog, jcache = JT.prefill(jp, jcfg, jnp.asarray(tokens), cache_len=16,
+                              cond=_jcond(cfg, 30))
+    log, cache = T.prefill(p, cfg, torch.from_numpy(tokens), cache_len=16,
+                           cond=_tcond(cfg, 30))
     np.testing.assert_allclose(log.numpy(), np.asarray(jlog), atol=atol)
     _caches_close(cache, jcache, atol)
+    leaf = {"vlm": "cross", "audio": "cond"}.get(cfg.arch_type)
+    if leaf:
+        held = cache["0"]["4" if leaf == "cross" else "0"][leaf]
+        assert held["k"].shape == (2, 1, cfg.cond_seq_len, cfg.n_kv_heads,
+                                   cfg.head_dim)
     for step in range(5):
         t = 21 + step
-        tok = _tokens(10 + step, 1, cfg.vocab_size)
+        tok = _tokens(10 + step, 1, cfg)
         jlog, jcache = JT.decode_step(jp, jcfg, jnp.asarray(tok), jcache,
                                       jnp.int32(t))
         log, cache = T.decode_step(p, cfg, torch.from_numpy(tok), cache, t)
         np.testing.assert_allclose(log.numpy(), np.asarray(jlog), atol=atol)
-        assert int(log.argmax()) == int(np.asarray(jlog).argmax())
+        np.testing.assert_array_equal(log.argmax(-1).numpy(),
+                                      np.asarray(jlog).argmax(-1))
         _caches_close(cache, jcache, atol)
+
+
+def test_two_images_give_different_logits():
+    """Llama-Vision with its gates at 0.5: two different images (``cond``)
+    give different logits on the same prompt, a prefill and a decode step
+    (a port whose cross branch added nothing would fail here), each
+    equal to the reference's for its image."""
+    jcfg, cfg = _cfgs("llama-3.2-vision-11b")
+    jp, p = _init(jcfg, 31)
+    tokens = _tokens(32, 9, cfg)
+    out = []
+    for seed in (33, 34):
+        jlog, jcache = JT.prefill(jp, jcfg, jnp.asarray(tokens), cache_len=12,
+                                  cond=_jcond(cfg, seed))
+        log, cache = T.prefill(p, cfg, torch.from_numpy(tokens), cache_len=12,
+                               cond=_tcond(cfg, seed))
+        np.testing.assert_allclose(log.numpy(), np.asarray(jlog), atol=ATOL)
+        step, _ = T.decode_step(p, cfg, torch.from_numpy(tokens[:, :1]),
+                                cache, 9)
+        jstep, _ = JT.decode_step(jp, jcfg, jnp.asarray(tokens[:, :1]),
+                                  jcache, jnp.int32(9))
+        np.testing.assert_allclose(step.numpy(), np.asarray(jstep), atol=ATOL)
+        out.append((log, step))
+    (a, sa), (b, sb) = out
+    assert float((a - b).abs().max()) > 1e-3
+    assert float((sa - sb).abs().max()) > 1e-3
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v3-671b"])
@@ -413,13 +542,13 @@ def test_windowed_hybrid_and_mla_match_reference(arch):
     jcfg, cfg = _cfgs(arch)
     jp = JT.init_params(jcfg, jax.random.PRNGKey(26))
     p = from_jax_numpy(jax.device_get(jp), "cpu")
-    tokens = _tokens(27, 10, cfg.vocab_size)
+    tokens = _tokens(27, 10, cfg)
     kw = dict(cache_len=12, window_attn=4)
     jlog, jcache = JT.prefill(jp, jcfg, jnp.asarray(tokens), **kw)
     log, cache = T.prefill(p, cfg, torch.from_numpy(tokens), **kw)
     np.testing.assert_allclose(log.numpy(), np.asarray(jlog), atol=_atol(cfg))
     for t in range(10, 13):
-        tok = _tokens(t, 1, cfg.vocab_size)
+        tok = _tokens(t, 1, cfg)
         jlog, jcache = JT.decode_step(jp, jcfg, jnp.asarray(tok), jcache,
                                       jnp.int32(t), window_attn=4)
         log, cache = T.decode_step(p, cfg, torch.from_numpy(tok), cache, t,
@@ -432,14 +561,14 @@ def test_windowed_decode_matches_reference():
     jcfg, cfg = _cfgs("mistral-nemo-12b")
     jp = JT.init_params(jcfg, jax.random.PRNGKey(11))
     p = from_jax_numpy(jax.device_get(jp), "cpu")
-    tokens = _tokens(12, 10, cfg.vocab_size)
+    tokens = _tokens(12, 10, cfg)
     jlog, jcache = JT.prefill(jp, jcfg, jnp.asarray(tokens), cache_len=12,
                               window_attn=4)
     log, cache = T.prefill(p, cfg, torch.from_numpy(tokens), cache_len=12,
                            window_attn=4)
     np.testing.assert_allclose(log.numpy(), np.asarray(jlog), atol=ATOL)
     for t in range(10, 15):
-        tok = _tokens(t, 1, cfg.vocab_size)
+        tok = _tokens(t, 1, cfg)
         jlog, jcache = JT.decode_step(jp, jcfg, jnp.asarray(tok), jcache,
                                       jnp.int32(t), window_attn=4)
         log, cache = T.decode_step(p, cfg, torch.from_numpy(tok), cache, t,
@@ -454,10 +583,10 @@ def test_decode_moe_pre_hook_matches_reference():
     jcfg, cfg = _cfgs("olmoe-1b-7b")
     jp = JT.init_params(jcfg, jax.random.PRNGKey(23))
     p = from_jax_numpy(jax.device_get(jp), "cpu")
-    tokens = _tokens(24, 10, cfg.vocab_size)
+    tokens = _tokens(24, 10, cfg)
     _, jcache = JT.prefill(jp, jcfg, jnp.asarray(tokens), cache_len=16)
     _, cache = T.prefill(p, cfg, torch.from_numpy(tokens), cache_len=16)
-    tok = _tokens(25, 1, cfg.vocab_size)
+    tok = _tokens(25, 1, cfg)
     calls = []
 
     def halve(h):
@@ -593,19 +722,20 @@ def test_bf16_layer_matches_reference(layer, monkeypatch):
 
 def _bf16_track(arch, seed):
     jcfg, cfg = _cfgs(arch, dtype="bfloat16")
-    jp = JT.init_params(jcfg, jax.random.PRNGKey(seed))
-    p = from_jax_numpy(jax.device_get(jp), "cpu")
+    jp, p = _init(jcfg, seed)
     assert p["lm_head"]["w"].dtype == torch.bfloat16
-    tokens = _tokens(14, 12, cfg.vocab_size)
-    jlog, jcache = JT.prefill(jp, jcfg, jnp.asarray(tokens), cache_len=16)
-    log, cache = T.prefill(p, cfg, torch.from_numpy(tokens), cache_len=16)
+    tokens = _tokens(14, 12, cfg)
+    jlog, jcache = JT.prefill(jp, jcfg, jnp.asarray(tokens), cache_len=16,
+                              cond=_jcond(cfg, 35))
+    log, cache = T.prefill(p, cfg, torch.from_numpy(tokens), cache_len=16,
+                           cond=_tcond(cfg, 35))
     diffs = []
     for t in range(12, 16):
         assert log.dtype == torch.bfloat16
         jax.tree.map(lambda a, b: str(a.dtype).split(".")[-1] == str(b.dtype)
                      or pytest.fail(f"{a.dtype} != {b.dtype}"), cache, jcache)
         diffs.append(np.abs(_np(log) - np.asarray(jlog, np.float32)).max())
-        tok = _tokens(t, 1, cfg.vocab_size)
+        tok = _tokens(t, 1, cfg)
         jlog, jcache = JT.decode_step(jp, jcfg, jnp.asarray(tok), jcache,
                                       jnp.int32(t))
         log, cache = T.decode_step(p, cfg, torch.from_numpy(tok), cache, t)
@@ -643,7 +773,7 @@ def _bf16_track_float32(arch, seed):
                                                               t)))
 
     (jpre, jdec), (fpre, fdec) = jitted(jcfg), jitted(jcfg32)
-    tokens = _tokens(14, 12, cfg.vocab_size)
+    tokens = _tokens(14, 12, cfg)
     jlog, jcache = jpre(jp, jnp.asarray(tokens))
     flog, fcache = fpre(jp32, jnp.asarray(tokens))
     log, cache = T.prefill(p, cfg, torch.from_numpy(tokens), cache_len=16)
@@ -657,7 +787,7 @@ def _bf16_track_float32(arch, seed):
         ref.append(np.abs(np.asarray(jlog, np.float32) - f).max())
         if t == 16:
             break
-        tok = _tokens(t, 1, cfg.vocab_size)
+        tok = _tokens(t, 1, cfg)
         jlog, jcache = jdec(jp, jnp.asarray(tok), jcache, jnp.int32(t))
         flog, fcache = fdec(jp32, jnp.asarray(tok), fcache, jnp.int32(t))
         log, cache = T.decode_step(p, cfg, torch.from_numpy(tok), cache, t)
@@ -711,7 +841,8 @@ def _n_attn(cfg):
     ("olmoe-1b-7b", "float32", 0), ("mistral-nemo-12b", "float32", 0),
     ("olmoe-1b-7b", "bfloat16", 0), ("mistral-nemo-12b", "bfloat16", 0),
     ("mistral-nemo-12b", "float32", 5), ("jamba-v0.1-52b", "float32", 0),
-    ("deepseek-v3-671b", "float32", 0)])
+    ("deepseek-v3-671b", "float32", 0),
+    ("llama-3.2-vision-11b", "float32", 0), ("musicgen-large", "float32", 0)])
 def test_prefill_pallas_switch_matches_reference(arch, dtype, window):
     """``prefill(kernel="pallas")`` against the reference's, which runs
     its Pallas flash kernel in interpret mode here: float32 logits and
@@ -720,23 +851,26 @@ def test_prefill_pallas_switch_matches_reference(arch, dtype, window):
     reference's Pallas and plain prefills agree bit for bit). The
     prompt's attention goes through the flash wrapper once a plain
     attention layer (Jamba: 2 of its 16; DeepSeek's MLA never, as the
-    reference's MLA ignores the switch), and on the CPU its plain version
-    makes the switch bit-equal to the port's ``"jnp"`` prefill."""
+    reference's MLA ignores the switch; Llama-Vision 8 of its 10, its
+    cross-attention layers never, nor MusicGen's conditioning sublayers,
+    as the reference's cross-attention ignores it), and on the CPU its
+    plain version makes the switch bit-equal to the port's ``"jnp"``
+    prefill."""
     from repro_torch.kernels import flash_attention as FA
     jcfg, cfg = _cfgs(arch, dtype=dtype)
-    jp = JT.init_params(jcfg, jax.random.PRNGKey(21))
-    p = from_jax_numpy(jax.device_get(jp), "cpu")
-    tokens = _tokens(22, 12, cfg.vocab_size)
+    jp, p = _init(jcfg, 21)
+    tokens = _tokens(22, 12, cfg)
     kw = dict(cache_len=16, window_attn=window)
     jlog, jcache = JT.prefill(jp, jcfg, jnp.asarray(tokens), kernel="pallas",
-                              **kw)
+                              cond=_jcond(cfg, 36), **kw)
     calls = FA.flash_attention.calls
     log, cache = T.prefill(p, cfg, torch.from_numpy(tokens), kernel="pallas",
-                           **kw)
+                           cond=_tcond(cfg, 36), **kw)
     assert FA.flash_attention.calls == calls + _n_attn(cfg)
-    assert _n_attn(cfg) == {"jamba-v0.1-52b": 2, "deepseek-v3-671b": 0}.get(
-        arch, cfg.n_layers)
-    plain, plain_cache = T.prefill(p, cfg, torch.from_numpy(tokens), **kw)
+    assert _n_attn(cfg) == {"jamba-v0.1-52b": 2, "deepseek-v3-671b": 0,
+                            "llama-3.2-vision-11b": 8}.get(arch, cfg.n_layers)
+    plain, plain_cache = T.prefill(p, cfg, torch.from_numpy(tokens),
+                                   cond=_tcond(cfg, 36), **kw)
     assert torch.equal(log, plain)
     jax.tree.map(lambda a, b: torch.equal(a, b) or pytest.fail("cache"),
                  cache, plain_cache)
@@ -751,63 +885,108 @@ def test_prefill_pallas_switch_matches_reference(arch, dtype, window):
 
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "rwkv6-1.6b",
-                                  "jamba-v0.1-52b", "deepseek-v3-671b"])
+                                  "jamba-v0.1-52b", "deepseek-v3-671b",
+                                  "llama-3.2-vision-11b", "musicgen-large"])
 def test_kernel_calls_follow_the_mixers(arch):
     """A prefill and two decode steps call decode attention once a plain
     attention layer a step (Jamba 2 of 16; MLA's absorbed decode never,
-    as no Pallas kernel serves it in the reference either) and the RWKV6
-    scan once an RWKV6 layer a call: the counts a card run's launches
-    are held to (``chip_smoke.py``'s ``want_launches``)."""
+    as no Pallas kernel serves it in the reference either; Llama-Vision 8
+    of 10, its cross layers never, nor MusicGen's conditioning
+    sublayers) and the RWKV6 scan once an RWKV6 layer a call: the counts
+    a card run's launches are held to (``chip_smoke.py``'s
+    ``want_launches``)."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import rwkv6 as RW
     _, cfg = _cfgs(arch)
     p = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     before = (DA.decode_attention.calls, RW.rwkv6_scan.calls)
-    _, cache = T.prefill(p, cfg, torch.from_numpy(_tokens(29, 6, cfg.vocab_size)),
-                         cache_len=8)
+    _, cache = T.prefill(p, cfg, torch.from_numpy(_tokens(29, 6, cfg)),
+                         cache_len=8, cond=_tcond(cfg, 37))
     for t in (6, 7):
-        T.decode_step(p, cfg, torch.zeros((1, 1), dtype=torch.int64), cache, t)
+        T.decode_step(p, cfg, torch.from_numpy(_tokens(t, 1, cfg)), cache, t)
     calls = (DA.decode_attention.calls - before[0],
              RW.rwkv6_scan.calls - before[1])
     assert calls == (2 * _n_attn(cfg), 3 * sum(
         n * sum(s.mixer == "rwkv6" for s in specs) for specs, n in cfg.groups))
     assert calls == {"mistral-nemo-12b": (4, 0), "rwkv6-1.6b": (0, 6),
                      "jamba-v0.1-52b": (4, 0),
-                     "deepseek-v3-671b": (0, 0)}[arch]
+                     "deepseek-v3-671b": (0, 0),
+                     "llama-3.2-vision-11b": (16, 0),
+                     "musicgen-large": (4, 0)}[arch]
     assert (DA.decode_attention.launches, RW.rwkv6_scan.launches) == (0, 0)
 
 
 def test_unported_parts_name_roadmap_item():
-    jcfg = reduced(get_config("mistral-nemo-12b"))
-    cross_attn = dataclasses.replace(jcfg, groups=(((dataclasses.replace(
-        jcfg.groups[0][0][0], mixer="cross_attn"),), 1),))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        T.init_params(cross_attn, torch.Generator(), device="cpu")
-    cross = dataclasses.replace(jcfg, groups=(((dataclasses.replace(
-        jcfg.groups[0][0][0], cross=True),), 1),))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        T.init_params(cross, torch.Generator(), device="cpu")
+    """What the zoo once refused (a ``cross_attn`` mixer, a ``spec.cross``
+    sublayer, a conditioning frontend) now builds and runs in any
+    config, as in the reference: reduced Mistral-NeMo with a gated
+    cross-attention layer, and with the conditioning sublayer on its
+    self-attention layer, each conditioned on 8 x 32 features, prefill
+    and a decode step at 1e-5 against the reference's. Only names that
+    are no layer at all are refused (ValueError, as the reference's
+    ``init_layer``), and a conditioned model refuses a prompt without its
+    ``cond``."""
+    jbase, base = (reduced(c("mistral-nemo-12b")) for c in (jget_config,
+                                                              get_config))
+    for change in (dict(mixer="cross_attn"), dict(cross=True)):
+        def cfg_of(c):
+            spec = dataclasses.replace(c.groups[0][0][0], **change)
+            return dataclasses.replace(c, groups=(((c.groups[0][0][0], spec),
+                                                   1),),
+                                       n_layers=2, cond_seq_len=8,
+                                       cond_dim=32)
+        jcfg, cfg = cfg_of(jbase), cfg_of(base)
+        jp, p = _init(jcfg, 38)
+        tokens = _tokens(39, 7, cfg)
+        jlog, jcache = JT.prefill(jp, jcfg, jnp.asarray(tokens), cache_len=8,
+                                  cond=_jcond(cfg, 40))
+        log, cache = T.prefill(p, cfg, torch.from_numpy(tokens), cache_len=8,
+                               cond=_tcond(cfg, 40))
+        np.testing.assert_allclose(log.numpy(), np.asarray(jlog), atol=ATOL)
+        jlog, _ = JT.decode_step(jp, jcfg, jnp.asarray(tokens[:, :1]), jcache,
+                                 jnp.int32(7))
+        log, _ = T.decode_step(p, cfg, torch.from_numpy(tokens[:, :1]), cache,
+                               7)
+        np.testing.assert_allclose(log.numpy(), np.asarray(jlog), atol=ATOL)
+        with pytest.raises(ValueError, match="pass cond="):
+            T.prefill(p, cfg, torch.from_numpy(tokens))
+    bad = dataclasses.replace(base, groups=(((dataclasses.replace(
+        base.groups[0][0][0], mixer="lstm"),), 1),))
+    with pytest.raises(ValueError, match="mixer 'lstm'"):
+        T.init_params(bad, torch.Generator(), device="cpu")
 
 
 # ----------------------------------------------------------------- server
 
 SYSTEM_PROMPT = np.arange(1, 33, dtype=np.int32)
+MIX_COND = 41          # the seed of the mix's one conditioning input
 
 
-def _again(request_cls):
+def _req(request_cls, cfg, rid, tokens, cond_seed=MIX_COND, **kw):
+    """A request of ``cfg``'s form: ``tokens`` (S,) as its prompt
+    (``codebooks``), with the seeded ``cond`` of a conditioned arch."""
+    return request_cls(rid, codebooks(cfg, np.asarray(tokens, np.int32)),
+                       cond=stub_cond(cfg, cond_seed), **kw)
+
+
+def _again(request_cls, cfg):
     """The system prompt again: a prompt identical to a stored one."""
-    return request_cls("again", SYSTEM_PROMPT, max_new_tokens=3)
+    return _req(request_cls, cfg, "again", SYSTEM_PROMPT, max_new_tokens=3)
 
 
 def _llm_generate_mix(server_cls, request_cls, srv):
     """The mix of examples/llm_generate.py: a 32-token system prompt, then
-    4 users of +2 tokens, 8 new tokens each; then the exact repeat."""
-    out = [srv.serve_one(request_cls("warm", SYSTEM_PROMPT, max_new_tokens=1))]
+    4 users of +2 tokens, 8 new tokens each; then the exact repeat. A
+    conditioned arch's requests share one ``cond``."""
+    cfg = srv.cfg
+    out = [srv.serve_one(_req(request_cls, cfg, "warm", SYSTEM_PROMPT,
+                              max_new_tokens=1))]
     for i in range(4):
         u = np.array([40 + i, 50 + i], np.int32)
-        out.append(srv.serve_one(request_cls(
-            f"u{i}", np.concatenate([SYSTEM_PROMPT, u]), max_new_tokens=8)))
-    out.append(srv.serve_one(_again(request_cls)))
+        out.append(srv.serve_one(_req(request_cls, cfg, f"u{i}",
+                                      np.concatenate([SYSTEM_PROMPT, u]),
+                                      max_new_tokens=8)))
+    out.append(srv.serve_one(_again(request_cls, cfg)))
     return out
 
 
@@ -826,7 +1005,8 @@ def test_server_matches_reference_server(model):
     it into a recurrent state (RWKV6, Mamba) twice; the port reuses the
     stored logits, so its row equals what the reference's COLD server
     (``enable_prefix_cache=False``) returns for that prompt. The stats
-    are the reference's warm server's: it never counted that decode."""
+    are the reference's warm server's: it never counted that decode.
+    MusicGen's results are (n, 4) tokens."""
     jcfg, cfg, jp, p = model
     jsrv = JServer(jcfg, jp, cache_len=96)
     jres = _llm_generate_mix(JServer, JRequest, jsrv)
@@ -835,11 +1015,44 @@ def test_server_matches_reference_server(model):
     assert srv.stats == jsrv.stats
     assert srv.stats["prefix_hits"] == 5
     _same_results(res[:-1], jres[:-1])
+    assert res[1].tokens.shape == (8,) + ((cfg.n_codebooks,)
+                                          if cfg.n_codebooks > 1 else ())
     jsrv.enable_prefix_cache = False     # now a cold server, its programs built
     np.testing.assert_array_equal(
-        res[-1].tokens, np.asarray(jsrv.serve_one(_again(JRequest)).tokens))
+        res[-1].tokens,
+        np.asarray(jsrv.serve_one(_again(JRequest, jcfg)).tokens))
     assert (res[-1].prefix_hit, res[-1].prefill_tokens) == \
         (jres[-1].prefix_hit, jres[-1].prefill_tokens) == (True, 0)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-large"])
+def test_new_cond_misses_the_prefix_cache(arch):
+    """The reference keys a stored prompt on its tokens alone, so the
+    same or a longer prompt with a new ``cond`` hits and is answered from
+    the first input's cross keys and values. The port keys on ``cond``
+    too: both requests miss, are prefilled whole, and equal a cold
+    reference server's answers for their own ``cond``; the first input's
+    repeat still hits. Llama-Vision's gates at 0.5."""
+    jcfg, cfg = _cfgs(arch)
+    jp, p = _init(jcfg, 42)
+    longer = np.concatenate([SYSTEM_PROMPT, [60, 61]])
+    reqs = lambda cls: [  # noqa: E731
+        _req(cls, cfg, "first", SYSTEM_PROMPT, max_new_tokens=4),
+        _req(cls, cfg, "same", SYSTEM_PROMPT, cond_seed=43, max_new_tokens=6),
+        _req(cls, cfg, "longer", longer, cond_seed=44, max_new_tokens=6),
+        _req(cls, cfg, "repeat", longer[:-1], max_new_tokens=3)]
+    srv = LLMServer(cfg, p, cache_len=48, device="cpu")
+    res = srv.serve(reqs(Request))
+    assert [(r.prefix_hit, r.prefill_tokens) for r in res] == [
+        (False, 32), (False, 32), (False, 34), (True, 1)]
+    cold = JServer(jcfg, jp, cache_len=48, enable_prefix_cache=False)
+    _same_results(res, [dataclasses.replace(r, prefix_hit=h, prefill_tokens=n)
+                        for r, (h, n) in zip(cold.serve(reqs(JRequest)),
+                                             [(False, 32), (False, 32),
+                                              (False, 34), (True, 1)])])
+    warm = JServer(jcfg, jp, cache_len=48)     # the reference's fault
+    assert [r.prefix_hit for r in warm.serve(reqs(JRequest))] == \
+        [False, True, True, True]
 
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "jamba-v0.1-52b"])
@@ -874,27 +1087,70 @@ def test_server_window_and_list_serve_match_reference(arch):
 
 
 def test_server_refuses_conditioning_inputs():
-    _, cfg = _cfgs("mistral-nemo-12b")
-    p = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    srv = LLMServer(cfg, p, cache_len=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        srv.serve_one(Request("c", SYSTEM_PROMPT[:4],
-                              cond=np.zeros((2, 8), np.float32)))
+    """``Request.cond`` goes only to an arch with a conditioning frontend:
+    Mistral-NeMo refuses one, Llama-Vision refuses a request without
+    one, and MusicGen refuses a prompt without its codebook axis."""
+    for arch, req in (
+            ("mistral-nemo-12b", Request("c", SYSTEM_PROMPT[:4],
+                                         cond=np.zeros((2, 8), np.float32))),
+            ("llama-3.2-vision-11b", Request("c", SYSTEM_PROMPT[:4])),
+            ("musicgen-large", Request("c", SYSTEM_PROMPT[:4], cond=np.zeros(
+                (8, 32), np.float32)))):
+        _, cfg = _cfgs(arch)
+        p = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        srv = LLMServer(cfg, p, cache_len=16, device="cpu")
+        with pytest.raises(ValueError, match="cond|prompt of 2 dims"):
+            srv.serve_one(req)
 
 
 def test_eos_stops_like_the_reference(model):
-    """A request stops at its eos token, as the reference's server does."""
+    """A request stops at its eos token, as the reference's server does
+    (MusicGen: when every codebook gives it, which random weights never
+    do here, so it runs on, as the reference's)."""
     jcfg, cfg, jp, p = model
     prompt = np.arange(3, 20, dtype=np.int32)
     free = JServer(jcfg, jp, cache_len=48).serve_one(
-        JRequest("free", prompt, max_new_tokens=8))
-    eos = int(np.asarray(free.tokens)[2])
+        _req(JRequest, jcfg, "free", prompt, max_new_tokens=8))
+    eos = int(np.asarray(free.tokens)[2].flat[0])
     want = JServer(jcfg, jp, cache_len=48)
     got = LLMServer(cfg, p, cache_len=48, device="cpu")
-    a = got.serve_one(Request("eos", prompt, max_new_tokens=8, eos_id=eos))
-    b = want.serve_one(JRequest("eos", prompt, max_new_tokens=8, eos_id=eos))
+    a = got.serve_one(_req(Request, cfg, "eos", prompt, max_new_tokens=8,
+                           eos_id=eos))
+    b = want.serve_one(_req(JRequest, jcfg, "eos", prompt, max_new_tokens=8,
+                            eos_id=eos))
     np.testing.assert_array_equal(a.tokens, np.asarray(b.tokens))
-    assert len(a.tokens) <= 3 and a.tokens[-1] == eos
+    if cfg.n_codebooks == 1:
+        assert len(a.tokens) <= 3 and a.tokens[-1] == eos
+    else:
+        assert len(a.tokens) == 8 or np.all(a.tokens[-1] == eos)
+    assert got.stats == want.stats
+
+
+def test_codebook_eos_waits_for_every_codebook():
+    """MusicGen stops at ``eos_id`` only when every codebook gives it
+    (the reference's ``np.all(val == eos_id)``): both servers' greedy
+    picks replaced by the same script, three codebooks at eos from the
+    first token and the fourth from the third, and both stop after the
+    third token."""
+    jcfg, cfg = _cfgs("musicgen-large")
+    jp, p = _init(jcfg, 45)
+    script = [[7, 7, 7, 9], [7, 7, 7, 9], [7, 7, 7, 7], [1, 2, 3, 4]]
+
+    def scripted(srv, to):
+        calls = []
+        srv._greedy = lambda logits: calls.append(0) or to(
+            [[script[len(calls) - 1]]])
+
+    got = LLMServer(cfg, p, cache_len=48, device="cpu")
+    scripted(got, lambda a: torch.tensor(a, dtype=torch.int64))
+    want = JServer(jcfg, jp, cache_len=48)
+    scripted(want, lambda a: jnp.asarray(a, jnp.int32))
+    a = got.serve_one(_req(Request, cfg, "eos", SYSTEM_PROMPT[:6],
+                           max_new_tokens=8, eos_id=7))
+    b = want.serve_one(_req(JRequest, jcfg, "eos", SYSTEM_PROMPT[:6],
+                            max_new_tokens=8, eos_id=7))
+    np.testing.assert_array_equal(a.tokens, np.asarray(b.tokens))
+    np.testing.assert_array_equal(a.tokens, script[:3])
     assert got.stats == want.stats
 
 
@@ -939,12 +1195,12 @@ def test_stored_prefix_entry_unchanged_by_later_hits(model):
     _, cfg, _, p = model
     srv = LLMServer(cfg, p, cache_len=48, device="cpu")
     system_prompt = np.arange(1, 17, dtype=np.int32)
-    srv.serve_one(Request("sys", system_prompt, max_new_tokens=4))
+    srv.serve_one(_req(Request, cfg, "sys", system_prompt, max_new_tokens=4))
     (key, (entry, _)), = srv.prefix_cache.items()
     before = jax.tree.map(lambda a: a.clone(), entry)
     for i in range(3):
-        r = srv.serve_one(Request(f"u{i}", np.concatenate(
-            [system_prompt, [60 + i]]).astype(np.int32), max_new_tokens=5))
+        r = srv.serve_one(_req(Request, cfg, f"u{i}", np.concatenate(
+            [system_prompt, [60 + i]]), max_new_tokens=5))
         assert r.prefix_hit
     after = srv.prefix_cache[key][0]
     jax.tree.map(lambda a, b: np.testing.assert_array_equal(
@@ -980,5 +1236,12 @@ def test_launcher_on_cpu(capsys):
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1 and "4/4 prefix hits" in out[0]
     assert out[0].endswith("on cpu")
-    with pytest.raises(SystemExit, match="ROADMAP item 11"):
-        main(["--device", "cpu", "--arch", "musicgen-large"])
+    # MusicGen, conditioned on its stub text features: (S, 4) prompts and
+    # a completion of 4-codebook rows, the one line's format
+    main(["--device", "cpu", "--arch", "musicgen-large"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1 and out[0].startswith("musicgen-large ")
+    assert "4/4 prefix hits, encoded 8 vs 136" in out[0]
+    assert "first completion: [[" in out[0] and out[0].endswith("on cpu")
+    with pytest.raises(SystemExit, match="unknown arch"):
+        main(["--device", "cpu", "--arch", "gpt-5"])
