@@ -189,7 +189,40 @@ Phases, each printing one JSON line:
           S=520 and S=1 of that width, and in fp16 with rows off 16 bytes:
           bit for bit the float32 launch on the up-cast inputs under each
           chunk length, timed beside it and beside three casts to float32
-          followed by the float32 launch.
+          followed by the float32 launch. The backward kernel against the
+          plain backward: RWKV6-1.6B's training microbatch (B=16 S=64,
+          no s0) and a 520-token scan with s0 and a final-state gradient,
+          r/k/v in float32 and bf16, and fp16 at n=20: each output
+          within 1e-4 of its scale (bf16/fp16 dr, dk, dv: one step of the
+          type at their scale), timed (L2 flushed, and warm) beside the
+          plain backward and the bound.
+  lm_train  LM training of the LLM zoo (repro_torch.training.trainer).
+          (i) Every arch reduced in float32 (Llama-Vision's gates 0.5, a
+          seeded cond for the conditioned two), 3 make_train_step steps
+          of B=4 S=16 numpy tokens from one CPU-drawn model on the card
+          and on the CPU: loss and grad norm of every step within rtol
+          1e-4 (Jamba 5e-4), every gradient leaf of step 1 within 1e-4
+          of its max |g| (Jamba 5e-4), the RWKV6 scan's forward and
+          backward launched as often as the CPU run calls them, no flash
+          or decode launch; RWKV6 again with remat and 2 microbatches
+          (the forward launched twice as often as the backward).
+          (ii) rwkv6-1.6b and musicgen-large whole, mistral-nemo-12b cut
+          to 16 of 40 layers and olmoe-1b-7b to 5 of 16
+          (LM_TRAIN_DEPTH_CUTS), full width in bf16, 8 steps of the
+          launcher's B=64 S=64 (4 microbatches, remat), each
+          synchronised: finite loss and grad norm, a gradient in every
+          leaf's optimizer state, the scan launched 2 x 24 x 4 times a
+          step and its backward 24 x 4; ms a step p50/p99 after the first
+          3, tokens/s, peak memory, the busy share of one profiled step,
+          the scan kernels' share of it, and the FLOP bound (8 N tokens
+          under remat, N active parameters, at 989 TFLOP/s); for RWKV6,
+          one microbatch's gradients through the kernels against autograd
+          through the plain scan on the card, in bf16 and on a float32
+          copy of the weights: each layer's backward launch within 1e-4
+          of the plain backward on its own inputs (bf16 dr/dk/dv: one
+          step), each leaf within 2x a measured yardstick (the plain
+          path's distance to the mean of its half-batch gradients), every
+          time-mix leaf's gradient nonzero.
   llm     the prefix-cached LLMServer. (i) Every ported arch reduced to 2
           float32 layers on examples/llm_generate.py's mix, card vs CPU:
           the same tokens and stats, logits of every call within 1e-4, a
@@ -2716,6 +2749,76 @@ def rwkv_half_case(name, *, B, S, H, n, seed, dtype=torch.bfloat16,
     return row
 
 
+def rwkv_bwd_bound(B, S, H, n, *, s0, dsf, rkv_bytes=4):
+    """Least time the card could take for one backward: r, k, v
+    (``rkv_bytes`` an element), w, dy, u (and s0, dsf) read once, dr, dk,
+    dv (``rkv_bytes``), dw, du and ds0 written once, over HBM bandwidth;
+    against the float32 operations per (step, batch, head) over the
+    float32 rate: 14 n^2 (the state S_{t-1} recomputed, 3 n^2; S dy, G v,
+    G^T k and rowsum(G * S), 2 n^2 each; G's update, 3 n^2). The bonus
+    terms of dr, dk and dv, (u r)(v . dy) and dy sum_i(u_i r_i k_i), cost
+    O(n)."""
+    nbytes = (6 * rkv_bytes * B * S * H * n + 4 * (3 * B * S * H * n
+              + 2 * H * n + (1 + s0 + dsf) * B * H * n * n))
+    ops = 14 * B * S * H * n * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", ops, nbytes)
+
+
+RWKV_BWD_NAMES = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+def rwkv_bwd_case(name, *, B, S, H, n, s0, dsf, seed, dtype=torch.float32):
+    """The CUDA backward against ``rwkv6_scan_backward_plain`` on the card,
+    decays as the model draws them, dy and dsf ~ N(0, 1): every output
+    within RWKV_TOL of its scale (max |plain|, at least 1), except dr, dk
+    and dv of bf16 r/k/v, which the kernel rounds to bf16: within one
+    bf16 step of their scale. One launch counted per call; timed (L2
+    flushed, and warm) beside the plain backward and the bound."""
+    from repro_torch.kernels import rwkv6 as RW
+    r, k, v, w, u, s = rwkv_inputs(B, S, H, n, s0=s0, seed=seed,
+                                   decay="model")
+    r, k, v = (x.to(dtype) for x in (r, k, v))
+    g = torch.Generator().manual_seed(seed + 1000)
+    dy = torch.randn((B, S, H, n), generator=g).cuda()
+    dS = torch.randn((B, H, n, n), generator=g).cuda() if dsf else None
+    args = (r, k, v, w, u, s, dy, dS)
+    before = RW.rwkv6_scan_backward.launches
+    got = RW.rwkv6_scan_backward(*args)
+    torch.cuda.synchronize()
+    check(RW.rwkv6_scan_backward.launches == before + 1,
+          f"{name}: backward launches {RW.rwkv6_scan_backward.launches} "
+          f"!= {before + 1}")
+    want = RW.rwkv6_scan_backward_plain(*args)
+    errs, tols = {}, {}
+    for i, (gname, a, b) in enumerate(zip(RWKV_BWD_NAMES, got, want)):
+        check(bool(torch.isfinite(a).all()), f"{name}: non-finite {gname}")
+        check(a.dtype == (dtype if i < 3 else torch.float32),
+              f"{name}: {gname} is {a.dtype}")
+        scale = max(1.0, float(b.abs().max()))
+        tol = (RWKV_TOL * scale if i >= 3 or dtype == torch.float32
+               else max(step_of_scale(b, dtype), 2.0 ** -MANTISSA_BITS[dtype]))
+        errs[gname] = float((a.float() - b).abs().max())
+        tols[gname] = tol
+        check(errs[gname] <= tol, f"{name}: {gname}: max |kernel - plain| "
+              f"= {errs[gname]} > {tol}")
+    b_ms, b_by, ops, nbytes = rwkv_bwd_bound(
+        B, S, H, n, s0=s0, dsf=dsf, rkv_bytes=r.element_size())
+    kfn = lambda: RW.rwkv6_scan_backward(*args)  # noqa: E731
+    pfn = lambda: RW.rwkv6_scan_backward_plain(*args)  # noqa: E731
+    row = dict(name=name, shape=dict(B=B, S=S, H=H, n=n, s0=s0, dsf=dsf),
+               dtype=str(dtype).split(".")[-1], max_abs_err=max(errs.values()),
+               max_abs_err_by_output=errs, tol_by_output=tols,
+               ms=device_ms_cold(kfn),
+               plain_ms=device_ms_cold(pfn, reps=3 if S > 100 else 5),
+               library_ms=None, ms_l2_warm=device_ms(kfn),
+               bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
+               scratch_bytes=RW.backward_scratch_bytes(B, S, H))
+    emit("rwkv_kernel", **row)
+    return row
+
+
 def phase_rwkv_kernel():
     from repro_torch.kernels import rwkv6 as RW
     rows = {}
@@ -2764,6 +2867,20 @@ def phase_rwkv_kernel():
     rows["fp16_odd"] = rwkv_half_case(
         "rwkv_1x45x3x20_fp16", B=1, S=45, H=3, n=20, seed=8,
         dtype=torch.float16)
+    # the backward: RWKV6-1.6B's training microbatch (B=16, S=64, no s0,
+    # the final state unused) and a 520-token scan from a nonzero state
+    # with a gradient on the final state, r/k/v in float32 and bf16; a
+    # small odd shape (n=20, S not a multiple of the 8-step chunk) in fp16
+    for dt, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        rows[f"backward_train{tag}"] = rwkv_bwd_case(
+            f"rwkv_backward_16x64x32x64{tag}", B=16, S=64, H=32, n=64,
+            s0=False, dsf=False, seed=9, dtype=dt)
+        rows[f"backward_520{tag}"] = rwkv_bwd_case(
+            f"rwkv_backward_1x520x32x64{tag}", B=1, S=520, H=32, n=64,
+            s0=True, dsf=True, seed=10, dtype=dt)
+    rows["backward_odd_fp16"] = rwkv_bwd_case(
+        "rwkv_backward_2x45x3x20_fp16", B=2, S=45, H=3, n=20, s0=True,
+        dsf=True, seed=11, dtype=torch.float16)
     return rows
 
 
@@ -2828,11 +2945,12 @@ def want_launches(cfg, calls):
             n_mixer(cfg, "rwkv6") * (calls["prefill"] + calls["decode"])]
 
 
-def depth_cut(cfg):
-    """``cfg`` cut in depth as LLM_DEPTH_CUTS says (``cfg`` itself where
-    it says nothing): the same widths, fewer periods."""
+def depth_cut(cfg, cuts=None):
+    """``cfg`` cut in depth as ``cuts`` (LLM_DEPTH_CUTS unless given)
+    says (``cfg`` itself where it says nothing): the same widths, fewer
+    periods."""
     import dataclasses
-    cut = LLM_DEPTH_CUTS.get(cfg.name)
+    cut = (LLM_DEPTH_CUTS if cuts is None else cuts).get(cfg.name)
     if cut is None:
         return cfg
     groups = tuple((specs, n) for (specs, _), n in zip(cfg.groups,
@@ -4003,6 +4121,417 @@ def phase_train():
             "serve": serve_launches}
 
 
+# ------------------------------------------------------------- lm_train
+#
+# LM training of the LLM zoo (repro_torch.training.trainer): every arch
+# reduced, card against CPU; four at full width in bf16 on one card.
+
+LM_TRAIN_B, LM_TRAIN_S = 4, 16     # the reduced card-vs-CPU batch
+LM_TRAIN_STEPS = 3
+LM_TRAIN_RTOL = 1e-4     # loss and grad norm, card vs CPU (float32, TF32 off)
+LM_GRAD_RTOL = 1e-4      # each gradient leaf, of that leaf's max |g|
+LM_FULL_B, LM_FULL_S = 64, 64      # the launcher's --batch and --seq
+LM_FULL_STEPS = 8
+LM_FULL_WARM = 3         # steps left out of the step-time percentiles
+LM_FULL = ("rwkv6-1.6b", "musicgen-large", "mistral-nemo-12b",
+           "olmoe-1b-7b")
+# full width, cut in depth to fit one 80 GB card while training in bf16
+# (about 10 bytes a parameter under Adafactor, 24 under AdamW: the
+# parameters, the float32 gradient sum, the old and the new moments and
+# parameters of the functional update): Mistral-NeMo keeps 16 of its 40
+# layers (57.5 GB peak on the H100), OLMoE 5 of its 16 (6 peaked at 72.7
+# GB, past LM_PEAK_CAP); RWKV6 and MusicGen train whole
+LM_TRAIN_DEPTH_CUTS = {"mistral-nemo-12b": dict(counts=(16,)),
+                       "olmoe-1b-7b": dict(counts=(5,))}
+LM_PEAK_CAP = 70e9       # a run past this peak is cut deeper
+# RWKV6's kernel gradients against autograd through the plain scan on
+# the same inputs. Sharp: each layer's backward launch against the plain
+# backward on that launch's own inputs (RWKV_TOL, one bf16 step for bf16
+# dr/dk/dv). Whole-model: every leaf's gradient, in bf16 steps of its
+# largest element. Rounding differences carry through 24 layers, and the
+# random-init model amplifies them (grad norms 4e4-4e5 at full width), so
+# that yardstick is measured: the plain path's gradient of the microbatch
+# against the mean of its two halves' (the same function, other
+# roundings; 270 steps in bf16 on the H100). Each
+# leaf's kernel distance stays within LM_KERNEL_GRAD_ROOM times its
+# yardstick, or LM_KERNEL_GRAD_STEPS steps if larger.
+LM_KERNEL_GRAD_STEPS = 2
+LM_KERNEL_GRAD_ROOM = 2.0
+
+
+def lm_counters():
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6 as RW
+    return {"flash_attention": FA.flash_attention,
+            "decode_attention": DA.decode_attention,
+            "rwkv6_scan": RW.rwkv6_scan,
+            "rwkv6_scan_backward": RW.rwkv6_scan_backward}
+
+
+def lm_batch(cfg, rng, B, S, device):
+    """The launcher's batch: numpy tokens (B, S+1[, ncb]) split into tokens
+    and labels, ``cond`` ~ N(0, 1) for a conditioned arch."""
+    extra = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B, S + 1)
+                                         + extra).astype(np.int32)).to(device)
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.cond_dim:
+        b["cond"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.cond_seq_len, cfg.cond_dim)).astype(
+                np.float32)).to(device)
+    return b
+
+
+def lm_drive(cfg, params, batches):
+    """Step 1's loss and gradients (value_and_grad on the first batch),
+    then one train step a batch. Returns (loss, gradient leaves on the
+    host, [(loss, grad norm)], calls of each counted kernel)."""
+    from repro_torch.training import trainer as TR
+    counters = lm_counters()
+    calls0 = {k: f.calls for k, f in counters.items()}
+    loss0, grads = TR.value_and_grad(TR.make_loss_fn(cfg), params, batches[0])
+    step, opt_init = TR.make_train_step(cfg)
+    state = opt_init(params)
+    ms = []
+    for b in batches:
+        params, state, m = step(params, state, b)
+        ms.append(m)
+    return (float(loss0), [g.float().cpu() for g in grads],
+            [(float(m["loss"]), float(m["grad_norm"])) for m in ms],
+            {k: f.calls - calls0[k] for k, f in counters.items()})
+
+
+def lm_reduced(arch, **changes):
+    """The reduced float32 model trained on the card and on the CPU from
+    the same weights and batches: loss and grad norm of every step within
+    LM_TRAIN_RTOL (Jamba: LLM_DEEP_LOGIT_TOL), every gradient leaf of
+    step 1 within LM_GRAD_RTOL of its max |g| (the same deeper tolerance
+    for Jamba), the scan's forward and backward launched on the card as
+    often as the CPU run called them, no flash or decode launch.
+    ``changes`` (remat, microbatches) apply to the period stacked twice."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as T
+    cfg = reduced(get_config(arch))
+    if changes:
+        cfg = dataclasses.replace(two_layers(cfg), **changes)
+    cpu_params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    gates = open_gates(cpu_params, cfg)
+    rng = np.random.default_rng(0)
+    cpu_batches = [lm_batch(cfg, rng, LM_TRAIN_B, LM_TRAIN_S, "cpu")
+                   for _ in range(LM_TRAIN_STEPS)]
+    card_batches = [tree_to(b, "cuda") for b in cpu_batches]
+    card_params = tree_to(cpu_params, "cuda")
+    counters = lm_counters()
+    for f in counters.values():
+        f.launches = 0                  # the card's drive starts here
+    card = lm_drive(cfg, card_params, card_batches)
+    launches = {k: f.launches for k, f in counters.items()}  # ... ends here
+    cpu = lm_drive(cfg, cpu_params, cpu_batches)
+    cpu_launches = {k: f.launches - launches[k] for k, f in counters.items()}
+    tol = LLM_DEEP_LOGIT_TOL.get(arch, LM_TRAIN_RTOL)
+    gtol = LLM_DEEP_LOGIT_TOL.get(arch, LM_GRAD_RTOL)
+    rel = max(abs(a - b) / abs(b) for a, b in
+              [(card[0], cpu[0])] + [x for pair in zip(card[2], cpu[2])
+                                     for x in zip(*pair)])
+    check(all(math.isfinite(x) for pair in card[2] for x in pair),
+          f"{arch}: non-finite loss or grad norm {card[2]}")
+    check(rel <= tol, f"{arch}: card vs CPU loss/grad norm differ by {rel} "
+          f"(relative) > {tol}: {card[2]} vs {cpu[2]}")
+    worst = 0.0
+    for a, b in zip(card[1], cpu[1]):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        check(err <= gtol * scale, f"{arch}: a gradient leaf differs by "
+              f"{err} > {gtol} x {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    check(launches["rwkv6_scan"] == card[3]["rwkv6_scan"] == cpu[3][
+        "rwkv6_scan"] and launches["rwkv6_scan_backward"] == card[3][
+        "rwkv6_scan_backward"] == cpu[3]["rwkv6_scan_backward"],
+          f"{arch}: scan launches {launches} != the CPU run's calls {cpu[3]}")
+    check(launches["flash_attention"] == launches["decode_attention"] == 0
+          and cpu[3]["flash_attention"] == cpu[3]["decode_attention"] == 0
+          and not any(cpu_launches.values()),
+          f"{arch}: a training step reached the flash or decode kernel "
+          f"({launches}, CPU calls {cpu[3]})")
+    # step 1's value_and_grad over the whole batch, then each step's
+    # microbatches: one backward a layer each, the forward twice under remat
+    bwd = n_mixer(cfg, "rwkv6") * (1 + LM_TRAIN_STEPS * cfg.train_microbatches)
+    want = (bwd * (2 if cfg.remat else 1), bwd)
+    check((launches["rwkv6_scan"], launches["rwkv6_scan_backward"]) == want,
+          f"{arch}: scan launches {launches} != {want}")
+    return dict(arch=arch, config=dict(remat=cfg.remat,
+                                       microbatches=cfg.train_microbatches,
+                                       layers=cfg.n_layers,
+                                       optimizer=cfg.optimizer),
+                gates_set=gates, losses=[x[0] for x in card[2]],
+                grad_norms=[x[1] for x in card[2]], max_rel_diff=rel,
+                tol=tol, grad_leaves=len(card[1]),
+                max_grad_leaf_rel_diff=worst, grad_tol=gtol,
+                launches=launches, cpu_calls=cpu[3])
+
+
+def lm_profile(fn):
+    """torch.profiler over ``fn``: (the card's busy microseconds, the
+    profiled wall in microseconds, {device entry: self microseconds})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0.0)
+            dev[e.key] = dev.get(e.key, 0.0) + t
+    return sum(dev.values()), wall_us, dev
+
+
+def lm_params_counted(cfg, params):
+    """(parameters, parameters a token meets): a MoE layer's expert
+    stacks count experts_per_tok / n_experts of their size in the second."""
+    from repro_torch.training import tree as TT
+    total = active = 0
+    for path, p in TT.paths(params):
+        total += p.numel()
+        expert = "mlp" in path and path[-1] in ("gate", "up", "down") \
+            and cfg.n_experts
+        active += p.numel() * (cfg.experts_per_tok / cfg.n_experts
+                               if expert else 1)
+    return total, int(active)
+
+
+def rwkv_kernel_grads(cfg, params, batch):
+    """RWKV6's gradients of one microbatch through the kernels against
+    autograd through ``rwkv6_scan_plain`` on the same inputs on the card,
+    held to the measured yardstick (LM_KERNEL_GRAD_ROOM); every time-mix
+    leaf's gradient nonzero."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import rwkv6 as RW
+    from repro_torch.training import trainer as TR
+    from repro_torch.training import tree as TT
+    loss_fn = TR.make_loss_fn(cfg)
+    b0 = RW.rwkv6_scan_backward.launches
+    # every layer's backward launch, its inputs and outputs kept
+    records, launch = [], RW._launch_backward
+
+    def recorded(*args):
+        records.append((args, launch(*args)))
+        return records[-1][1]
+    RW._launch_backward = recorded
+    try:
+        loss_k, gk = TR.value_and_grad(loss_fn, params, batch)
+    finally:
+        RW._launch_backward = launch
+    bwd = RW.rwkv6_scan_backward.launches - b0
+    # each layer's launch against the plain backward on its own inputs:
+    # float32 outputs within RWKV_TOL of their scale, bf16 dr/dk/dv within
+    # one bf16 step of it
+    layer_err = 0.0
+    for args, got in records:
+        for i, (a, b) in enumerate(zip(got, RW.rwkv6_scan_backward_plain(
+                *args))):
+            half = i < 3 and a.dtype != torch.float32
+            tol = (step_of_scale(b, a.dtype) if half
+                   else RWKV_TOL * max(1.0, float(b.abs().max())))
+            err = float((a.float() - b).abs().max())
+            check(err <= tol, f"layer backward output {RWKV_BWD_NAMES[i]}: "
+                  f"max |kernel - plain| = {err} > {tol}")
+            layer_err = max(layer_err, err / tol)
+    half = batch["tokens"].shape[0] // 2
+    scan = kops.rwkv6_scan
+    kops.rwkv6_scan = RW.rwkv6_scan_plain    # autograd differentiates it
+    try:
+        loss_p, gp = TR.value_and_grad(loss_fn, params, batch)
+        ga = TR.value_and_grad(loss_fn, params,
+                               {k: v[:half] for k, v in batch.items()})[1]
+        gb = TR.value_and_grad(loss_fn, params,
+                               {k: v[half:] for k, v in batch.items()})[1]
+    finally:
+        kops.rwkv6_scan = scan
+    check(RW.rwkv6_scan_backward.launches - b0 == bwd == n_mixer(cfg, "rwkv6"),
+          f"the kernel pass launched the backward {bwd} times")
+    per_leaf, tmix_zero, bad = {}, [], []
+    for (path, _), a, b, x, y in zip(TT.paths(params), gk, gp, ga, gb):
+        key = "/".join(map(str, path))
+        if "mixer" in path and float(a.float().abs().max()) == 0.0:
+            tmix_zero.append(key)
+        if float(b.float().abs().max()) == 0.0:
+            if float(a.float().abs().max()) != 0.0:
+                bad.append(key)
+            continue
+        unit = step_of_scale(b)
+        k_steps = float((a.float() - b.float()).abs().max()) / unit
+        y_steps = float(((x.float() + y.float()) / 2 - b.float()).abs().max()
+                        ) / unit
+        per_leaf[key] = (k_steps, y_steps)
+        if k_steps > max(LM_KERNEL_GRAD_STEPS, LM_KERNEL_GRAD_ROOM * y_steps):
+            bad.append(key)
+    worst = max(per_leaf, key=lambda k: per_leaf[k][0])
+    row = dict(microbatch=int(batch["tokens"].shape[0]),
+               layer_launches_checked=len(records),
+               max_layer_err_over_tol=layer_err,
+               loss_kernel=float(loss_k), loss_plain=float(loss_p),
+               max_kernel_steps=per_leaf[worst][0], its_leaf=worst,
+               its_yardstick_steps=per_leaf[worst][1],
+               max_yardstick_steps=max(v[1] for v in per_leaf.values()),
+               kernel_steps_by_leaf={k: round(v[0], 3)
+                                     for k, v in per_leaf.items()},
+               yardstick_steps_by_leaf={k: round(v[1], 3)
+                                        for k, v in per_leaf.items()},
+               room=LM_KERNEL_GRAD_ROOM, floor_steps=LM_KERNEL_GRAD_STEPS,
+               leaves=len(gk), time_mix_zero=tmix_zero, outside=bad)
+    emit("lm_train_kernel_grads", arch=cfg.name, dtype=cfg.dtype, **row)
+    check(not bad, f"kernel gradients outside the yardstick: {bad}")
+    check(not tmix_zero, f"time-mix leaves with a zero gradient: {tmix_zero}")
+    return {k: v for k, v in row.items() if not k.endswith("_by_leaf")}
+
+
+def lm_full(arch):
+    """The full-width bf16 model (cut in depth by LM_TRAIN_DEPTH_CUTS)
+    trained LM_FULL_STEPS steps of the launcher's batch on the card, each
+    step synchronised: every leaf's gradient on step 1's first
+    microbatch nonzero, loss and grad norm finite on every step; ms a
+    step (p50/p99 after LM_FULL_WARM), tokens/s, peak memory, the busy
+    share of one profiled step and the scan kernels' share of it, the
+    FLOP bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.training import trainer as TR
+    from repro_torch.training import tree as TT
+    cfg = depth_cut(get_config(arch), LM_TRAIN_DEPTH_CUTS)
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    n_params, n_active = lm_params_counted(cfg, params)
+    fingerprint = [torch.sum(p, dtype=torch.float64) for p in
+                   TT.leaves(params)]
+    rng = np.random.default_rng(0)
+    first = lm_batch(cfg, rng, LM_FULL_B, LM_FULL_S, "cuda")
+    # every leaf has a gradient (the optimizer's state cannot show it:
+    # Adafactor's is positive whatever the gradient)
+    mb = {k: v[:LM_FULL_B // cfg.train_microbatches] for k, v in first.items()}
+    grads = TR.value_and_grad(TR.make_loss_fn(cfg), params, mb)[1]
+    silent = ["/".join(map(str, p)) for (p, _), g in
+              zip(TT.paths(params), grads) if float(g.abs().max()) == 0.0]
+    del grads, mb
+    torch.cuda.empty_cache()
+    check(not silent, f"{arch}: no gradient reached {silent}")
+    step, opt_init = TR.make_train_step(cfg)
+    state = opt_init(params)
+    counters = lm_counters()
+    for f in counters.values():
+        f.launches = 0                  # the timed steps start here
+    walls, ms = [], []
+    for i in range(LM_FULL_STEPS):
+        batch = first if i == 0 else lm_batch(cfg, rng, LM_FULL_B, LM_FULL_S,
+                                              "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        ms.append(m)
+    launches = {k: f.launches for k, f in counters.items()}  # ... end here
+    peak = torch.cuda.max_memory_allocated()
+    metrics = [(float(m["loss"]), float(m["grad_norm"])) for m in ms]
+    check(all(math.isfinite(x) for pair in metrics for x in pair),
+          f"{arch}: non-finite loss or grad norm {metrics}")
+    moved = sum(not torch.equal(torch.sum(p, dtype=torch.float64), f)
+                for p, f in zip(TT.leaves(params), fingerprint))
+    layers = n_mixer(cfg, "rwkv6")
+    M, passes = cfg.train_microbatches, LM_FULL_STEPS
+    want = (layers * M * passes * (2 if cfg.remat else 1), layers * M * passes)
+    check((launches["rwkv6_scan"], launches["rwkv6_scan_backward"]) == want
+          and launches["flash_attention"] == launches["decode_attention"] == 0,
+          f"{arch}: launches {launches}, expected scan {want}, no flash or "
+          "decode")
+    steady = _percentiles(walls[LM_FULL_WARM:])
+    tokens = LM_FULL_B * LM_FULL_S
+    flops = (8 if cfg.remat else 6) * n_active * tokens
+    bound_ms = flops / BF16_FLOP_PER_S * 1e3
+
+    def one():
+        nonlocal params, state
+        params, state, _ = step(params, state, lm_batch(
+            cfg, rng, LM_FULL_B, LM_FULL_S, "cuda"))
+    busy_us, wall_us, dev = lm_profile(one)
+    share = lambda *names: sum(t for k, t in dev.items()  # noqa: E731
+                               if any(n in k for n in names)) / busy_us \
+        if busy_us else None
+    row = dict(arch=arch, layers=cfg.n_layers,
+               cut=LM_TRAIN_DEPTH_CUTS.get(arch),
+               optimizer=cfg.optimizer, remat=cfg.remat, microbatches=M,
+               batch=LM_FULL_B, seq=LM_FULL_S, params=n_params,
+               active_params=n_active, losses=[x[0] for x in metrics],
+               grad_norms=[x[1] for x in metrics],
+               leaves_changed_bits=moved, leaves=len(fingerprint),
+               step_ms=steady, first_steps_ms=[1e3 * w for w in
+                                               walls[:LM_FULL_WARM]],
+               tokens_per_s=tokens / (steady["p50"] / 1e3),
+               peak_bytes=peak, weights_before_bytes=mem0,
+               busy_share_of_profiled_step=(busy_us / wall_us
+                                            if busy_us else None),
+               scan_forward_share=share("rwkv6_chunk_kernel",
+                                        "rwkv6_step_kernel"),
+               scan_backward_share=share("rwkv6_backward_kernel",
+                                         "rwkv6_du_kernel"),
+               top_device_shares=dict(sorted(
+                   ((k[:80], t / busy_us) for k, t in dev.items()),
+                   key=lambda kv: -kv[1])[:6]) if busy_us else {},
+               launches=launches, step_flops=flops,
+               flop_bound_ms=bound_ms,
+               step_p50_over_bound=steady["p50"] / bound_ms,
+               nvidia_smi=CARD.get("nvidia_smi"))
+    if peak > LM_PEAK_CAP:
+        row["note"] = (f"peak {peak / 1e9:.1f} GB passes {LM_PEAK_CAP / 1e9:.0f}"
+                       " GB: cut this model deeper in LM_TRAIN_DEPTH_CUTS")
+    emit("lm_train_full", **row)
+    if layers:
+        state = None
+        torch.cuda.empty_cache()
+        mb = lm_batch(cfg, rng, LM_FULL_B // M, LM_FULL_S, "cuda")
+        row["kernel_grads"] = rwkv_kernel_grads(cfg, params, mb)
+    del params, state, ms, fingerprint, first, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_lm_train():
+    """LM training: (i) every arch reduced in float32, card against CPU
+    (3 steps of B=4 S=16, step 1's gradients leaf by leaf), and RWKV6 with
+    remat and 2 microbatches; (ii) RWKV6-1.6B and MusicGen-large whole,
+    Mistral-NeMo-12B and OLMoE-1B-7B cut in depth, at full width in bf16,
+    8 steps of the launcher's B=64 S=64 each, RWKV6's kernel gradients
+    held to the plain scan's (``rwkv_kernel_grads``)."""
+    out, t0 = {"reduced": {}}, time.perf_counter()
+    for arch in LLM_ARCHS:
+        out["reduced"][arch] = row = lm_reduced(arch)
+        emit("lm_train_reduced", **row)
+    out["reduced"]["rwkv6_remat_m2"] = row = lm_reduced(
+        "rwkv6-1.6b", remat=True, train_microbatches=2)
+    check(row["launches"]["rwkv6_scan"]
+          == 2 * row["launches"]["rwkv6_scan_backward"] > 0,
+          f"remat: scan launches {row['launches']}")
+    emit("lm_train_reduced", name="rwkv6_remat_m2", **row)
+    seconds = {"reduced": time.perf_counter() - t0}
+    for arch in LM_FULL:
+        t0 = time.perf_counter()
+        out[arch] = lm_full(arch)
+        seconds[arch] = time.perf_counter() - t0
+    emit("lm_train_seconds", **seconds)
+    return out
+
+
 # ----------------------------------------------------------------- fleet
 #
 # The region simulator (repro_torch.fleet) over engine replicas on the
@@ -4586,7 +5115,7 @@ PHASES = {"kernel": phase_kernel, "int8": phase_int8,
           "bertbase": phase_bertbase, "tiered": phase_tiered,
           "robust": phase_robust, "batch": phase_batch,
           "fleet": phase_fleet, "train": phase_train,
-          "llm": phase_llm, "cli": phase_cli}
+          "llm": phase_llm, "lm_train": phase_lm_train, "cli": phase_cli}
 
 
 def main():
@@ -4625,6 +5154,7 @@ def main():
     fleet_launches = timed("fleet", phase_fleet)
     train_launches = timed("train", phase_train)
     llm_rows = timed("llm", phase_llm)
+    lm_rows = timed("lm_train", phase_lm_train)
     timed("cli", phase_cli)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds)
     print(smi)
@@ -4715,13 +5245,35 @@ def main():
                          shape=rwkv_rows["prefill_520"]["shape"],
                          decode_step={k: rwkv_rows["decode_1"][k]
                                       for k in step_keys}))
+    # the bf16 scan serves RWKV6-1.6B and trains it: both entry points,
+    # the forward's launches by path, the backward's beside them
+    lm_rwkv = lm_rows["rwkv6-1.6b"]["launches"]
+    bwd_row = rwkv_rows["backward_train_bf16"]
     kernels.append(_line("rwkv6_scan_bf16", "src/repro_torch/csrc/rwkv6.cu",
                          "src/repro/kernels/rwkv6.py:62",
                          rwkv["launches"][1], rwkv_rows["prefill_520_bf16"],
                          shape=rwkv_rows["prefill_520_bf16"]["shape"],
                          dtype="bfloat16",
+                         entry_points=["repro_rwkv6_scan",
+                                       "repro_rwkv6_scan_backward"],
+                         launches_by_path={
+                             "llm": rwkv["launches"][1],
+                             "lm_train": lm_rwkv["rwkv6_scan"]},
+                         backward={"launches": lm_rwkv["rwkv6_scan_backward"],
+                                   "shape": bwd_row["shape"],
+                                   **{k: bwd_row[k] for k in step_keys}},
                          decode_step={k: rwkv_rows["decode_1_bf16"][k]
                                       for k in step_keys}))
+    # the backward on its own line: RWKV6-1.6B's training step at full
+    # width (bf16 r/k/v, the B=16 microbatch), its launches those of the
+    # lm_train phase's 8 timed steps
+    kernels.append(_line("rwkv6_scan_backward", "src/repro_torch/csrc/rwkv6.cu",
+                         "src/repro/kernels/rwkv6.py:62",
+                         lm_rwkv["rwkv6_scan_backward"], bwd_row,
+                         shape=bwd_row["shape"], dtype="bfloat16",
+                         entry_point="repro_rwkv6_scan_backward",
+                         float32=_brief(rwkv_rows["backward_train"]),
+                         s520_bf16=_brief(rwkv_rows["backward_520_bf16"])))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -621,6 +621,260 @@ int run(const void* r, const void* k, const void* v, const void* w,
   }
 }
 
+// ---------------------------------------------------------------------
+// The backward. With dy_t = dL/dy_t, G_t = dL/dS_t (G_S = dL/d final
+// state, or zeros) and A_t = S_{t-1} + diag(u) k_t^T v_t:
+//     dr_t = A_t dy_t                  du = sum_t r_t * k_t (v_t . dy_t)
+//     M_t  = G_t + diag(u * r_t) 1 dy_t^T
+//     dk_t = M_t v_t                   dv_t = M_t^T k_t
+//     dw_t = rowsum(G_t * S_{t-1})     G_{t-1} = diag(w_t) G_t + r_t^T dy_t
+//     ds0  = G_0
+// What bounds it: the same chain of S dependent steps as the forward,
+// now walked twice (once forward for the states, once backward). At the
+// training microbatch of RWKV6-1.6B (B=16, S=64, H=32, n=64) it reads and
+// writes 59 MB with bf16 r/k/v (84 MB in float32), 18 us of HBM time,
+// and does 16 n^2 float32 operations per (step, head): 2.1 GFLOP, 32 us
+// at 67 TFLOP/s, so the operations bound it.
+//
+// The design (simple first; a later change can chunk it as the forward).
+// - One block per (batch, head), 512 threads. Thread (i, c) owns row i of
+//   the n x n state and of G, columns 8c .. 8c+7, in registers. The state
+//   and G evolve element by element (S_t[i,j] needs w_t[i], k_t[i],
+//   v_t[j]; G_{t-1}[i,j] needs w_t[i], r_t[i], dy_t[j]), so no thread
+//   reads another's state.
+// - dw_t needs S_{t-1} beside G_t, and the state cannot be run backward
+//   (w_t may be 0). So a first walk forward stores each thread's slice of
+//   the state at the start of every chunk of BC = 8 steps into a scratch
+//   buffer in device memory (B * H * ceil(S / 8) * 64 * 64 floats:
+//   67 MB at the training microbatch). The walk backward takes the chunks
+//   last first: it reloads the chunk's checkpoint, recomputes the chunk's
+//   8 states into registers, then walks the chunk's steps backward. Each
+//   thread reads back only what it wrote itself.
+// - A chunk's r, k, w, v and dy rows are staged in shared memory as
+//   float32 (bf16 and fp16 up-cast exactly) by all 512 threads at once.
+// - Sums over a row's columns (dr, dk, dw, v . dy): the 8 threads of a
+//   row are 8 neighbouring lanes of a warp, so 3 xor shuffles each. Sums
+//   over rows (dv): 2 shuffles over the warp's 4 rows, then each warp's
+//   partial column sums of the chunk go to shared memory, and after the
+//   chunk one thread per (step, column) adds the 16 warps' partials in
+//   warp order.
+// - du sums over batch too: each block writes its (B, H) row of partial
+//   sums (over its own steps, in step order) to scratch, and a second
+//   kernel adds them over b in order. Every sum is in a fixed order, so
+//   the backward is deterministic, as the forward is.
+constexpr int BT = 512;                 // threads of a backward block
+constexpr int BC = 8;                   // steps between checkpoints
+constexpr int BCOLS = 8;                // state columns a thread owns
+constexpr int BWARPS = BT / 32;
+
+template <typename TI>
+struct BwdParams {
+  const TI* r;
+  const TI* k;
+  const TI* v;
+  const float* w;
+  const float* u;
+  const float* s0;                      // or null: zeros
+  const float* dy;
+  const float* dsf;                     // or null: zeros
+  TI* dr;
+  TI* dk;
+  TI* dv;
+  float* dw;
+  float* du_part;                       // (B, H, NMAX) partial sums of du
+  float* ds0;
+  float* ckpt;                          // (B, H, chunks, NMAX, NMAX)
+  int B, S, H, n;
+};
+
+__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store_as(__half* p, float x) { *p = __float2half(x); }
+
+template <typename TI>
+__global__ void __launch_bounds__(BT) rwkv6_backward_kernel(const BwdParams<TI> p) {
+  __shared__ float sr[BC][NMAX], sk[BC][NMAX], sw[BC][NMAX], sv[BC][NMAX], sdy[BC][NMAX];
+  __shared__ float dvp[BWARPS][BC][NMAX];          // per-warp partial sums of dv
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i = tid / BCOLS, c = tid % BCOLS, j0 = c * BCOLS;
+  const int n = p.n;
+  const bool row_ok = i < n;
+  const long long row = static_cast<long long>(p.H) * n;       // stride of t
+  const long long base = static_cast<long long>(b) * p.S * row + static_cast<long long>(h) * n;
+  const long long sbase = static_cast<long long>(bh) * n * n + static_cast<long long>(i) * n;
+  const int chunks = (p.S + BC - 1) / BC;
+  float* ck = p.ckpt + static_cast<long long>(bh) * chunks * NMAX * NMAX + i * NMAX + j0;
+
+  // a chunk's rows into shared memory as float32: element e of each array
+  // (step e / NMAX, lane e % NMAX), zeros past the sequence or the head dim
+  auto stage = [&](int ch, bool all) {
+    const int s = tid / NMAX, x = tid % NMAX, t = ch * BC + s;
+    const bool in = t < p.S && x < n;
+    const long long o = base + static_cast<long long>(t) * row + x;
+    sk[s][x] = in ? to_f32(p.k[o]) : 0.f;
+    sw[s][x] = in ? p.w[o] : 0.f;
+    sv[s][x] = in ? to_f32(p.v[o]) : 0.f;
+    if (all) {
+      sr[s][x] = in ? to_f32(p.r[o]) : 0.f;
+      sdy[s][x] = in ? p.dy[o] : 0.f;
+    }
+  };
+  static_assert(BT == BC * NMAX, "one staged element per thread and array");
+
+  // the walk forward: checkpoint the state at the start of every chunk
+  float st[BCOLS];
+#pragma unroll
+  for (int jj = 0; jj < BCOLS; ++jj)
+    st[jj] = (p.s0 && row_ok && j0 + jj < n) ? p.s0[sbase + j0 + jj] : 0.f;
+  for (int ch = 0; ch < chunks; ++ch) {
+    float* dst = ck + static_cast<long long>(ch) * NMAX * NMAX;
+#pragma unroll
+    for (int jj = 0; jj < BCOLS; ++jj) dst[jj] = st[jj];
+    __syncthreads();                    // the last chunk's rows are read
+    stage(ch, false);
+    __syncthreads();
+    const int steps = min(BC, p.S - ch * BC);
+    for (int s = 0; s < steps; ++s) {
+      const float wi = sw[s][i & (NMAX - 1)], ki = sk[s][i & (NMAX - 1)];
+#pragma unroll
+      for (int jj = 0; jj < BCOLS; ++jj) st[jj] = fmaf(wi, st[jj], ki * sv[s][j0 + jj]);
+    }
+  }
+
+  // the walk backward
+  float g[BCOLS];
+#pragma unroll
+  for (int jj = 0; jj < BCOLS; ++jj)
+    g[jj] = (p.dsf && row_ok && j0 + jj < n) ? p.dsf[sbase + j0 + jj] : 0.f;
+  const float ui = row_ok ? p.u[h * n + i] : 0.f;
+  float du = 0.f;
+  for (int ch = chunks - 1; ch >= 0; --ch) {
+    __syncthreads();                    // the last chunk's rows and dv partials are read
+    stage(ch, true);
+    __syncthreads();
+    const int steps = min(BC, p.S - ch * BC);
+    // the chunk's states S_{t-1}, from its checkpoint
+    float sp[BC][BCOLS];
+    const float* src = ck + static_cast<long long>(ch) * NMAX * NMAX;
+#pragma unroll
+    for (int jj = 0; jj < BCOLS; ++jj) sp[0][jj] = src[jj];
+#pragma unroll
+    for (int s = 0; s + 1 < BC; ++s) {
+      const float wi = sw[s][i & (NMAX - 1)], ki = sk[s][i & (NMAX - 1)];
+#pragma unroll
+      for (int jj = 0; jj < BCOLS; ++jj) sp[s + 1][jj] = fmaf(wi, sp[s][jj], ki * sv[s][j0 + jj]);
+    }
+#pragma unroll
+    for (int s = BC - 1; s >= 0; --s) {
+      if (s < steps) {                  // uniform over the block
+        const int ii = i & (NMAX - 1);
+        const float ri = sr[s][ii], ki = sk[s][ii], wi = sw[s][ii];
+        float vj[BCOLS], dyj[BCOLS];
+#pragma unroll
+        for (int jj = 0; jj < BCOLS; ++jj) {
+          vj[jj] = sv[s][j0 + jj];
+          dyj[jj] = sdy[s][j0 + jj];
+        }
+        float s_dy = 0.f, g_v = 0.f, g_s = 0.f, v_dy = 0.f;
+        float m_k[BCOLS];
+        const float ur = ui * ri;
+#pragma unroll
+        for (int jj = 0; jj < BCOLS; ++jj) {
+          s_dy = fmaf(sp[s][jj], dyj[jj], s_dy);
+          v_dy = fmaf(vj[jj], dyj[jj], v_dy);
+          g_s = fmaf(g[jj], sp[s][jj], g_s);
+          const float m = fmaf(ur, dyj[jj], g[jj]);
+          g_v = fmaf(m, vj[jj], g_v);
+          m_k[jj] = m * ki;
+          g[jj] = fmaf(wi, g[jj], ri * dyj[jj]);
+        }
+        // sums over the row's 8 threads (neighbouring lanes)
+#pragma unroll
+        for (int off = 1; off < BCOLS; off <<= 1) {
+          s_dy += __shfl_xor_sync(0xffffffffu, s_dy, off);
+          v_dy += __shfl_xor_sync(0xffffffffu, v_dy, off);
+          g_s += __shfl_xor_sync(0xffffffffu, g_s, off);
+          g_v += __shfl_xor_sync(0xffffffffu, g_v, off);
+        }
+        // sums over the warp's 4 rows, then into the warp's partials
+#pragma unroll
+        for (int off = BCOLS; off < 32; off <<= 1)
+#pragma unroll
+          for (int jj = 0; jj < BCOLS; ++jj)
+            m_k[jj] += __shfl_xor_sync(0xffffffffu, m_k[jj], off);
+        if (lane < BCOLS)
+#pragma unroll
+          for (int jj = 0; jj < BCOLS; ++jj) dvp[warp][s][j0 + jj] = m_k[jj];
+        if (c == 0 && row_ok) {
+          const long long o = base + static_cast<long long>(ch * BC + s) * row + i;
+          store_as(p.dr + o, fmaf(ui * ki, v_dy, s_dy));
+          store_as(p.dk + o, g_v);
+          p.dw[o] = g_s;
+          du = fmaf(ri * ki, v_dy, du);
+        }
+      }
+    }
+    __syncthreads();                    // every warp's dv partials are in
+    {
+      const int s = tid / NMAX, x = tid % NMAX;
+      if (s < steps && x < n) {
+        float acc = 0.f;
+#pragma unroll
+        for (int q = 0; q < BWARPS; ++q) acc += dvp[q][s][x];
+        store_as(p.dv + base + static_cast<long long>(ch * BC + s) * row + x, acc);
+      }
+    }
+  }
+  if (row_ok) {
+#pragma unroll
+    for (int jj = 0; jj < BCOLS; ++jj)
+      if (j0 + jj < n) p.ds0[sbase + j0 + jj] = g[jj];
+    if (c == 0) p.du_part[static_cast<long long>(bh) * NMAX + i] = du;
+  }
+}
+
+// du[h][i] = sum over b, in order, of the blocks' partial sums
+__global__ void rwkv6_du_kernel(const float* du_part, float* du, int B, int H, int n) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= H * n) return;
+  const int h = e / n, i = e % n;
+  float acc = 0.f;
+  for (int b = 0; b < B; ++b) acc += du_part[(static_cast<long long>(b) * H + h) * NMAX + i];
+  du[e] = acc;
+}
+
+template <typename TI>
+int run_backward(const void* r, const void* k, const void* v, const void* w,
+                 const void* u, const void* s0, const void* dy, const void* dsf,
+                 void* dr, void* dk, void* dv, void* dw, void* du, void* ds0,
+                 void* scratch, int B, int S, int H, int n, cudaStream_t s) {
+  BwdParams<TI> p;
+  p.r = static_cast<const TI*>(r);
+  p.k = static_cast<const TI*>(k);
+  p.v = static_cast<const TI*>(v);
+  p.w = static_cast<const float*>(w);
+  p.u = static_cast<const float*>(u);
+  p.s0 = static_cast<const float*>(s0);
+  p.dy = static_cast<const float*>(dy);
+  p.dsf = static_cast<const float*>(dsf);
+  p.dr = static_cast<TI*>(dr);
+  p.dk = static_cast<TI*>(dk);
+  p.dv = static_cast<TI*>(dv);
+  p.dw = static_cast<float*>(dw);
+  p.ds0 = static_cast<float*>(ds0);
+  const long long chunks = (S + BC - 1) / BC;
+  // scratch: the checkpoints, then the partial sums of du
+  p.ckpt = static_cast<float*>(scratch);
+  p.du_part = p.ckpt + static_cast<long long>(B) * H * chunks * NMAX * NMAX;
+  p.B = B; p.S = S; p.H = H; p.n = n;
+  rwkv6_backward_kernel<TI><<<B * H, BT, 0, s>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rwkv6_du_kernel<<<(H * n + 255) / 256, 256, 0, s>>>(p.du_part, static_cast<float*>(du), B, H, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype of r, k and v: 0 float32, 1 bfloat16, 2 float16 (w, u, s0, y
@@ -635,6 +889,30 @@ extern "C" int repro_rwkv6_scan(
     case 0: return run<float>(r, k, v, w, u, s0, y, sf, B, S, H, n, chunk, s);
     case 1: return run<__nv_bfloat16>(r, k, v, w, u, s0, y, sf, B, S, H, n, chunk, s);
     case 2: return run<__half>(r, k, v, w, u, s0, y, sf, B, S, H, n, chunk, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward: dr, dk, dv in r's dtype, dw (B, S, H, n), du (H, n) and
+// ds0 (B, H, n, n) float32, from the forward's inputs, dy (B, S, H, n)
+// float32 and dsf (B, H, n, n) float32 or null (zeros). scratch holds
+// B * H * 64 * (ceil(S / 8) * 64 + 1) floats (kernels/rwkv6.py::
+// backward_scratch_bytes). Two launches: the backward, then du's sum
+// over the batch.
+extern "C" int repro_rwkv6_scan_backward(
+    const void* r, const void* k, const void* v, const void* w,
+    const void* u, const void* s0, const void* dy, const void* dsf,
+    void* dr, void* dk, void* dv, void* dw, void* du, void* ds0,
+    void* scratch, int B, int S, int H, int n, int dtype, void* stream) {
+  if (n < 1 || n > NMAX || S < 1 || B < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return run_backward<float>(r, k, v, w, u, s0, dy, dsf, dr, dk, dv, dw, du, ds0,
+                                       scratch, B, S, H, n, s);
+    case 1: return run_backward<__nv_bfloat16>(r, k, v, w, u, s0, dy, dsf, dr, dk, dv, dw, du,
+                                               ds0, scratch, B, S, H, n, s);
+    case 2: return run_backward<__half>(r, k, v, w, u, s0, dy, dsf, dr, dk, dv, dw, du, ds0,
+                                        scratch, B, S, H, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

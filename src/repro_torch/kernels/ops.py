@@ -10,7 +10,7 @@ from .decode_attention import decode_attention  # noqa: F401
 from .flash_attention import flash_attention  # noqa: F401
 from .quantized import (MAX_K, dequantize_rowwise,  # noqa: F401
                         int8_matmul, quantize_rowwise)
-from .rwkv6 import rwkv6_scan  # noqa: F401
+from .rwkv6 import rwkv6_scan, rwkv6_scan_backward  # noqa: F401
 
 
 def quantize_colwise(w):
@@ -34,5 +34,6 @@ def quantized_matmul(x, wq, sw):
 # ``graphs.Graphed`` adds a capture's ticks again on each replay
 COUNTERS = tuple((fn, attr) for fn in (flash_attention, quantize_rowwise,
                                        dequantize_rowwise, int8_matmul,
-                                       decode_attention, rwkv6_scan)
+                                       decode_attention, rwkv6_scan,
+                                       rwkv6_scan_backward)
                  for attr in ("calls", "launches"))

@@ -24,6 +24,23 @@ state's value columns and chunked over time as ``plan_chunks`` says, or
 raises; on a CPU tensor it computes ``rwkv6_scan_plain``. Nothing falls
 back from one to the other. ``rwkv6_scan.launches`` counts kernel
 launches, ``rwkv6_scan.calls`` every call on any device.
+
+Gradients. Under grad mode, when any input requires grad, the scan runs
+through ``RWKV6Scan`` (a ``torch.autograd.Function``): the forward as
+above, and a backward through ``rwkv6_scan_backward``, which launches the
+backward entry point of ``csrc/rwkv6.cu`` on the card and computes
+``rwkv6_scan_backward_plain`` on the CPU (its own ``calls`` and
+``launches``). With G_t = dL/dS_t (G_S = dL/d final state) and
+A_t = S_{t-1} + diag(u) k_t^T v_t:
+
+    dr_t = A_t dy_t                 du = sum_t r_t * k_t (v_t . dy_t)
+    dk_t = (G_t + diag(u * r_t) 1 dy_t^T) v_t
+    dv_t = (G_t + diag(u * r_t) 1 dy_t^T)^T k_t
+    dw_t = rowsum(G_t * S_{t-1})    G_{t-1} = diag(w_t) G_t + r_t^T dy_t
+    ds0 = G_0
+
+Under ``torch.no_grad()`` or ``torch.inference_mode()`` (serving) the
+forward is called directly, as before, and nothing is saved.
 """
 from __future__ import annotations
 
@@ -71,6 +88,37 @@ def rwkv6_scan_plain(r, k, v, w, u, s0=None):
     return torch.stack(ys, dim=1), s
 
 
+def rwkv6_scan_backward_plain(r, k, v, w, u, s0, dy, dsf):
+    """The scan's gradients, step by step in float32: the states S_0 ..
+    S_{S-1} by the forward recurrence, then G walked back from ``dsf``
+    (zeros when None) as the module docstring says. ``s0`` None means
+    zeros. Returns (dr, dk, dv, dw (B, S, H, n), du (H, n), ds0 (B, H,
+    n, n)), float32."""
+    B, S, H, n = r.shape
+    r, k, v, w, u, dy = (a.float() for a in (r, k, v, w, u, dy))
+    s = (torch.zeros((B, H, n, n), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    prev = []                                   # S_{t-1} of every step t
+    for t in range(S):
+        prev.append(s)
+        s = w[:, t, :, :, None] * s + k[:, t, :, :, None] * v[:, t, :, None, :]
+    g = (torch.zeros_like(s) if dsf is None else dsf.float())
+    dr, dk, dv, dw = ([None] * S for _ in range(4))
+    du = torch.zeros_like(u)
+    for t in range(S - 1, -1, -1):
+        rt, kt, vt, wt, dyt = (a[:, t] for a in (r, k, v, w, dy))  # (B,H,n)
+        vdy = (vt * dyt).sum(-1, keepdim=True)                     # (B,H,1)
+        dr[t] = torch.einsum("bhij,bhj->bhi", prev[t], dyt) + u * kt * vdy
+        m = g + (u * rt)[..., None] * dyt[..., None, :]            # (B,H,n,n)
+        dk[t] = torch.einsum("bhij,bhj->bhi", m, vt)
+        dv[t] = torch.einsum("bhij,bhi->bhj", m, kt)
+        dw[t] = (g * prev[t]).sum(-1)
+        du = du + (rt * kt * vdy).sum(0)
+        g = wt[..., None] * g + rt[..., None] * dyt[..., None, :]
+    stack = lambda xs: torch.stack(xs, dim=1)                      # noqa: E731
+    return stack(dr), stack(dk), stack(dv), stack(dw), du, g
+
+
 def _kernel_fn():
     """The C entry point of csrc/rwkv6.cu, typed once."""
     from . import build
@@ -82,7 +130,19 @@ def _kernel_fn():
     return fn
 
 
-def _launch(r, k, v, w, u, s0, chunk=None):
+def _backward_fn():
+    """The backward's C entry point in csrc/rwkv6.cu, typed once."""
+    from . import build
+    fn = build.library("rwkv6").repro_rwkv6_scan_backward
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 15 + [i] * 5 + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_checks(r, k, v, w, u, s0):
+    """What both CUDA entry points refuse, before any build or launch."""
     B, S, H, n = r.shape
     if n > MAX_HEAD_DIM:
         raise ValueError(f"head dim {n} > {MAX_HEAD_DIM}: the CUDA RWKV6 "
@@ -100,6 +160,11 @@ def _launch(r, k, v, w, u, s0, chunk=None):
     if any(not a.is_contiguous() for a in args):
         raise ValueError("the CUDA RWKV6 kernel takes contiguous r/k/v/w "
                          "(B, S, H, n), u (H, n) and s0 (B, H, n, n)")
+
+
+def _launch(r, k, v, w, u, s0, chunk=None):
+    B, S, H, n = r.shape
+    _launch_checks(r, k, v, w, u, s0)
     chunk = chunk or plan_chunks(B, S, H, n)[0]   # another only to compare them
     if chunk not in CHUNKS:
         raise ValueError(f"chunk={chunk} not in {CHUNKS}")
@@ -116,11 +181,104 @@ def _launch(r, k, v, w, u, s0, chunk=None):
     return y, sf
 
 
+# csrc/rwkv6.cu's backward: steps between two of the forward walk's saved
+# states (the checkpoints in its scratch buffer)
+BACKWARD_CHUNK = 8
+
+
+def backward_scratch_bytes(B, S, H):
+    """Bytes of the backward's scratch: a 64 x 64 float32 checkpoint per
+    (batch, head, chunk of BACKWARD_CHUNK steps), and B x H x 64 float32
+    partial sums of du."""
+    chunks = -(-S // BACKWARD_CHUNK)
+    return 4 * B * H * MAX_HEAD_DIM * (chunks * MAX_HEAD_DIM + 1)
+
+
+def _launch_backward(r, k, v, w, u, s0, dy, dsf):
+    B, S, H, n = r.shape
+    _launch_checks(r, k, v, w, u, s0)
+    for name, a in (("dy", dy), ("dsf", dsf)):
+        if a is not None and (a.dtype != torch.float32 or a.device != r.device
+                              or not a.is_contiguous()):
+            raise TypeError(f"the CUDA RWKV6 backward takes a contiguous "
+                            f"float32 {name} on r's device; got {a.dtype} "
+                            f"on {a.device}")
+    dev = r.device
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty((B, S, H, n), dtype=torch.float32, device=dev)
+    du = torch.empty((H, n), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((B, H, n, n), dtype=torch.float32, device=dev)
+    scratch = torch.empty(backward_scratch_bytes(B, S, H) // 4,
+                          dtype=torch.float32, device=dev)
+    ptr = lambda a: a.data_ptr() if a is not None else None  # noqa: E731
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _backward_fn()(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        ptr(s0), dy.data_ptr(), ptr(dsf), dr.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(),
+        scratch.data_ptr(), B, S, H, n, RKV_DTYPES[r.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan backward kernel launch failed: CUDA "
+                           f"error {err}")
+    rwkv6_scan_backward.launches += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+def rwkv6_scan_backward(r, k, v, w, u, s0, dy, dsf):
+    """The scan's backward: (dr, dk, dv in r's dtype, dw (B, S, H, n),
+    du (H, n), ds0 (B, H, n, n) float32) from the forward's inputs, dy
+    (B, S, H, n) float32 and dsf (B, H, n, n) float32 or None (zeros).
+    CUDA tensors launch the kernel; CPU tensors take
+    ``rwkv6_scan_backward_plain``."""
+    rwkv6_scan_backward.calls += 1
+    if r.device.type == "cpu":
+        out = rwkv6_scan_backward_plain(r, k, v, w, u, s0, dy, dsf)
+        return tuple(g.to(r.dtype) for g in out[:3]) + out[3:]
+    if r.device.type == "cuda":
+        return _launch_backward(r, k, v, w, u, s0, dy.contiguous(),
+                                None if dsf is None else dsf.contiguous())
+    raise ValueError(f"no rwkv6_scan_backward for device {r.device}")
+
+
+rwkv6_scan_backward.launches = 0
+rwkv6_scan_backward.calls = 0
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """The scan with its backward: ``_scan`` forward, ``rwkv6_scan_
+    backward`` backward, on the inputs' device."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.set_materialize_grads(False)
+        return _scan(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, dy, dsf):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        dr, dk, dv, dw, du, ds0 = rwkv6_scan_backward(r, k, v, w, u, s0, dy,
+                                                      dsf)
+        return dr, dk, dv, dw, du, ds0 if s0 is not None else None
+
+
+def _scan(r, k, v, w, u, s0):
+    if r.device.type == "cpu":
+        return rwkv6_scan_plain(r, k, v, w, u, s0)
+    if r.device.type == "cuda":
+        return _launch(r, k, v, w, u, s0)
+    raise ValueError(f"no rwkv6_scan for device {r.device}")
+
+
 def rwkv6_scan(r, k, v, w, u, s0=None):
     """r/k/v/w: (B, S, H, n); u: (H, n); s0: (B, H, n, n) or None; r, k
     and v float32, bfloat16 or float16, w, u and s0 float32.
     Returns (y (B, S, H, n) float32, final_state (B, H, n, n) float32).
-    CUDA tensors launch the kernel; CPU tensors take ``rwkv6_scan_plain``."""
+    CUDA tensors launch the kernel; CPU tensors take ``rwkv6_scan_plain``.
+    Under grad mode with an input that requires grad, through
+    ``RWKV6Scan``, whose backward is ``rwkv6_scan_backward``."""
     B, S, H, n = r.shape
     rwkv6_scan.calls += 1
     for name, a in (("k", k), ("v", v), ("w", w)):
@@ -131,11 +289,10 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
         raise ValueError(f"u shape {tuple(u.shape)} != ({H}, {n})")
     if s0 is not None and s0.shape != (B, H, n, n):
         raise ValueError(f"s0 shape {tuple(s0.shape)} != ({B}, {H}, {n}, {n})")
-    if r.device.type == "cpu":
-        return rwkv6_scan_plain(r, k, v, w, u, s0)
-    if r.device.type == "cuda":
-        return _launch(r, k, v, w, u, s0)
-    raise ValueError(f"no rwkv6_scan for device {r.device}")
+    if torch.is_grad_enabled() and any(
+            a is not None and a.requires_grad for a in (r, k, v, w, u, s0)):
+        return RWKV6Scan.apply(r, k, v, w, u, s0)
+    return _scan(r, k, v, w, u, s0)
 
 
 rwkv6_scan.launches = 0

@@ -1,22 +1,31 @@
-"""Training launcher: end-to-end EMSNet training on the synthetic
-NEMSIS-schema datasets.
+"""Training launcher. Two modes, matching the paper's workload (EMSNet)
+and the architecture zoo:
 
-``--model emsnet`` (the default) runs D1 (2-modal) pretraining, then PMI
-3-modal integration on D2, evaluation on held-out test splits and a
-``{"m2", "m3"}`` checkpoint in the reference's format (``--out``).
-``--text-encoder bertbase`` gives the ~110M-parameter configuration.
-``--model <arch-id>`` (LM training of the architecture zoo) belongs to
-ROADMAP item 11 and exits naming it.
+  * ``--model emsnet`` (the default): D1 (2-modal) pretraining on the
+    synthetic NEMSIS-schema datasets, then PMI 3-modal integration on D2,
+    evaluation on held-out test splits and a ``{"m2", "m3"}`` checkpoint
+    in the reference's format (``--out``). ``--text-encoder bertbase``
+    gives the ~110M-parameter configuration.
+
+  * ``--model <arch-id> [--reduced]``: the LM training loop of any
+    registry architecture on seeded random token streams (``--batch``,
+    ``--seq``, ``--steps``), through ``training.trainer.make_train_step``
+    with the config's optimizer; a conditioned arch gets seeded
+    ``cond`` features.
 
 Runs on the CUDA card unless ``--device cpu``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --text-encoder microbert --steps 20 --d1-size 600 --d2-size 200
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --model rwkv6-1.6b --reduced --steps 2
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+import numpy as np
 
 
 def train_emsnet(args):
@@ -59,11 +68,48 @@ def train_emsnet(args):
         print(f"checkpoint -> {args.out}")
 
 
+def train_llm(args):
+    import torch
+
+    from .. import device as _device
+    from ..configs import get_config, reduced
+    from ..models import transformer as T
+    from ..training.trainer import make_train_step
+
+    dev = _device.resolve(args.device)
+    cfg = get_config(args.model)
+    if args.reduced:
+        cfg = reduced(cfg)
+    print(f"{cfg.name}: {cfg.param_count()/1e6:.1f}M params on {dev}")
+    step_fn, opt_init = make_train_step(cfg)
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+    opt_state = opt_init(params)
+    rng = np.random.default_rng(0)
+    B, S = args.batch, args.seq
+    for i in range(args.steps):
+        shape = (B, S) if cfg.n_codebooks == 1 else (B, S, cfg.n_codebooks)
+        toks = rng.integers(0, cfg.vocab_size, size=(shape[0], shape[1] + 1)
+                            + shape[2:]).astype(np.int32)
+        toks = torch.from_numpy(toks).to(dev)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.cond_dim:
+            batch["cond"] = torch.from_numpy(rng.normal(
+                size=(B, cfg.cond_seq_len, cfg.cond_dim)).astype(
+                    np.float32)).to(dev)
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if (i + 1) % max(args.steps // 5, 1) == 0:
+            print(f"step {i+1}: loss={float(metrics['loss']):.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="emsnet")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--text-encoder", default="tinybert")
     ap.add_argument("--vitals-encoder", default="gru")
@@ -73,11 +119,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.model != "emsnet":
-        raise SystemExit(f"--model {args.model}: LM training belongs to "
-                         "ROADMAP queue 1 item 11 (the LLM zoo's last "
-                         "part), which the port does not have yet")
-    train_emsnet(args)
+    if args.model == "emsnet":
+        train_emsnet(args)
+    else:
+        train_llm(args)
 
 
 if __name__ == "__main__":

@@ -10,6 +10,8 @@ the leading axis in Python. Decode caches are stacked the same way.
 
 Entry points:
   init_params(cfg, gen, device=...)
+  forward_train(params, cfg, tokens, cond=, next_tokens=, kernel="jnp")
+      -> (logits, {"moe_aux", "mtp_logits"?})
   prefill(params, cfg, tokens, ..., kernel="jnp") -> (last_logits, cache)
   decode_step(params, cfg, tokens, cache, t, ...) -> (logits, cache)
   init_cache(cfg, batch, cache_len, device=...)
@@ -44,13 +46,26 @@ graph reads them in place. Cross-attention is plain PyTorch whatever
 (``n_codebooks`` > 1, MusicGen) takes tokens (B, S, ncb), embeds them as
 the sum of one table a codebook and returns logits (B, S, ncb, V).
 
-``init_params`` builds the multi-token prediction head (``params["mtp"]``)
-of an ``mtp`` config, so layouts and converted weights match; prefill and
-decode never read it (its forward belongs to training, ROADMAP item 11).
+Training. ``forward_train`` runs every layer in "train" mode: no cache
+is built, and each MoE layer's load-balance loss is kept and summed into
+``moe_aux``. With ``cfg.remat`` each period runs under
+``torch.utils.checkpoint`` (non-reentrant), the reference's
+``jax.checkpoint`` around its scan body: the backward recomputes the
+period's forward, so a kernel inside it launches twice a step, and the
+numbers do not change. An ``mtp`` config given ``next_tokens`` also runs
+the multi-token prediction head (``params["mtp"]``, built by
+``init_params``): one more layer of the last group's first kind over
+``proj(cat(norm_h(h), norm_e(embed(next_tokens))))``, its logits under
+``mtp_logits`` and its aux loss added. Prefill and decode never read it.
+Training runs under autograd: ``kernel="pallas"`` reaches the flash
+kernel, which has no backward and raises there, so training takes the
+plain attention ("jnp"), as the reference's trainer does; the RWKV6 scan
+carries its own backward kernel (``kernels.rwkv6``).
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from . import attention as A
 from . import layers as L
@@ -106,6 +121,20 @@ def _items(tree):
 def _index(tree, i):
     """Layer ``i`` of a stacked tree: views, so writes reach the stack."""
     return _tree_map(lambda a: a[i], tree)
+
+
+def _unstack(tree, count):
+    """The ``count`` periods of a stacked tree, each leaf split by one
+    ``unbind``. Under autograd its backward stacks the periods' gradients
+    once; indexing each period (``_index``) would build a zero-filled
+    gradient of the whole stack for every period and sum them."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(count)]
+    if isinstance(tree, (list, tuple)):
+        parts = [_unstack(v, count) for v in tree]
+        return [type(tree)(p[i] for p in parts) for i in range(count)]
+    return list(tree.unbind(0))
 
 
 def _stack(trees):
@@ -261,10 +290,12 @@ def _pack_ring(full, positions, Wc):
 
 
 def apply_layer(lp, spec, x, ctx, mode, cache, t):
-    """``mode`` is "prefill" or "decode"; ``spec`` one the entry points
-    have checked (``_check_cfg``). Returns (x, new_cache)."""
+    """``mode`` is "train", "prefill" or "decode"; ``spec`` one the entry
+    points have checked (``_check_cfg``). Returns (x, new_cache, aux):
+    "train" builds no cache and keeps a MoE layer's load-balance loss as
+    ``aux`` (None elsewhere, and on a layer without one)."""
     cfg = ctx["cfg"]
-    new_cache = {}
+    new_cache, aux = {}, None
     window = spec.window or (ctx["window_attn"] if spec.mixer == "attn" else 0)
 
     # ---- mixer sublayer ----
@@ -278,27 +309,31 @@ def apply_layer(lp, spec, x, ctx, mode, cache, t):
             fn = A.attn_forward if spec.mixer == "attn" else A.mla_forward
             mix, kv = fn(lp["mixer"], h, ctx["positions"], cfg,
                          window=window, kernel=ctx["kernel"])
-            new_cache["kv"] = _prefill_kv_cache(spec, kv, ctx)
+            if mode == "prefill":
+                new_cache["kv"] = _prefill_kv_cache(spec, kv, ctx)
     elif spec.mixer == "mamba":
         if mode == "decode":
-            mix, new_cache["ssm"] = SSM.mamba_decode(lp["mixer"], h,
-                                                     cache["ssm"], cfg)
+            mix, st = SSM.mamba_decode(lp["mixer"], h, cache["ssm"], cfg)
         else:
-            mix, new_cache["ssm"] = SSM.mamba_forward(lp["mixer"], h, cfg)
+            mix, st = SSM.mamba_forward(lp["mixer"], h, cfg)
+        if mode != "train":
+            new_cache["ssm"] = st
     elif spec.mixer == "rwkv6":
         prev = cache["rwkv"] if mode == "decode" else None
         mix, (last_x, state) = R.rwkv6_tmix(
             lp["mixer"], h, cfg,
             state=prev["state"] if prev else None,
             x_prev=prev["tshift"] if prev else None)
-        new_cache["rwkv"] = {"tshift": last_x, "state": state}
+        if mode != "train":
+            new_cache["rwkv"] = {"tshift": last_x, "state": state}
     else:                                           # cross_attn
         if mode == "decode":
             ckv = (cache["cross"]["k"], cache["cross"]["v"])
             new_cache["cross"] = cache["cross"]     # unchanged, not copied
         else:
             ckv = A.cross_kv(lp["mixer"], ctx["cond_x"], cfg)
-            new_cache["cross"] = {"k": ckv[0], "v": ckv[1]}
+            if mode == "prefill":
+                new_cache["cross"] = {"k": ckv[0], "v": ckv[1]}
         mix = A.cross_attn_forward(lp["mixer"], h, ckv, cfg)
         mix = torch.tanh(lp["gate_attn"]).to(mix.dtype) * mix
     x = x + mix
@@ -311,7 +346,8 @@ def apply_layer(lp, spec, x, ctx, mode, cache, t):
             new_cache["cond"] = cache["cond"]
         else:
             ckv = A.cross_kv(lp["cross"], ctx["cond_x"], cfg)
-            new_cache["cond"] = {"k": ckv[0], "v": ckv[1]}
+            if mode == "prefill":
+                new_cache["cond"] = {"k": ckv[0], "v": ckv[1]}
         x = x + A.cross_attn_forward(lp["cross"], h, ckv, cfg)
 
     # ---- mlp sublayer ----
@@ -322,13 +358,16 @@ def apply_layer(lp, spec, x, ctx, mode, cache, t):
         elif spec.mlp == "moe":
             if ctx["moe_pre"]:
                 h = ctx["moe_pre"](h)
-            out, _ = M.moe_forward(lp["mlp"], h, cfg)
+            out, moe_aux = M.moe_forward(lp["mlp"], h, cfg)
+            if mode == "train":
+                aux = moe_aux
         else:
             prev = cache["cmix"] if mode == "decode" else None
-            out, new_cache["cmix"] = R.rwkv6_cmix(lp["mlp"], h, cfg,
-                                                  x_prev=prev)
+            out, last_c = R.rwkv6_cmix(lp["mlp"], h, cfg, x_prev=prev)
+            if mode != "train":
+                new_cache["cmix"] = last_c
         x = x + out
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def _prefill_kv_cache(spec, kv, ctx):
@@ -343,12 +382,16 @@ def _prefill_kv_cache(spec, kv, ctx):
 
 
 def apply_period(pp, specs, x, ctx, mode, cache, t):
-    new_cache = {}
+    """Returns (x, new_cache, aux): the layers' aux losses summed in
+    order (None where no layer has one)."""
+    new_cache, aux = {}, None
     for i, spec in enumerate(specs):
         lc = cache[str(i)] if cache is not None else None
-        x, new_cache[str(i)] = apply_layer(pp[str(i)], spec, x, ctx, mode,
-                                           lc, t)
-    return x, new_cache
+        x, new_cache[str(i)], a = apply_layer(pp[str(i)], spec, x, ctx, mode,
+                                              lc, t)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, new_cache, aux
 
 
 # ----------------------------------------------------------------------
@@ -392,6 +435,70 @@ def _make_ctx(cfg, positions, cond_x=None, *, kernel="jnp", window_attn=0,
             "cache_len": cache_len, "moe_pre": moe_pre}
 
 
+def _check_hooks(**hooks):
+    """The reference's sharding hooks (``constrain``, ``moe_a2a``,
+    ``constrain_grads``) belong to ROADMAP queue 1 item 12; the port
+    takes them and refuses any that is set."""
+    for name, hook in hooks.items():
+        if hook is not None:
+            raise NotImplementedError(
+                f"{name}: the sharding hooks belong to ROADMAP queue 1 "
+                "item 12 (distribution), which the port does not have yet")
+
+
+def forward_train(params, cfg, tokens, *, cond=None, next_tokens=None,
+                  kernel="jnp", constrain=None, moe_a2a=None):
+    """The whole sequence (B, S), or (B, S, ncb), in "train" mode.
+    Returns (logits (B, S, V) or (B, S, ncb, V), {"moe_aux": 0-d float32,
+    "mtp_logits": as logits, for an ``mtp`` config given
+    ``next_tokens``}). ``cond``: the conditioning features (B, Cs,
+    cond_dim) a ``cond_dim`` config needs."""
+    _check_cfg(cfg)
+    _check_cond(cfg, cond)
+    _check_hooks(constrain=constrain, moe_a2a=moe_a2a)
+    B, Sq = tokens.shape[0], tokens.shape[1]
+    positions = torch.arange(Sq, dtype=torch.int32,
+                             device=tokens.device).expand(B, Sq)
+    x = _embed_tokens(params, cfg, tokens)
+    ctx = _make_ctx(cfg, positions, _cond_x(params, cfg, cond),
+                    kernel=kernel)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    for gi, (specs, count) in enumerate(cfg.groups):
+        def body(x, pp, specs=specs):
+            x, _, a = apply_period(pp, specs, x, ctx, "train", None, None)
+            return x, a
+
+        for pp in _unstack(params["groups"][str(gi)], count):
+            if cfg.remat:
+                x, a = torch.utils.checkpoint.checkpoint(
+                    body, x, pp, use_reentrant=False)
+            else:
+                x, a = body(x, pp)
+            if a is not None:
+                aux = aux + a
+
+    h = x
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    extras = {"moe_aux": aux}
+    logits = _logits(params, cfg, x)
+
+    if cfg.mtp and next_tokens is not None:
+        mp = params["mtp"]
+        e = _embed_tokens(params, cfg, next_tokens)
+        hcat = torch.cat([L.rmsnorm(mp["norm_h"], h, cfg.norm_eps),
+                          L.rmsnorm(mp["norm_e"], e, cfg.norm_eps)], dim=-1)
+        h2 = L.dense(mp["proj"], hcat)
+        spec = cfg.groups[-1][0][0]
+        h2, _, a2 = apply_layer(mp["layer"], spec, h2, ctx, "train", None,
+                                None)
+        if a2 is not None:
+            extras["moe_aux"] = extras["moe_aux"] + a2
+        h2 = L.rmsnorm(params["final_norm"], h2, cfg.norm_eps)
+        extras["mtp_logits"] = _logits(params, cfg, h2)
+    return logits, extras
+
+
 def prefill(params, cfg, tokens, *, cond=None, cache_len=None,
             window_attn=0, kernel="jnp"):
     """Process a full prompt (B, S), or (B, S, ncb); returns
@@ -414,8 +521,8 @@ def prefill(params, cfg, tokens, *, cond=None, cache_len=None,
         gp = params["groups"][str(gi)]
         layer_caches = []
         for i in range(count):
-            x, nc = apply_period(_index(gp, i), specs, x, ctx, "prefill",
-                                 None, None)
+            x, nc, _ = apply_period(_index(gp, i), specs, x, ctx,
+                                    "prefill", None, None)
             layer_caches.append(nc)
         caches[str(gi)] = _stack(layer_caches)
     x = L.rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
@@ -437,7 +544,8 @@ def decode_step(params, cfg, tokens, cache, t, *, window_attn=0,
         gp, gc = params["groups"][str(gi)], cache[str(gi)]
         for i in range(count):
             lc = _index(gc, i)
-            x, nc = apply_period(_index(gp, i), specs, x, ctx, "decode", lc, t)
+            x, nc, _ = apply_period(_index(gp, i), specs, x, ctx, "decode",
+                                    lc, t)
             _write(lc, nc)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x), cache

@@ -13,7 +13,13 @@ there in float32, as the reference computes them, and never read back
 from the card.
 
 AdamW runs its leaves through ``torch._foreach_*`` ops: a handful of
-launches for the whole tree instead of a dozen per leaf.
+launches for a group of leaves instead of a dozen per leaf. The groups
+hold up to ``GROUP_ELEMENTS`` elements (a leaf larger than that is a
+group of its own), so the update's float32 temporaries stay within a few
+GB however large the model: an LLM at full width keeps only the new
+parameters and moments beside the old. Adafactor scales each leaf's
+gradient by the clip factor as it reaches it, for the same reason. The
+numbers are the same either way: every element sees the same operations.
 """
 from __future__ import annotations
 
@@ -69,6 +75,22 @@ def clip_by_global_norm(grads, max_norm):
     return T.tree_map(lambda g: g.float() * scale, grads), gn
 
 
+GROUP_ELEMENTS = 1 << 28       # 1 GiB of float32 per temporary list
+
+
+def _groups(leaves):
+    """Consecutive index ranges of ``leaves`` of at most GROUP_ELEMENTS
+    elements each (at least one leaf a range)."""
+    start, size = 0, 0
+    for i, x in enumerate(leaves):
+        if size and size + x.numel() > GROUP_ELEMENTS:
+            yield range(start, i)
+            start, size = i, 0
+        size += x.numel()
+    if start < len(leaves):
+        yield range(start, len(leaves))
+
+
 def _init_step():
     return torch.zeros((), dtype=torch.int32)
 
@@ -90,26 +112,34 @@ def adamw_update(cfg: OptConfig, grads, state, params):
     bc1 = float(1 - _f32(b1) ** _f32(step))
     bc2 = float(1 - _f32(b2) ** _f32(step))
     p = T.leaves(params)
-    g = T.leaves(grads)
-    gn = _global_norm(g)
+    g_all = T.leaves(grads)
+    gn = _global_norm(g_all)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
-    g = torch._foreach_mul([x.float() for x in g], scale)
-    m = torch._foreach_mul(T.leaves(state["m"]), b1)
-    torch._foreach_add_(m, g, alpha=1 - b1)
-    v = torch._foreach_mul(T.leaves(state["v"]), b2)
-    torch._foreach_mul_(g, g)
-    torch._foreach_add_(v, g, alpha=1 - b2)
-    # u = (m / bc1) / (sqrt(v / bc2) + eps) + wd * p
-    den = torch._foreach_div(v, bc2)
-    torch._foreach_sqrt_(den)
-    torch._foreach_add_(den, cfg.eps)
-    u = torch._foreach_div(m, bc1)
-    torch._foreach_div_(u, den)
-    pf = [x.float() for x in p]
-    if cfg.weight_decay:
-        torch._foreach_add_(u, pf, alpha=cfg.weight_decay)
-    new = torch._foreach_add(pf, u, alpha=-lr)
-    new = [n.to(x.dtype) for n, x in zip(new, p)]
+    m_all, v_all = T.leaves(state["m"]), T.leaves(state["v"])
+    new, m, v = [], [], []
+    for ix in _groups(p):
+        g = torch._foreach_mul([g_all[i].float() for i in ix], scale)
+        mg = torch._foreach_mul([m_all[i] for i in ix], b1)
+        torch._foreach_add_(mg, g, alpha=1 - b1)
+        vg = torch._foreach_mul([v_all[i] for i in ix], b2)
+        torch._foreach_mul_(g, g)
+        torch._foreach_add_(vg, g, alpha=1 - b2)
+        del g
+        # u = (m / bc1) / (sqrt(v / bc2) + eps) + wd * p
+        den = torch._foreach_div(vg, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, cfg.eps)
+        u = torch._foreach_div(mg, bc1)
+        torch._foreach_div_(u, den)
+        del den
+        pf = [p[i].float() for i in ix]
+        if cfg.weight_decay:
+            torch._foreach_add_(u, pf, alpha=cfg.weight_decay)
+        ng = torch._foreach_add(pf, u, alpha=-lr)
+        del u, pf
+        new += [n.to(p[i].dtype) for n, i in zip(ng, ix)]
+        m += mg
+        v += vg
     return (T.unflatten(params, new),
             {"m": T.unflatten(params, m), "v": T.unflatten(params, v),
              "step": step}, gn)
@@ -135,28 +165,37 @@ def adafactor_init(params):
 def adafactor_update(cfg: OptConfig, grads, state, params):
     step = state["step"] + 1
     lr = float(schedule(cfg, step))
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    # clip_by_global_norm's scaling, leaf by leaf as each is updated
+    gnorm = _global_norm(T.leaves(grads))
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
     beta = float(1.0 - (_f32(step) + 1.0) ** -0.8)
 
     def upd(p, g, v):
-        g2 = g * g + 1e-30
+        # the reference's expressions; temporaries of the leaf's size are
+        # reused in place (a stacked leaf at full width holds ~1e9 elements)
+        g = g.float() * scale
+        g2 = g * g
+        g2.add_(1e-30)
         if _factored(p.shape):
             vr = beta * v["vr"] + (1 - beta) * g2.mean(dim=-1)
             vc = beta * v["vc"] + (1 - beta) * g2.mean(dim=-2)
-            denom = (vr[..., None] * vc[..., None, :]
-                     / torch.clamp(vr.mean(dim=-1)[..., None, None],
-                                   min=1e-30))
-            u = g * torch.rsqrt(denom + 1e-30)
+            del g2
+            u = vr[..., None] * vc[..., None, :]
+            u.div_(torch.clamp(vr.mean(dim=-1)[..., None, None], min=1e-30))
             nv = {"vr": vr, "vc": vc}
         else:
-            nv_ = beta * v["v"] + (1 - beta) * g2
-            u = g * torch.rsqrt(nv_ + 1e-30)
-            nv = {"v": nv_}
+            u = beta * v["v"] + (1 - beta) * g2
+            del g2
+            nv = {"v": u.clone()}
+        u.add_(1e-30).rsqrt_().mul_(g)          # g * rsqrt(denom + 1e-30)
+        del g
         # update clipping (RMS <= 1)
         rms = torch.sqrt((u * u).mean() + 1e-30)
-        u = u / torch.clamp(rms, min=1.0)
-        u = u + cfg.weight_decay * p.float()
-        return (p.float() - lr * u).to(p.dtype), nv
+        u.div_(torch.clamp(rms, min=1.0))
+        u.add_(cfg.weight_decay * p.float())
+        u.mul_(lr)
+        return torch.sub(p.float(), u).to(p.dtype), nv
 
     # a leaf's state is a dict, so walk the params' paths, not the state's
     vs = {path: v for path, v in _state_at(params, state["v"])}

@@ -480,8 +480,18 @@ def test_launcher_trains_on_cpu_and_writes_a_reference_checkpoint(tmp_path):
 
 
 def test_launcher_refuses_lm_training_naming_item_11(tmp_path):
-    r = _launch("--model", "mistral-nemo-12b", tmp_path=tmp_path)
-    assert r.returncode != 0
-    assert "item 11" in r.stderr
+    """LM training (ROADMAP item 11) now runs: ``--model <arch>
+    --reduced`` trains on the CPU and prints the reference's lines, with
+    the device named, and nothing names item 11 any more. Without
+    ``--device cpu`` the launcher still refuses (no card here)."""
+    r = _launch("--model", "rwkv6-1.6b", "--reduced", "--steps", "2",
+                "--device", "cpu", tmp_path=tmp_path)
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert lines[0].startswith("rwkv6-1.6b-reduced: ")
+    assert lines[0].endswith("M params on cpu")
+    assert [x.split(":")[0] for x in lines[1:]] == ["step 1", "step 2"]
+    assert all("loss=" in x and "gnorm=" in x for x in lines[1:])
+    assert "item 11" not in r.stdout + r.stderr
     r = _launch("--steps", "1", tmp_path=tmp_path)      # no card here
     assert r.returncode != 0 and "RuntimeError" in r.stderr

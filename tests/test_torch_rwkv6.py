@@ -326,3 +326,149 @@ def test_half_kernel_equals_float32_launch_on_card(dtype):
         y32, s32 = RW._launch(*(a.float() for a in half), w, u, s0,
                               chunk=chunk)
         assert torch.equal(y, y32) and torch.equal(s, s32)
+
+
+# ---------------------------------------------------------------- backward
+
+def _cotangents(seed, B, S, H, n):
+    """dy (B, S, H, n) and d(final state) (B, H, n, n) ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, H, n)).astype(np.float32),
+            rng.normal(size=(B, H, n, n)).astype(np.float32))
+
+
+def _scale_close(got, want, rtol=ATOL):
+    """|got - want| within ``rtol`` of max |want| (at least 1): gradients
+    sum dozens of steps of N(0, 1) products."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, atol=rtol * scale, rtol=0)
+
+
+def _jax_grads(arrays, dy, dsf):
+    """jax.vjp of the reference's ``_wkv_scan`` ((state, y) order) at
+    (dsf, dy): (dr, dk, dv, dw, du, ds0)."""
+    import jax
+    r, k, v, w, u, s0 = (jnp.asarray(a) for a in arrays)
+    _, vjp = jax.vjp(lambda *a: wkv_jax(*a), r, k, v, w, u, s0)
+    return vjp((jnp.asarray(dsf), jnp.asarray(dy)))
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("shape", [(2, 13, 3, 8), (1, 40, 2, 64)])
+def test_backward_plain_matches_autograd_and_jax(shape, with_s0):
+    """The explicit backward equals torch autograd through the plain
+    forward and jax.vjp of the reference's scan, on every input."""
+    arrays = _inputs(sum(shape) + 20 * with_s0, *shape, s0=True)
+    dy, dsf = _cotangents(7 + with_s0, *shape)
+    t = [torch.from_numpy(a) for a in arrays]
+    s0 = t[5] if with_s0 else None
+    got = RW.rwkv6_scan_backward_plain(*t[:5], s0, torch.from_numpy(dy),
+                                       torch.from_numpy(dsf))
+    live = [a.clone().requires_grad_(True) for a in t[:5]] + (
+        [s0.clone().requires_grad_(True)] if with_s0 else [])
+    y, sf = RW.rwkv6_scan_plain(*live[:5], live[5] if with_s0 else None)
+    auto = torch.autograd.grad((y * torch.from_numpy(dy)).sum()
+                               + (sf * torch.from_numpy(dsf)).sum(), live)
+    jarrays = arrays[:5] + [arrays[5] if with_s0
+                            else np.zeros_like(arrays[5])]
+    want_j = _jax_grads(jarrays, dy, dsf)
+    for i, g in enumerate(got):
+        if i < len(auto):
+            _scale_close(g.numpy(), auto[i].numpy())
+        _scale_close(g.numpy(), np.asarray(want_j[i]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_backward_plain_takes_half_rkv_up_cast(dtype):
+    """bf16/fp16 r/k/v: the backward of the up-cast inputs, exactly (the
+    plain version up-casts first), and jax.vjp of the reference's scan on
+    the same up-cast values."""
+    arrays = _inputs(31, 2, 21, 2, 16, s0=True)
+    dy, dsf = map(torch.from_numpy, _cotangents(32, 2, 21, 2, 16))
+    t = [torch.from_numpy(a) for a in arrays]
+    half = [a.to(dtype) for a in t[:3]]
+    got = RW.rwkv6_scan_backward_plain(*half, *t[3:], dy, dsf)
+    up = RW.rwkv6_scan_backward_plain(*(a.float() for a in half), *t[3:],
+                                      dy, dsf)
+    for a, b in zip(got, up):
+        assert torch.equal(a, b)
+    want = _jax_grads([a.float().numpy() for a in half]
+                      + [a.numpy() for a in t[3:]], dy.numpy(), dsf.numpy())
+    for a, b in zip(got, want):
+        _scale_close(a.numpy(), np.asarray(b))
+
+
+def test_scan_under_grad_runs_the_backward():
+    """Under grad mode the wrapper goes through RWKV6Scan: y has a grad_fn,
+    backward() calls rwkv6_scan_backward once and gives autograd's
+    gradients through the plain forward; bf16 r/k/v get bf16 gradients.
+    Under inference_mode or no_grad nothing is recorded."""
+    arrays = [torch.from_numpy(a) for a in _inputs(33, 1, 17, 2, 16, s0=True)]
+    live = [a.clone().requires_grad_(True) for a in arrays]
+    calls = RW.rwkv6_scan_backward.calls
+    y, sf = ops.rwkv6_scan(*live)
+    assert y.grad_fn is not None and sf.grad_fn is not None
+    dy, dsf = map(torch.from_numpy, _cotangents(34, 1, 17, 2, 16))
+    got = torch.autograd.grad((y * dy).sum() + (sf * dsf).sum(), live)
+    assert RW.rwkv6_scan_backward.calls == calls + 1
+    ref_in = [a.clone().requires_grad_(True) for a in arrays]
+    yp, sp = RW.rwkv6_scan_plain(*ref_in)
+    want = torch.autograd.grad((yp * dy).sum() + (sp * dsf).sum(), ref_in)
+    for a, b in zip(got, want):
+        _scale_close(a.numpy(), b.numpy())
+    # no s0, only the final state used, bf16 r/k/v
+    half = [a.to(torch.bfloat16).requires_grad_(True) for a in arrays[:3]]
+    w = arrays[3].clone().requires_grad_(True)
+    _, sf = ops.rwkv6_scan(*half, w, arrays[4])
+    grads = torch.autograd.grad(sf.sum(), half + [w])
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 3 + [torch.float32]
+    for ctx in (torch.inference_mode, torch.no_grad):
+        with ctx():
+            y, _ = ops.rwkv6_scan(*live)
+        assert y.grad_fn is None
+    assert RW.rwkv6_scan_backward.calls == calls + 2
+
+
+def test_cuda_backward_checks_before_building():
+    """The backward's refusals on the card side come before any build."""
+    r, k, v, w, u = map(torch.from_numpy, _inputs(35, 1, 3, 1, 80))
+    dy = torch.zeros_like(r)
+    with pytest.raises(ValueError, match="head dim 80"):
+        RW._launch_backward(r, k, v, w, u, None, dy, None)
+    r, k, v, w, u = map(torch.from_numpy, _inputs(35, 1, 3, 2, 16))
+    with pytest.raises(TypeError, match="float32 dy"):
+        RW._launch_backward(r, k, v, w, u, None, dy.double()[:, :, :2, :16],
+                            None)
+    assert RW.backward_scratch_bytes(16, 64, 32) == 4 * 16 * 32 * 64 * (
+        8 * 64 + 1)
+
+
+def test_source_names_the_backward_entry_point():
+    text = (build.CSRC / "rwkv6.cu").read_text()
+    assert 'extern "C" int repro_rwkv6_scan_backward' in text
+    assert "rwkv6_backward_kernel" in text
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_matches_plain_on_card(dtype):
+    """Runs only where a CUDA card is present: the CUDA backward against
+    the plain backward on the same inputs (1e-4 of each output's scale;
+    bf16 dr/dk/dv within one bf16 step of it), one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    r, k, v, w, u, s0 = (torch.from_numpy(a).to(dev)
+                         for a in _inputs(36, 2, 45, 4, 64, s0=True))
+    dy, dsf = (torch.from_numpy(a).to(dev) for a in _cotangents(37, 2, 45,
+                                                               4, 64))
+    r, k, v = (a.to(dtype) for a in (r, k, v))
+    before = RW.rwkv6_scan_backward.launches
+    got = RW.rwkv6_scan_backward(r, k, v, w, u, s0, dy, dsf)
+    assert RW.rwkv6_scan_backward.launches == before + 1
+    want = RW.rwkv6_scan_backward_plain(r, k, v, w, u, s0, dy, dsf)
+    for i, (a, b) in enumerate(zip(got, want)):
+        scale = max(1.0, float(b.abs().max()))
+        tol = ATOL * scale if (i >= 3 or dtype == torch.float32) else \
+            scale * 2.0 ** -7
+        assert float((a.float() - b).abs().max()) <= tol
