@@ -38,7 +38,10 @@ Phases, each printing one JSON line:
           text-consuming models x text events times, every recommendation
           finite, and the same episodes on the CPU (plain versions, the
           same profile table) must pick the same model, tier and cache
-          hits, with outputs within 1e-4.
+          hits, with outputs within 1e-4. Then 64 rows of the synthetic
+          NEMSIS text (interior PADs) through the kv_lengths path on the
+          card against the einsum path on the card: within 1e-4, one
+          launch a block.
   bertbase  Table-6 episode 1 served per event with the BERT-base text
           encoder (12 layers of 12 heads of 64): flash launches ==
           layers x text-consuming models x text events, every
@@ -155,8 +158,8 @@ Phases, each printing one JSON line:
           PMI's frozen text and vitals encoders bit-identical; 0 flash
           calls over all of it; an {"m2", "m3"} checkpoint restored into a
           fresh template on the card, bit-equal; the 3-modal test split
-          through the flash kernel's segment mode (the data's PAD holes
-          rule out the kv_lengths mode, whose distance is reported) within
+          through the flash kernel's segment mode (the kv_lengths
+          mode's distance is reported beside it) within
           1e-4 of the einsum evaluation, the same top-1 wherever the top
           two logits are 1e-3 apart, launches == layers x batches; Table-6
           episode 1 served per event with the restored weights (launches
@@ -223,6 +226,30 @@ Phases, each printing one JSON line:
           step), each leaf within 2x a measured yardstick (the plain
           path's distance to the mean of its half-batch gradients), every
           time-mix leaf's gradient nonzero.
+  dist    placement (repro_torch.distributed, launch.mesh, launch.specs)
+          on the 1x1 ('data', 'model') mesh of make_host_mesh(), an NCCL
+          process group of world size 1, in a child process of the
+          script (its lines passed on): (i) olmoe-1b-7b cut to 5 of 16
+          layers, full width in bf16, the launcher's B=64 S=64, under
+          Policy(tuned=True, strategy="fsdp") with input_specs' hooks (MoE
+          through moe_forward_a2a, pair capacity 1.0; both dispatches at
+          capacity factor 8, nothing dropped), placed args from
+          materialize held to the unplaced step on the same weights and
+          batch: step 1's loss within 1e-2 relative, each leaf of step
+          1's accumulated gradient at a cosine of at least 0.999; 3 steps
+          each way, ms a step (the first left out) and the MoE forward's
+          share of a step; (ii) rwkv6-1.6b whole under the default policy,
+          held alike, the scan's forward and backward launched on local
+          blocks as often a step as the same placed step's calls on the
+          CPU (reduced width, the full depth, microbatches and remat);
+          (iii) olmoe's cut served placed by Policy(tuned=True):
+          prefill(kernel="pallas") of 4 prompts of 256 tokens into a
+          512-slot cache redistributed to cache_pspecs' placements, 8
+          greedy decode steps with moe_pre set: tokens equal to the
+          unplaced path's, flash launches == layers and decode-attention
+          launches == layers x 8 == the CPU run's calls. The group is
+          destroyed at the end; a failed group, mesh or check fails the
+          script (nothing falls back to the CPU or to the unplaced path).
   llm     the prefix-cached LLMServer. (i) Every ported arch reduced to 2
           float32 layers on examples/llm_generate.py's mix, card vs CPU:
           the same tokens and stats, logits of every call within 1e-4, a
@@ -369,7 +396,9 @@ def check(cond, msg):
 CARD = {}     # nvidia-smi's name and power limit, printed beside the walls
 
 
-def phase_device():
+def card():
+    """The card's settings for every phase, and its nvidia-smi name and
+    power limit."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script measures the port on a CUDA card")
@@ -381,7 +410,12 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
-    smi = CARD["nvidia_smi"] = smi.strip().splitlines()[0]
+    CARD["nvidia_smi"] = smi.strip().splitlines()[0]
+    return CARD["nvidia_smi"]
+
+
+def phase_device():
+    smi = card()
     emit("device", kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
@@ -1058,7 +1092,36 @@ def phase_serve():
          direct_over_cached_sim=sim["direct"] / sim["cached"],
          direct_over_cached_wall=wall["direct"] / wall["cached"],
          sim_s=sim, wall_s=wall)
+    serve_pad_holes(cfg, params["m3"]["text"])
     return launches
+
+
+def serve_pad_holes(cfg, text_params):
+    """The kv_lengths text path on rows with interior PADs (the port's
+    synthetic NEMSIS text, 64 rows at the launcher's width) on the card
+    against the einsum path on the card: within TOL, one flash launch a
+    block."""
+    from repro_torch.data import synthetic_nemsis as SN
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import emsnet as E
+    toks = torch.from_numpy(SN.generate(cfg, 64, seed=0).text).to("cuda")
+    valid = toks > 0
+    holes = int((valid[:, 1:] & ~valid[:, :-1]).any(-1).sum())
+    ein_cfg = dataclasses.replace(cfg, use_flash_text=False)
+    with torch.inference_mode():
+        FA.flash_attention.launches = 0
+        got = E.text_encoder(text_params, cfg, toks)
+        launches = FA.flash_attention.launches
+        want = E.text_encoder(text_params, ein_cfg, toks)
+    diff = float((got - want).abs().max())
+    check(holes > 0, "no row with an interior PAD")
+    check(launches == cfg.text_dims[0], f"{launches} flash launches for "
+          f"{cfg.text_dims[0]} blocks")
+    check(diff <= TOL, f"kv_lengths path with interior PADs vs einsum: "
+          f"{diff} > {TOL}")
+    emit("serve_pad_holes", rows=len(toks), rows_with_pad_holes=holes,
+         launches=launches, max_abs_diff=diff,
+         feature_max_abs=float(want.abs().max()))
 
 
 def phase_bertbase():
@@ -4005,10 +4068,9 @@ def phase_train():
 
     # (4) the 3-modal test split through the flash kernel against the
     # einsum evaluation, batches of 64. The data drops words inside a
-    # sentence (PAD holes), which the kv_lengths mode (PAD suffix only)
-    # cannot mask; the segment mode, the serving config with
-    # flash_segments, masks any key set: it is the one held to the einsum
-    # evaluation, the kv_lengths mode's distance is reported
+    # sentence (PAD holes); the segment mode, the serving config with
+    # flash_segments, is the one held to the einsum evaluation, and the
+    # kv_lengths mode (its rows reordered valid tokens first) is reported
     ein_cfg = ET.train_config(cfg)
     seg_cfg = dataclasses.replace(cfg, flash_segments=True)
     batches = [ET.to_device(te2.batch(np.arange(i, min(i + 64, len(te2))),
@@ -4530,6 +4592,382 @@ def phase_lm_train():
         seconds[arch] = time.perf_counter() - t0
     emit("lm_train_seconds", **seconds)
     return out
+
+
+# ------------------------------------------------------------------- dist
+#
+# Placement (repro_torch.distributed, launch.mesh, launch.specs) on the
+# card: the machine has one card, so every step runs on the 1x1
+# ('data', 'model') mesh of make_host_mesh(), an NCCL process group of
+# world size 1, its parameters, optimizer state, batch and cache DTensors
+# placed by the policy, each held to the unplaced step on the same card,
+# weights and batch. Nothing falls back to the CPU or to the unplaced
+# path: a failed process group, mesh or check fails the script.
+
+DIST_CAPACITY = 8.0      # OLMoE's dispatch keeps every pick (both paths)
+# moe_forward_a2a on one rank: C_pair = N_loc x k x this, so 1.0 keeps
+# every pick (2.0, the default, would double its buffers for nothing)
+DIST_PAIR_CAPACITY = 1.0
+DIST_STEPS = 3           # train steps each way; the first is left out
+DIST_LOSS_RTOL = 1e-2    # step 1's loss, placed against unplaced (bf16)
+DIST_GRAD_COS = 0.999    # each accumulated gradient leaf's cosine
+DIST_SERVE_B, DIST_SERVE_S = 4, 256     # prompts of the sharded prefill
+DIST_SERVE_CACHE, DIST_DECODE = 512, 8  # cache_len, greedy decode steps
+
+
+@contextlib.contextmanager
+def timed_calls(module, name, walls):
+    """``module.name`` timed call by call (the card synchronised around
+    each call), the seconds appended to ``walls``."""
+    fn = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def dist_steps(step, start, batch):
+    """DIST_STEPS steps from ``start()``'s (params, state), each
+    synchronised: (step 1's loss, walls). Only the steps hold the trees,
+    so each step's inputs are freed once it returns."""
+    params, state = start()
+    walls, loss = [], None
+    for i in range(DIST_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            loss = float(m["loss"])
+        check(math.isfinite(float(m["loss"])), f"non-finite loss {m}")
+    del params, state
+    return loss, walls
+
+
+def dist_train(arch, cfg, params, mesh, policy_kw, *, moe_module=None):
+    """One model trained DIST_STEPS steps unplaced and DIST_STEPS steps
+    placed by ``Policy(cfg, mesh, **policy_kw)`` with input_specs' hooks,
+    on one batch (``materialize``'s, seed 0): step 1's loss within
+    DIST_LOSS_RTOL, each leaf of step 1's accumulated gradient (as
+    constrain_grads sees it) at a cosine of at least DIST_GRAD_COS to the
+    unplaced one; ms a step; the MoE sublayer's forward share of a step
+    (``moe_module``: moe_forward unplaced, moe_forward_a2a placed)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import spmd as SP
+    from repro_torch.distributed.sharding import Policy
+    from repro_torch.launch import specs as SPECS
+    from repro_torch.training import trainer as TR
+    from repro_torch.training import tree as TT
+    pol = Policy(cfg, mesh, **policy_kw)
+    shape = InputShape("train", LM_FULL_S, LM_FULL_B, "train")
+    fn, args = SPECS.input_specs(cfg, shape, pol)       # meta: no memory
+    check(all(a.is_meta for a in TT.leaves(args[0])), "input_specs "
+          "allocated its parameters")
+    batch = {k: v.full_tensor() for k, v in SPECS.materialize_batch(
+        cfg, shape, pol).items()}
+    counters = lm_counters()
+
+    # unplaced: step 1's accumulated gradient kept (bf16)
+    kept = []
+
+    def keep(grads):
+        if not kept:
+            kept.extend(g.to(torch.bfloat16) for g in TT.leaves(grads))
+        return grads
+    step, opt_init = TR.make_train_step(cfg, constrain_grads=keep)
+    torch.cuda.reset_peak_memory_stats()
+    loss_u, walls_u = dist_steps(step, lambda: (params, opt_init(params)),
+                                 batch)
+    peak_u = torch.cuda.max_memory_allocated()
+    moe_u = []
+    if moe_module is not None:
+        with timed_calls(moe_module, "moe_forward", moe_u):
+            _, w = dist_steps(step, lambda: (params, opt_init(params)),
+                              batch)
+        moe_u = [sum(moe_u) / DIST_STEPS / (sum(w) / DIST_STEPS)]
+    torch.cuda.empty_cache()
+
+    # placed: materialize's args (the same batch) and the policy's hooks;
+    # the cosines taken inside constrain_grads
+    real = SPECS.materialize(cfg, shape, pol, params=params)
+    places = lambda tree: [(tuple(a.shape), a.dtype, tuple(a.placements))  # noqa: E731
+                           for a in TT.leaves(tree) if SP.is_dtensor(a)]
+    check(places(args) == places(real), f"{arch}: input_specs' args and "
+          "materialize's differ in placement")
+    check(all(torch.equal(real[2][k].full_tensor(), batch[k])
+              for k in batch), f"{arch}: materialize drew another batch")
+    batch_p = real[2]
+    del args, real
+
+    def start():
+        return SPECS.materialize(cfg, shape, pol, params=params)[:2]
+    hook = SPECS.constrain_grads_hook(pol)
+    cos = []
+
+    def compare(grads):
+        grads = hook(grads)
+        if not cos:
+            for g, w in zip(TT.leaves(grads), kept):
+                g, w = g.to_local().float().flatten(), w.float().flatten()
+                den = float(g.norm() * w.norm())
+                cos.append(float(g @ w) / den if den else
+                           float(torch.equal(g, w)))
+            kept.clear()
+        return grads
+    a2a = SPECS.moe_a2a_hook(cfg, pol)
+    if a2a is not None:
+        a2a = dict(a2a, pair_capacity_factor=DIST_PAIR_CAPACITY)
+    step_p, _ = TR.make_train_step(cfg, constrain=pol.constrain,
+                                   constrain_grads=compare, moe_a2a=a2a)
+    for f in counters.values():
+        f.launches = 0                   # the placed step starts here
+    torch.cuda.reset_peak_memory_stats()
+    loss_p, walls_p = dist_steps(step_p, start, batch_p)
+    launches = {k: f.launches for k, f in counters.items()}  # ... ends
+    peak_p = torch.cuda.max_memory_allocated()
+    moe_p = []
+    if moe_module is not None:
+        name = "moe_forward_a2a" if a2a is not None else "moe_forward"
+        with timed_calls(moe_module, name, moe_p):
+            _, w = dist_steps(step_p, start, batch_p)
+        moe_p = [sum(moe_p) / DIST_STEPS / (sum(w) / DIST_STEPS)]
+    del batch, batch_p
+    torch.cuda.empty_cache()
+    check(abs(loss_p - loss_u) <= DIST_LOSS_RTOL * abs(loss_u),
+          f"{arch}: placed loss {loss_p} vs unplaced {loss_u}")
+    worst = min(cos)
+    check(worst >= DIST_GRAD_COS, f"{arch}: a gradient leaf's cosine to the "
+          f"unplaced one is {worst} < {DIST_GRAD_COS}")
+    per_step = lambda w: _percentiles(w[1:])  # noqa: E731
+    return dict(arch=arch, layers=cfg.n_layers, policy=policy_kw,
+                moe_a2a=a2a is not None, batch=LM_FULL_B, seq=LM_FULL_S,
+                microbatches=cfg.train_microbatches, remat=cfg.remat,
+                optimizer=cfg.optimizer, loss_unplaced=loss_u,
+                loss_placed=loss_p,
+                loss_rel_diff=abs(loss_p - loss_u) / abs(loss_u),
+                grad_leaves=len(cos), grad_cos_min=worst,
+                step_ms_unplaced=per_step(walls_u),
+                step_ms_placed=per_step(walls_p),
+                placed_over_unplaced=(statistics.median(walls_p[1:])
+                                      / statistics.median(walls_u[1:])),
+                moe_forward_share_unplaced=moe_u[0] if moe_u else None,
+                moe_forward_share_placed=moe_p[0] if moe_p else None,
+                peak_bytes_unplaced=peak_u, peak_bytes_placed=peak_p,
+                launches=launches, nvidia_smi=CARD.get("nvidia_smi"))
+
+
+def dist_cpu_calls(arch, cfg_full, kind, mesh_cpu):
+    """The kernels' calls of the same placed step on the CPU (a CPU mesh
+    on the same one-rank group), at reduced width and the full run's
+    depth, microbatches and remat: the calls depend on those alone."""
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed.sharding import Policy
+    from repro_torch.launch import specs as SPECS
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(reduced(cfg_full), groups=cfg_full.groups,
+                              n_layers=cfg_full.n_layers,
+                              train_microbatches=cfg_full.train_microbatches,
+                              remat=cfg_full.remat)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    counters = lm_counters()
+    calls0 = {k: f.calls for k, f in counters.items()}
+    if kind == "train":
+        pol = Policy(cfg, mesh_cpu)
+        shape = InputShape("train", 8, 8, "train")
+        fn, _ = SPECS.input_specs(cfg, shape, pol)
+        fn(*SPECS.materialize(cfg, shape, pol, params=params))
+    else:
+        dist_serve_drive(cfg, params, mesh_cpu, "cpu")
+    return {k: f.calls - calls0[k] for k, f in counters.items()}
+
+
+def dist_serve_drive(cfg, params, mesh, device, *, placed=True):
+    """prefill(kernel="pallas") of DIST_SERVE_B numpy prompts of
+    DIST_SERVE_S tokens, then DIST_DECODE greedy decode steps; placed by
+    ``Policy(cfg, mesh, tuned=True)``: the cache redistributed to
+    cache_pspecs' placements, moe_pre set. Returns (tokens (B, steps+1)
+    on the host, prefill ms, decode ms a step)."""
+    from repro_torch.distributed import spmd as SP
+    from repro_torch.distributed.sharding import Policy
+    from repro_torch.launch import specs as SPECS
+    from repro_torch.models import transformer as T
+    pol = Policy(cfg, mesh, tuned=True)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (DIST_SERVE_B, DIST_SERVE_S)).astype(
+            np.int32)).to(device)
+    moe_pre, constrain = None, None
+    if placed:
+        params = SPECS.with_shardings(pol, pol.param_pspecs(params), params)
+        toks = SPECS.with_shardings(pol, pol.batch_spec(toks), toks)
+        moe_pre, constrain = SPECS.moe_pre_hook(cfg, pol), pol.constrain
+        check(cfg.n_experts == 0 or moe_pre is not None, "moe_pre unset")
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    whole = lambda a: a.full_tensor() if SP.is_dtensor(a) else a  # noqa: E731
+    out, decode_s = [], []
+    # no_grad, not inference_mode: a DTensor's views cannot be taken of
+    # its (normal) storage under inference_mode
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, cfg, toks, cache_len=DIST_SERVE_CACHE,
+                                  kernel="pallas", constrain=constrain)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        if placed:
+            cache = _replace_placements(pol, cache)
+        tok = logits.argmax(-1)
+        for i in range(DIST_DECODE):
+            out.append(whole(tok).cpu())
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = T.decode_step(params, cfg, tok, cache,
+                                          DIST_SERVE_S + i, moe_pre=moe_pre)
+            sync()
+            decode_s.append(time.perf_counter() - t0)
+            check(bool(torch.isfinite(whole(logits)).all()),
+                  "non-finite decode logits")
+            tok = logits.argmax(-1)
+        out.append(whole(tok).cpu())
+    return torch.cat(out, dim=1), 1e3 * prefill_s, _percentiles(decode_s)
+
+
+def _replace_placements(pol, cache):
+    """A prefill's placed cache redistributed to cache_pspecs'."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import specs as SPECS
+    return SPECS.zip_specs(
+        lambda c, s: c.redistribute(c.device_mesh, SH.placements(
+            s, c.device_mesh)), cache, pol.cache_pspecs(cache))
+
+
+DIST_CHILD = "--dist-child"
+DIST_TIMEOUT = 600       # seconds for the phase's child process
+
+
+def phase_dist():
+    """The dist phase (``dist_rows``) in a child process of this script,
+    which keeps the NCCL group and its threads out of the process where
+    the other phases capture CUDA graphs. Its JSON lines are passed on,
+    its rows read from its last line."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()             # the card's memory to the child
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           DIST_CHILD], capture_output=True, text=True,
+                          timeout=DIST_TIMEOUT, cwd=ROOT)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    sys.stderr.write(proc.stderr[-20000:])
+    check(proc.returncode == 0 and lines,
+          f"the dist phase's process exited {proc.returncode}")
+    return json.loads(lines[-1])["rows"]
+
+
+def dist_rows():
+    """(i) OLMoE-1B-7B at full width in bf16 cut to 5 of 16 layers, the
+    launcher's batch, tuned 'fsdp' (MoE through moe_forward_a2a); (ii)
+    RWKV6-1.6B whole under the default policy, the scan's launches held
+    to a CPU run's calls; (iii) OLMoE's placed prefill(kernel="pallas")
+    and greedy decode against the unplaced, flash and decode-attention
+    launches held to a CPU run's calls."""
+    import repro_torch.models.moe as MOE
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import close_mesh, make_host_mesh
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh()                   # NCCL, world size 1
+    check(torch.distributed.get_backend() is not None
+          and mesh.device_type == "cuda" and tuple(mesh.shape) == (1, 1),
+          f"host mesh {mesh}")
+    mesh_cpu = make_host_mesh("cpu")          # the CPU runs, same group
+    rows, seconds = {}, {}
+    try:
+        # (i) and (iii): OLMoE-1B-7B's 5-layer cut, one set of weights
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(
+            depth_cut(get_config("olmoe-1b-7b"), LM_TRAIN_DEPTH_CUTS),
+            capacity_factor=DIST_CAPACITY)
+        params = T.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                               device="cuda")
+        rows["olmoe_train"] = row = dist_train(
+            "olmoe-1b-7b", cfg, params, mesh,
+            dict(tuned=True, strategy="fsdp"), moe_module=MOE)
+        check(row["moe_a2a"], "OLMoE under tuned fsdp must take the a2a")
+        emit("dist_train", **row)
+        seconds["olmoe_train"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        counters = lm_counters()
+        got = {}
+        for placed in (False, True):
+            for f in counters.values():
+                f.launches = 0
+            got[placed] = dist_serve_drive(cfg, params, mesh, "cuda",
+                                           placed=placed)
+            got[placed] += ({k: f.launches for k, f in counters.items()},)
+        cpu = dist_cpu_calls("olmoe-1b-7b", cfg, "serve", mesh_cpu)
+        launches = got[True][3]
+        check(torch.equal(got[True][0], got[False][0]),
+              f"placed greedy tokens {got[True][0].tolist()} != unplaced "
+              f"{got[False][0].tolist()}")
+        check(launches["flash_attention"] == cpu["flash_attention"]
+              == cfg.n_layers
+              and launches["decode_attention"] == cpu["decode_attention"]
+              == cfg.n_layers * DIST_DECODE
+              and got[False][3] == launches,
+              f"placed serving launches {launches}, unplaced "
+              f"{got[False][3]}, CPU calls {cpu}")
+        rows["olmoe_serve"] = row = dict(
+            arch="olmoe-1b-7b", layers=cfg.n_layers, batch=DIST_SERVE_B,
+            prompt=DIST_SERVE_S, cache_len=DIST_SERVE_CACHE,
+            decode_steps=DIST_DECODE, tokens_equal=True,
+            prefill_ms={"placed": got[True][1], "unplaced": got[False][1]},
+            decode_ms={"placed": got[True][2], "unplaced": got[False][2]},
+            launches=launches, cpu_calls=cpu,
+            nvidia_smi=CARD.get("nvidia_smi"))
+        emit("dist_serve", **row)
+        seconds["olmoe_serve"] = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+
+        # (ii) RWKV6-1.6B whole
+        t0 = time.perf_counter()
+        cfg = get_config("rwkv6-1.6b")
+        params = T.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                               device="cuda")
+        row = dist_train("rwkv6-1.6b", cfg, params, mesh, {})
+        cpu = dist_cpu_calls("rwkv6-1.6b", cfg, "train", mesh_cpu)
+        one = {k: v // DIST_STEPS for k, v in row["launches"].items()}
+        check(all(v % DIST_STEPS == 0 for v in row["launches"].values())
+              and one["rwkv6_scan"] == cpu["rwkv6_scan"] > 0
+              and one["rwkv6_scan_backward"] == cpu["rwkv6_scan_backward"] > 0
+              and one["flash_attention"] == one["decode_attention"] == 0,
+              f"RWKV6 placed step launches {row['launches']} over "
+              f"{DIST_STEPS} steps, CPU calls a step {cpu}")
+        row["cpu_calls_a_step"] = cpu
+        rows["rwkv6_train"] = row
+        emit("dist_train", **row)
+        seconds["rwkv6_train"] = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        close_mesh()
+    check(not torch.distributed.is_initialized(), "process group left over")
+    seconds["total"] = time.perf_counter() - t_phase
+    emit("dist_seconds", **seconds)
+    return rows
 
 
 # ----------------------------------------------------------------- fleet
@@ -5115,10 +5553,15 @@ PHASES = {"kernel": phase_kernel, "int8": phase_int8,
           "bertbase": phase_bertbase, "tiered": phase_tiered,
           "robust": phase_robust, "batch": phase_batch,
           "fleet": phase_fleet, "train": phase_train,
-          "llm": phase_llm, "lm_train": phase_lm_train, "cli": phase_cli}
+          "llm": phase_llm, "lm_train": phase_lm_train,
+          "dist": phase_dist, "cli": phase_cli}
 
 
 def main():
+    if sys.argv[1:] == [DIST_CHILD]:
+        card()
+        print(json.dumps({"phase": "dist_rows", "rows": dist_rows()}))
+        return
     if sys.argv[1:]:
         # --only a,b: the device and build phases, then the named phases
         # alone; no summary and no result line (that needs every phase)
@@ -5155,6 +5598,7 @@ def main():
     train_launches = timed("train", phase_train)
     llm_rows = timed("llm", phase_llm)
     lm_rows = timed("lm_train", phase_lm_train)
+    dist_out = timed("dist", phase_dist)
     timed("cli", phase_cli)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds)
     print(smi)
@@ -5178,7 +5622,11 @@ def main():
                          # prefill(kernel="pallas"), one 520-token prompt
                          **{f"llm_prefill_pallas_{a}":
                             llm_rows[a]["prefill_pallas"]["launches"]
-                            for a in LLM_PALLAS_PREFILL}}),
+                            for a in LLM_PALLAS_PREFILL},
+                         # OLMoE's placed prefill(kernel="pallas")
+                         "dist_prefill_pallas_olmoe":
+                         dist_out["olmoe_serve"]["launches"][
+                             "flash_attention"]}),
                _line("flash_attention_bertbase",
                      "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:98",
@@ -5231,8 +5679,11 @@ def main():
                          mistral["launches"][0], decode_rows["mistral_half"],
                          shape=decode_rows["mistral_half"]["shape"],
                          launches_by_path={
-                             a: llm_rows[a]["launches"][0] for a in LLM_ARCHS
-                             if llm_rows[a]["launches"][0]},
+                             **{a: llm_rows[a]["launches"][0]
+                                for a in LLM_ARCHS
+                                if llm_rows[a]["launches"][0]},
+                             "dist_decode_olmoe": dist_out["olmoe_serve"][
+                                 "launches"]["decode_attention"]},
                          olmoe=_brief(decode_rows["olmoe_half"]),
                          musicgen=_brief(decode_rows["musicgen_half"])))
     # the scan in float32 (the reduced float32 RWKV6 served on the card)
@@ -5258,7 +5709,9 @@ def main():
                                        "repro_rwkv6_scan_backward"],
                          launches_by_path={
                              "llm": rwkv["launches"][1],
-                             "lm_train": lm_rwkv["rwkv6_scan"]},
+                             "lm_train": lm_rwkv["rwkv6_scan"],
+                             "dist_train": dist_out["rwkv6_train"][
+                                 "launches"]["rwkv6_scan"]},
                          backward={"launches": lm_rwkv["rwkv6_scan_backward"],
                                    "shape": bwd_row["shape"],
                                    **{k: bwd_row[k] for k in step_keys}},
@@ -5271,6 +5724,10 @@ def main():
                          "src/repro/kernels/rwkv6.py:62",
                          lm_rwkv["rwkv6_scan_backward"], bwd_row,
                          shape=bwd_row["shape"], dtype="bfloat16",
+                         launches_by_path={
+                             "lm_train": lm_rwkv["rwkv6_scan_backward"],
+                             "dist_train": dist_out["rwkv6_train"][
+                                 "launches"]["rwkv6_scan_backward"]},
                          entry_point="repro_rwkv6_scan_backward",
                          float32=_brief(rwkv_rows["backward_train"]),
                          s520_bf16=_brief(rwkv_rows["backward_520_bf16"])))

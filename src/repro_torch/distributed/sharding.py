@@ -1,20 +1,31 @@
-"""Sharding policy, parameter half: map a parameter tree to partition specs.
+"""Sharding policy: map parameter, cache, batch and optimizer-state trees
+to partition specs, and specs to DTensor placements.
 
 The reference's policy (MaxText-style 2D "FSDP + tensor parallel"):
   * mesh axes: ('pod', 'data', 'model') multi-pod, ('data', 'model') single.
   * weights: the tensor-parallel dim (heads / d_ff / experts) shards on
     'model'; when ``cfg.fsdp_weights`` the other big dim shards on
     'data' (ZeRO-3). Weights are never sharded on 'pod'.
+  * activations: batch shards on ('pod', 'data') (every axis under the
+    'fsdp' strategy).
+  * decode caches: batch on the batch axes; for long_500k (batch=1) the
+    *sequence* dim of KV/latent buffers shards on them instead.
   * any dim not divisible by its mesh axis falls back to replication.
 
 A spec is a plain tuple with one entry per dim: an axis name, a tuple of
-axis names, or None (replicated along that dim). ``param_pspecs`` maps
-the port's nested dicts and lists of tensors, walking them with the
-reference's key paths (``training.tree.paths``: dict keys, list
-indices), so each leaf gets the spec the reference gives the same leaf.
+axis names, or None (replicated along that dim). The ``*_pspecs``
+methods map the port's nested dicts, lists and tuples of tensors,
+walking them with the reference's key paths (dict keys, list indices),
+so each leaf gets the spec the reference gives the same leaf.
 
-Only this half is ported; the cache, batch and optimizer specs and the
-placement of activations belong to ROADMAP item 12.
+A mesh is anything with ``axis_names`` and a shape: a
+``torch.distributed.device_mesh.DeviceMesh`` with the reference's axis
+names (``launch.mesh``), ``abstract_mesh(shape, axes)`` (no devices, no
+process group: specs at 16x16 or 2x16x16 on one host), or the fleet's
+``FleetMesh``. ``placements(spec, mesh)`` turns a spec into DTensor
+placements: a mesh axis named in the spec becomes ``Shard(dim)``, any
+other ``Replicate()``; a dim sharded over ('data', 'model') is split
+'data'-major, as a JAX ``P(('data', 'model'))``.
 """
 from __future__ import annotations
 
@@ -31,9 +42,64 @@ def _path_names(path):
 
 
 def axis_sizes(mesh):
-    """{axis name: size} of a mesh with ``axis_names`` and a ``devices``
-    array (``fleet.region.FleetMesh``)."""
+    """{axis name: size} of a mesh: an ``AbstractMesh``, a ``DeviceMesh``
+    (``mesh_dim_names``) or a mesh with a ``devices`` array
+    (``fleet.region.FleetMesh``)."""
+    sizes = getattr(mesh, "axis_sizes", None)
+    if sizes is not None:
+        return dict(zip(mesh.axis_names, sizes))
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
     return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def axis_names(mesh):
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names if names is not None else mesh.axis_names)
+
+
+class AbstractMesh:
+    """A device-free mesh: axis names and sizes only, for building specs
+    (the reference's ``jax.sharding.AbstractMesh``)."""
+
+    def __init__(self, shape, axes):
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {shape} and axes {axes} differ in length")
+        self.axis_names = tuple(axes)
+        self.axis_sizes = tuple(int(n) for n in shape)
+
+    def __repr__(self):
+        return f"AbstractMesh({self.axis_sizes}, {self.axis_names})"
+
+
+def abstract_mesh(shape, axes):
+    """Device-free mesh for spec construction and tests."""
+    return AbstractMesh(shape, axes)
+
+
+def placements(spec, mesh):
+    """DTensor placements (one per mesh dim) of a spec on ``mesh``: an
+    axis named at dim ``d`` of the spec is ``Shard(d)``, any other axis
+    ``Replicate()``. A dim over several axes is split in mesh order,
+    major to minor, so those axes must appear in the spec in mesh
+    order."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = axis_names(mesh)
+    at = {}
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        order = [names.index(a) for a in axes]
+        if order != sorted(order):
+            raise ValueError(f"spec {spec}: axes {axes} are not in the "
+                             f"mesh's order {names}")
+        for a in axes:
+            if a in at:
+                raise ValueError(f"spec {spec} names axis {a!r} twice")
+            at[a] = d
+    return tuple(Shard(at[a]) if a in at else Replicate() for a in names)
 
 
 class Policy:
@@ -69,8 +135,16 @@ class Policy:
         n_experts = getattr(cfg, "n_experts", 0) if cfg is not None else 0
         self.experts_2d = bool(n_experts and n_experts % dm == 0)
 
+    def dp_size(self):
+        n = 1
+        for a in self.dp:
+            n *= self.sizes[a]
+        return n
+
     def _fit(self, spec, shape):
-        """Replace axes that don't divide their dim with None."""
+        """Replace axes that don't divide their dim with None. A one-axis
+        tuple reads as the bare axis name, as a JAX ``PartitionSpec``
+        reads it."""
         out = []
         for dim, ax in zip(shape, spec):
             if ax is None:
@@ -80,6 +154,8 @@ class Policy:
             n = 1
             for a in axes:
                 n *= self.sizes.get(a, 1)
+            if isinstance(ax, tuple) and len(ax) == 1:
+                ax = ax[0]
             out.append(ax if dim % n == 0 else None)
         return tuple(out)
 
@@ -171,11 +247,135 @@ class Policy:
         """``params`` with every leaf replaced by its spec (same nesting;
         a spec is a tuple leaf, so walk the result with the params'
         paths, not with ``training.tree``)."""
-        def walk(tree, path):
-            if isinstance(tree, dict):
-                return {k: walk(v, path + (k,)) for k, v in tree.items()}
-            if isinstance(tree, (list, tuple)):
-                return type(tree)(walk(v, path + (i,))
-                                  for i, v in enumerate(tree))
-            return self.param_spec(path, tree)
-        return walk(params, ())
+        return map_with_path(self.param_spec, params)
+
+    # ------------------------------------------------------------ caches
+
+    def cache_spec(self, path, leaf, *, long=False):
+        names = _path_names(path)
+        last = names[-1]
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        dp = self.dp
+        bat = None if long else dp
+        # every cache leaf is stacked: (count, B, ...) except 'pos' (count, W)
+        if last == "pos":
+            return (None,) * nd
+        if last in ("k", "v") and nd == 5:          # (count,B,W,KV,D) self-attn
+            return self._fit((None, bat, dp if long else None, "model", None),
+                             shape)
+        if last in ("ckv", "krope"):                # (count,B,W,r)
+            return self._fit((None, bat, dp if long else None, None), shape)
+        if "cross" in names or "cond" in names:     # (count,B,Cs,KV,D)
+            return self._fit((None, bat, None, "model", None), shape)
+        if "ssm" in names and nd == 4 and shape[-1] != shape[-2]:
+            # conv state (count,B,dc-1,di) or h (count,B,di,st)
+            if shape[-2] > shape[-1]:
+                return self._fit((None, bat, "model", None), shape)
+            return self._fit((None, bat, None, "model"), shape)
+        if last == "state" and nd == 5:             # rwkv (count,B,H,hd,hd)
+            return self._fit((None, bat, "model", None, None), shape)
+        if nd >= 2:
+            return self._fit((None, bat) + (None,) * (nd - 2), shape)
+        return (None,) * nd
+
+    def cache_pspecs(self, cache, *, long=False):
+        return map_with_path(lambda p, l: self.cache_spec(p, l, long=long),
+                             cache)
+
+    # ------------------------------------------------------------- misc
+
+    def batch_spec(self, leaf):
+        return self._fit((self.dp,) + (None,) * (leaf.dim() - 1),
+                         tuple(leaf.shape))
+
+    def batch_pspecs(self, batch):
+        return map_with_path(lambda _, leaf: self.batch_spec(leaf), batch)
+
+    def opt_pspecs(self, params, opt_state):
+        """Optimizer state mirrors param sharding (factored dims inherit):
+        AdamW ``m``/``v`` take the param's spec, Adafactor's ``vr`` drops
+        its last entry and ``vc`` its second-to-last, ``step`` is
+        replicated."""
+        pspecs = self.param_pspecs(params)
+
+        def match(path, leaf):
+            names = _path_names(path)
+            nd = leaf.dim()
+            if names and names[-1] == "step":
+                return ()
+            # walk to the corresponding param spec by stripping m/v/vr/vc keys
+            stripped = [n for n in names if n not in ("m", "v", "vr", "vc")]
+            sub = pspecs
+            for n in stripped:
+                if isinstance(sub, dict) and n in sub:
+                    sub = sub[n]
+                elif isinstance(sub, list):
+                    sub = sub[int(n)]
+                else:
+                    return (None,) * nd
+            if not _is_spec(sub):
+                return (None,) * nd
+            spec = tuple(sub)
+            if names[-1] == "vr":       # param shape minus last dim
+                spec = spec[:-1]
+            elif names[-1] == "vc":     # param shape minus second-to-last
+                spec = spec[:-2] + spec[-1:]
+            spec = spec + (None,) * (nd - len(spec))
+            return self._fit(spec[:nd], tuple(leaf.shape))
+
+        return map_with_path(match, opt_state)
+
+    def shardings(self, pspecs):
+        """The specs of a tree as DTensor placements on this policy's
+        mesh (``placements``), leaf for leaf."""
+        return map_specs(lambda s: placements(s, self.mesh), pspecs)
+
+    def constrain(self, x):
+        """Activation constraint for (B, S, d) hiddens: a DTensor is
+        redistributed to batch-sharded on ``dp`` (replicated on every
+        other axis); anything else passes through unchanged."""
+        from .spmd import is_dtensor
+        if is_dtensor(x) and x.dim() == 3:
+            want = placements(self._fit((self.dp, None, None),
+                                        tuple(x.shape)), x.device_mesh)
+            if tuple(x.placements) != want:
+                x = x.redistribute(x.device_mesh, want)
+        return x
+
+
+def _is_spec(x):
+    """A spec is a tuple of axis names, tuples of names and Nones."""
+    return isinstance(x, tuple) and all(
+        a is None or isinstance(a, str)
+        or (isinstance(a, tuple) and all(isinstance(b, str) for b in a))
+        for a in x)
+
+
+def map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a tree of tensors (dicts, lists, tuples),
+    keeping its nesting; ``path`` holds dict keys and list indices."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def map_specs(fn, specs):
+    """``fn`` over the spec leaves of a spec tree (specs are tuples, so
+    a tuple node is a spec only if it holds no tensors or subtrees)."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v) for k, v in specs.items()}
+    if isinstance(specs, list) or (isinstance(specs, tuple)
+                                   and not _is_spec(specs)):
+        return type(specs)(map_specs(fn, v) for v in specs)
+    return fn(specs)
+
+
+def abstract_params(cfg, init_fn):
+    """Shape-only params on the ``meta`` device (no allocation, nothing
+    drawn): ``init_fn(cfg, gen, device="meta")``."""
+    import torch
+    return init_fn(cfg, torch.Generator(), device="meta")

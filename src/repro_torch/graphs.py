@@ -38,6 +38,7 @@ still equal a CPU run's calls.
 """
 from __future__ import annotations
 
+import gc
 import time
 from dataclasses import dataclass
 from typing import Callable, List
@@ -129,8 +130,19 @@ class Graphed:
             static = [x.clone() for x in in_leaves]
         before = [getattr(fn, attr) for fn, attr in kops.COUNTERS]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            outputs = self.fn(params, *_rebuild(inputs, iter(static)))
+        # no garbage collection while capturing: a CUDA graph freed by the
+        # collector mid-capture (an old piece in a reference cycle) resets
+        # itself, which CUDA refuses during a capture, and that
+        # invalidates this one; collect first instead
+        gc.collect()
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                outputs = self.fn(params, *_rebuild(inputs, iter(static)))
+        finally:
+            if was_enabled:
+                gc.enable()
         counts = []
         for (fn, attr), b in zip(kops.COUNTERS, before):
             counts.append(getattr(fn, attr) - b)

@@ -33,6 +33,7 @@ import math
 
 import torch
 
+from ..distributed.spmd import refuse_dtensor
 from . import build
 
 NEG_INF = -1e30
@@ -135,6 +136,7 @@ def decode_attention(q, kbuf, vbuf, slot_pos, t, *, window=0, scale=None):
     t: the current position (int or 0-d tensor). Returns (B, 1, H, Dv) in
     q's dtype. CUDA tensors launch the kernel; CPU tensors take
     ``decode_attention_plain``."""
+    refuse_dtensor("decode_attention", q, kbuf, vbuf, slot_pos, t)
     B, one, H, D = q.shape
     decode_attention.calls += 1
     KV = kbuf.shape[2]

@@ -25,6 +25,7 @@ import math
 
 import torch
 
+from ..distributed.spmd import refuse_dtensor
 from . import build
 
 NEG_INF = -1e30
@@ -203,6 +204,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     runs the materialised attention (``use_flash_text=False``); serving
     runs under ``torch.inference_mode()``.
     """
+    refuse_dtensor("flash_attention", q, k, v, kv_lengths, segment_ids)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention has no backward (neither the CUDA kernel nor "

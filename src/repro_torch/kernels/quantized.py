@@ -49,6 +49,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..distributed.spmd import refuse_dtensor
 from . import build
 
 # int32 accumulator headroom: K * 127 * 127 must stay below 2^31
@@ -225,6 +226,7 @@ def quantize_rowwise(x):
     and converts each element to float32 as it loads it."""
     if x.dim() != 2:
         raise ValueError(f"quantize_rowwise takes (M, K), got {tuple(x.shape)}")
+    refuse_dtensor("quantize_rowwise", x)
     quantize_rowwise.calls += 1
     if _device_of(x).type == "cpu":
         return quantize_rowwise_plain(x)
@@ -253,6 +255,7 @@ def dequantize_rowwise(q, scale):
     if q.dim() != 2 or tuple(scale.shape) != (q.shape[0], 1):
         raise ValueError(f"dequantize_rowwise takes (M, K) and (M, 1), got "
                          f"{tuple(q.shape)} and {tuple(scale.shape)}")
+    refuse_dtensor("dequantize_rowwise", q, scale)
     dequantize_rowwise.calls += 1
     if _device_of(q, scale).type == "cpu":
         return dequantize_rowwise_plain(q, scale)
@@ -287,6 +290,7 @@ def int8_matmul(xq, sx, wq, sw):
     if tuple(sx.shape) != (M, 1) or tuple(sw.shape) != (1, N):
         raise ValueError(f"scales must be ({M}, 1) and (1, {N}), got "
                          f"{tuple(sx.shape)} and {tuple(sw.shape)}")
+    refuse_dtensor("int8_matmul", xq, sx, wq, sw)
     int8_matmul.calls += 1
     if _device_of(xq, sx, wq, sw).type == "cpu":
         return int8_matmul_plain(xq, sx, wq, sw)

@@ -48,6 +48,8 @@ import ctypes
 
 import torch
 
+from ..distributed.spmd import refuse_dtensor
+
 MAX_HEAD_DIM = 64
 # csrc/rwkv6.cu: state columns a block owns, and the chunk lengths it
 # compiles (1: one step at a time)
@@ -230,6 +232,7 @@ def rwkv6_scan_backward(r, k, v, w, u, s0, dy, dsf):
     (B, S, H, n) float32 and dsf (B, H, n, n) float32 or None (zeros).
     CUDA tensors launch the kernel; CPU tensors take
     ``rwkv6_scan_backward_plain``."""
+    refuse_dtensor("rwkv6_scan_backward", r, k, v, w, u, s0, dy, dsf)
     rwkv6_scan_backward.calls += 1
     if r.device.type == "cpu":
         out = rwkv6_scan_backward_plain(r, k, v, w, u, s0, dy, dsf)
@@ -279,6 +282,7 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
     CUDA tensors launch the kernel; CPU tensors take ``rwkv6_scan_plain``.
     Under grad mode with an input that requires grad, through
     ``RWKV6Scan``, whose backward is ``rwkv6_scan_backward``."""
+    refuse_dtensor("rwkv6_scan", r, k, v, w, u, s0)
     B, S, H, n = r.shape
     rwkv6_scan.calls += 1
     for name, a in (("k", k), ("v", v), ("w", w)):

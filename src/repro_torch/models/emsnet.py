@@ -98,12 +98,19 @@ def text_encoder(p, cfg: EMSNetConfig, tokens):
     lengths). Returns F_T (B, d_text); for the ragged form, one feature
     row per packed row.
 
-    The flash path assumes PAD-only suffixes (valid tokens first), which
-    both the tokenizer layout and the bucketer's right-padding
-    guarantee; the einsum and segment paths handle arbitrary masks. With
-    ``cfg.flash_segments`` the natural path runs the segment-masked
-    kernel, S padded to a ``cfg.flash_block`` multiple and positions
-    clamped to the positional table."""
+    The flash path's ``kv_lengths`` mode masks each row's keys at and
+    past its count of valid tokens, so a row with interior PADs (the
+    synthetic NEMSIS text drops words anywhere) is first reordered on
+    the device, valid tokens first in their order (a stable sort of the
+    PAD flags), after each token got the positional embedding of its
+    original index; attention sees no order beyond those embeddings and
+    the pool is a masked mean, so the features are the einsum path's up
+    to float rounding. A row whose PADs are a suffix keeps its order, and
+    its numbers are the same as without the reordering. The einsum and
+    segment paths take any mask as it is. With ``cfg.flash_segments``
+    the natural path runs the segment-masked kernel, S padded to a
+    ``cfg.flash_block`` multiple and positions clamped to the positional
+    table."""
     if isinstance(tokens, dict):
         return _text_encoder_ragged(p, cfg, tokens)
     _, _, heads, _ = cfg.text_dims
@@ -122,8 +129,15 @@ def text_encoder(p, cfg: EMSNetConfig, tokens):
         return _pool(L.layernorm(p["ln"], x), mask)
     mask = tokens > 0
     S = tokens.shape[1]
-    lengths = mask.sum(-1).to(torch.int32) if cfg.use_flash_text else None
     x = L.embed(p["tok"], tokens) + p["pos"]["emb"][None, :S]
+    lengths = None
+    if cfg.use_flash_text:
+        lengths = mask.sum(-1).to(torch.int32)
+        # valid tokens first, in order: interior PADs become a PAD suffix
+        order = torch.sort((~mask).to(torch.uint8), dim=1,
+                           stable=True).indices
+        x = torch.gather(x, 1, order[..., None].expand_as(x))
+        mask = torch.gather(mask, 1, order)
     for blk in p["blocks"]:
         x = _bert_block(blk, x, mask, heads, kv_lengths=lengths)
     return _pool(L.layernorm(p["ln"], x), mask)

@@ -42,8 +42,11 @@ def normal(gen: torch.Generator, shape, scale: float, *, dtype=torch.float32,
     """``N(0, 1) * scale`` drawn in float32 on the generator's device, then
     cast to ``dtype`` on ``device`` (the reference's ``(normal * s).astype``).
     The scale is applied in place; a leaf over ``DRAW_CHUNK`` elements is
-    drawn and cast slice by slice along its first axis."""
+    drawn and cast slice by slice along its first axis. On the ``meta``
+    device nothing is drawn (a shape-only tree, ``abstract_params``)."""
     shape = tuple(shape)
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     if math.prod(shape) <= DRAW_CHUNK or len(shape) < 2:
         x = torch.randn(shape, generator=gen, device=gen.device).mul_(scale)
         return x.to(device=device, dtype=dtype)

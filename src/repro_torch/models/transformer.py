@@ -61,12 +61,28 @@ Training runs under autograd: ``kernel="pallas"`` reaches the flash
 kernel, which has no backward and raises there, so training takes the
 plain attention ("jnp"), as the reference's trainer does; the RWKV6 scan
 carries its own backward kernel (``kernels.rwkv6``).
+
+Sharding. The reference's hooks are taken as there: ``constrain`` (the
+activation after the embedding and after every period, by
+``forward_train`` and ``prefill``), ``moe_a2a`` (every MoE layer through
+``moe.moe_forward_a2a``) and ``moe_pre`` (decode). With parameters
+placed as DTensors (``launch.specs``) the entry points run SPMD over
+their mesh: each piece (the embedding, a period, the head) runs on each
+rank's batch rows with its weights gathered (``distributed.spmd``), so
+every kernel sees plain local tensors, a MoE layer without ``moe_a2a``
+dispatches every rank's tokens (as GSPMD runs the reference's over the
+global batch), prefill returns the cache as DTensors and decode writes a
+placed cache through its local blocks. DTensor views are not taken
+under ``inference_mode``: serve a placed model under ``no_grad``. With
+plain tensors nothing of this runs and each hook passes its tensor
+through unchanged.
 """
 from __future__ import annotations
 
 import torch
 import torch.utils.checkpoint
 
+from ..distributed import spmd as SP
 from . import attention as A
 from . import layers as L
 from . import moe as M
@@ -356,9 +372,7 @@ def apply_layer(lp, spec, x, ctx, mode, cache, t):
         if spec.mlp == "dense":
             out = L.mlp(lp["mlp"], h, cfg.mlp_act)
         elif spec.mlp == "moe":
-            if ctx["moe_pre"]:
-                h = ctx["moe_pre"](h)
-            out, moe_aux = M.moe_forward(lp["mlp"], h, cfg)
+            out, moe_aux = _moe(lp["mlp"], h, ctx)
             if mode == "train":
                 aux = moe_aux
         else:
@@ -368,6 +382,31 @@ def apply_layer(lp, spec, x, ctx, mode, cache, t):
                 new_cache["cmix"] = last_c
         x = x + out
     return x, new_cache, aux
+
+
+def _moe(p, h, ctx):
+    """A MoE sublayer: through ``moe_forward_a2a`` when the ``moe_a2a``
+    hook is set; else the dispatch of ``moe_forward`` (after the
+    ``moe_pre`` hook). In a sharded step (``ctx["spmd"]``, a region) the
+    dispatch runs over every rank's tokens, as GSPMD runs the reference's
+    over the global batch, and each rank keeps its own rows."""
+    cfg, region = ctx["cfg"], ctx.get("spmd")
+    if ctx["moe_a2a"]:
+        if region is None:
+            return M.moe_forward_a2a(p, h, cfg, **ctx["moe_a2a"])
+        y, aux = M.moe_forward_a2a(p, region.wrap(h), cfg, **ctx["moe_a2a"])
+        return region.rows(y), aux
+    if region is None:
+        if ctx["moe_pre"]:
+            h = ctx["moe_pre"](h)
+        return M.moe_forward(p, h, cfg)
+    hd = region.wrap(h)
+    if ctx["moe_pre"]:
+        hd = ctx["moe_pre"](hd)
+    y, aux = M.moe_forward(p, SP.local(hd, region.mesh, (),
+                                       partial=region.axes), cfg)
+    n, i = h.shape[0], region.index()
+    return y[i * n:(i + 1) * n], aux
 
 
 def _prefill_kv_cache(spec, kv, ctx):
@@ -429,21 +468,136 @@ def _cond_x(params, cfg, cond):
 
 
 def _make_ctx(cfg, positions, cond_x=None, *, kernel="jnp", window_attn=0,
-              cache_len=0, moe_pre=None):
+              cache_len=0, moe_a2a=None, moe_pre=None):
     return {"cfg": cfg, "positions": positions, "cond_x": cond_x,
             "kernel": kernel, "window_attn": window_attn,
-            "cache_len": cache_len, "moe_pre": moe_pre}
+            "cache_len": cache_len, "moe_a2a": moe_a2a, "moe_pre": moe_pre,
+            "spmd": None}
 
 
-def _check_hooks(**hooks):
-    """The reference's sharding hooks (``constrain``, ``moe_a2a``,
-    ``constrain_grads``) belong to ROADMAP queue 1 item 12; the port
-    takes them and refuses any that is set."""
-    for name, hook in hooks.items():
-        if hook is not None:
-            raise NotImplementedError(
-                f"{name}: the sharding hooks belong to ROADMAP queue 1 "
-                "item 12 (distribution), which the port does not have yet")
+# ----------------------------------------------------------------------
+# Sharded steps (parameters placed as DTensors by distributed.sharding)
+# ----------------------------------------------------------------------
+
+def _sharded(params):
+    """A sharded step: the parameters are DTensors (``launch.specs``)."""
+    return SP.is_dtensor(params["embed"]["emb"])
+
+
+def _as_dtensor(x, params):
+    """A plain input of a sharded step is whole on every rank."""
+    if x is None or SP.is_dtensor(x):
+        return x
+    mesh = params["embed"]["emb"].device_mesh
+    return SP.place(x, mesh, SP.shard_placements(mesh, ()))
+
+
+def _embed(params, cfg, tokens):
+    """``_embed_tokens``; in a sharded step each rank embeds its own rows
+    of ``tokens`` with the gathered table."""
+    if not _sharded(params):
+        return _embed_tokens(params, cfg, tokens)
+    tokens = _as_dtensor(tokens, params)
+    region = SP.Region.of(tokens)
+    emb = {"embed": region.params(params["embed"])}
+    return region.wrap(_embed_tokens(emb, cfg, region.rows(tokens)))
+
+
+def _cond(params, cfg, cond, like):
+    """``_cond_x``; sharded, split as the activation ``like``."""
+    if cond is None or not _sharded(params):
+        return _cond_x(params, cfg, cond)
+    region = SP.Region.of(like)
+    p = {"cond_proj": region.params(params["cond_proj"])}
+    return region.wrap(_cond_x(p, cfg, region.rows(_as_dtensor(cond,
+                                                                params))))
+
+
+def _head(params, cfg, x, *, last=False):
+    """Final norm and logits (of the last position only with ``last``);
+    sharded, on each rank's rows with the gathered head."""
+    if not SP.is_dtensor(x):
+        if last:
+            x = x[:, -1:, :]
+        return _logits(params, cfg, L.rmsnorm(params["final_norm"], x,
+                                              cfg.norm_eps))
+    region = SP.Region.of(x)
+    p = region.params({k: params[k] for k in ("embed", "lm_head",
+                                              "final_norm") if k in params})
+    xl = region.rows(x)
+    if last:
+        xl = xl[:, -1:, :]
+    return region.wrap(_logits(p, cfg, L.rmsnorm(p["final_norm"], xl,
+                                                 cfg.norm_eps)))
+
+
+def _is_moe_mlp(specs, path):
+    return (len(path) == 2 and path[1] == "mlp"
+            and specs[int(path[0])].mlp == "moe")
+
+
+def _period(pp, specs, x, ctx, mode, cache, t):
+    """``apply_period``; sharded (``x`` a DTensor), one region: each
+    rank runs the period on its rows with the period's weights gathered
+    (a MoE layer's weights stay placed for ``moe_forward_a2a`` when the
+    hook is set), and a decode cache is read and written in place
+    through its local block."""
+    if not SP.is_dtensor(x):
+        return apply_period(pp, specs, x, ctx, mode, cache, t)
+    region = SP.Region.of(x)
+    a2a = ctx["moe_a2a"] is not None
+    lp = region.params(pp, lambda path: a2a and _is_moe_mlp(specs, path))
+    xl = region.rows(x)
+    lctx = dict(ctx, spmd=region)
+    if ctx["positions"] is not None and ctx["positions"].dim() == 2:
+        lctx["positions"] = ctx["positions"][:xl.shape[0]]
+    if ctx["cond_x"] is not None:
+        lctx["cond_x"] = region.rows(ctx["cond_x"])
+    lc = None if cache is None else _cache_rows(region, cache)
+    xo, nc, aux = apply_period(lp, specs, xl, lctx, mode, lc, t)
+    if cache is not None:
+        _cache_write(region, cache, nc)
+    return region.wrap(xo), nc, aux
+
+
+def _cache_rows(region, cache):
+    """Each rank's block of a placed cache (views where the placement is
+    already the region's)."""
+    if isinstance(cache, dict):
+        return {k: (SP.local(v, region.mesh, ()) if k == "pos"
+                    else _cache_rows(region, v)) for k, v in cache.items()}
+    if isinstance(cache, (list, tuple)):
+        return type(cache)(_cache_rows(region, v) for v in cache)
+    return region.rows(cache)
+
+
+@torch.no_grad()
+def _cache_write(region, dst, src):
+    """A decode step's local cache back into the placed cache ``dst``
+    (nothing to do where the step wrote the DTensor's own block)."""
+    for k, d in _items(dst):
+        v = src[k]
+        if isinstance(d, (dict, list, tuple)):
+            _cache_write(region, d, v)
+            continue
+        block = d.to_local()
+        if v.data_ptr() == block.data_ptr() and v.shape == block.shape:
+            continue
+        new = (SP.place(v, region.mesh, d.placements) if k == "pos"
+               else region.wrap(v).redistribute(region.mesh, d.placements))
+        block.copy_(new.to_local())
+
+
+def _wrap_cache(region, cache):
+    """A prefill's stacked local caches as DTensors: batch rows (dim 1,
+    after the stack) split as the region's, ``pos`` replicated."""
+    if isinstance(cache, dict):
+        return {k: (SP.place(v, region.mesh, SP.shard_placements(
+                    region.mesh, ())) if k == "pos"
+                    else _wrap_cache(region, v)) for k, v in cache.items()}
+    if isinstance(cache, (list, tuple)):
+        return type(cache)(_wrap_cache(region, v) for v in cache)
+    return region.wrap(cache, dim=1)
 
 
 def forward_train(params, cfg, tokens, *, cond=None, next_tokens=None,
@@ -455,18 +609,21 @@ def forward_train(params, cfg, tokens, *, cond=None, next_tokens=None,
     cond_dim) a ``cond_dim`` config needs."""
     _check_cfg(cfg)
     _check_cond(cfg, cond)
-    _check_hooks(constrain=constrain, moe_a2a=moe_a2a)
     B, Sq = tokens.shape[0], tokens.shape[1]
     positions = torch.arange(Sq, dtype=torch.int32,
                              device=tokens.device).expand(B, Sq)
-    x = _embed_tokens(params, cfg, tokens)
-    ctx = _make_ctx(cfg, positions, _cond_x(params, cfg, cond),
-                    kernel=kernel)
+    x = _embed(params, cfg, tokens)
+    if constrain:
+        x = constrain(x)
+    ctx = _make_ctx(cfg, positions, _cond(params, cfg, cond, x),
+                    kernel=kernel, moe_a2a=moe_a2a)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     for gi, (specs, count) in enumerate(cfg.groups):
         def body(x, pp, specs=specs):
-            x, _, a = apply_period(pp, specs, x, ctx, "train", None, None)
+            x, _, a = _period(pp, specs, x, ctx, "train", None, None)
+            if constrain:
+                x = constrain(x)
             return x, a
 
         for pp in _unstack(params["groups"][str(gi)], count):
@@ -478,33 +635,52 @@ def forward_train(params, cfg, tokens, *, cond=None, next_tokens=None,
             if a is not None:
                 aux = aux + a
 
-    h = x
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     extras = {"moe_aux": aux}
-    logits = _logits(params, cfg, x)
+    logits = _head(params, cfg, x)
 
     if cfg.mtp and next_tokens is not None:
         mp = params["mtp"]
-        e = _embed_tokens(params, cfg, next_tokens)
-        hcat = torch.cat([L.rmsnorm(mp["norm_h"], h, cfg.norm_eps),
-                          L.rmsnorm(mp["norm_e"], e, cfg.norm_eps)], dim=-1)
-        h2 = L.dense(mp["proj"], hcat)
+        e = _embed(params, cfg, next_tokens)
         spec = cfg.groups[-1][0][0]
-        h2, _, a2 = apply_layer(mp["layer"], spec, h2, ctx, "train", None,
-                                None)
+
+        def mtp(mp, h, e, ctx):
+            hcat = torch.cat([L.rmsnorm(mp["norm_h"], h, cfg.norm_eps),
+                              L.rmsnorm(mp["norm_e"], e, cfg.norm_eps)],
+                             dim=-1)
+            h2 = L.dense(mp["proj"], hcat)
+            return apply_layer(mp["layer"], spec, h2, ctx, "train", None,
+                               None)
+
+        if SP.is_dtensor(x):
+            # one region: the head's layer on each rank's rows
+            region = SP.Region.of(x)
+            a2a = moe_a2a is not None
+            lmp = region.params(mp, lambda path: a2a and path == (
+                "layer", "mlp") and spec.mlp == "moe")
+            el = region.rows(e)
+            lctx = dict(ctx, spmd=region,
+                        positions=positions[:el.shape[0]])
+            if ctx["cond_x"] is not None:
+                lctx["cond_x"] = region.rows(ctx["cond_x"])
+            h2, _, a2 = mtp(lmp, region.rows(x), el, lctx)
+            h2 = region.wrap(h2)
+        else:
+            h2, _, a2 = mtp(mp, x, e, ctx)
         if a2 is not None:
             extras["moe_aux"] = extras["moe_aux"] + a2
-        h2 = L.rmsnorm(params["final_norm"], h2, cfg.norm_eps)
-        extras["mtp_logits"] = _logits(params, cfg, h2)
+        extras["mtp_logits"] = _head(params, cfg, h2)
     return logits, extras
 
 
 def prefill(params, cfg, tokens, *, cond=None, cache_len=None,
-            window_attn=0, kernel="jnp"):
+            window_attn=0, kernel="jnp", constrain=None, moe_a2a=None):
     """Process a full prompt (B, S), or (B, S, ncb); returns
     (last_token_logits (B, 1, V) or (B, 1, ncb, V), cache). ``cond``: the
     conditioning features (B, Cs, cond_dim) a ``cond_dim`` config needs.
-    ``kernel``: "jnp" (plain attention) or "pallas" (the flash kernel)."""
+    ``kernel``: "jnp" (plain attention) or "pallas" (the flash kernel).
+    ``constrain``/``moe_a2a``: the sharding hooks, as in
+    ``forward_train``; with placed parameters the cache comes back as
+    DTensors split by batch (``pos`` replicated)."""
     _check_cfg(cfg)
     _check_cond(cfg, cond)
     B, Sq = tokens.shape[0], tokens.shape[1]
@@ -512,21 +688,27 @@ def prefill(params, cfg, tokens, *, cond=None, cache_len=None,
         cache_len = Sq
     positions = torch.arange(Sq, dtype=torch.int32,
                              device=tokens.device).expand(B, Sq)
-    x = _embed_tokens(params, cfg, tokens)
-    ctx = _make_ctx(cfg, positions, _cond_x(params, cfg, cond),
+    x = _embed(params, cfg, tokens)
+    if constrain:
+        x = constrain(x)
+    ctx = _make_ctx(cfg, positions, _cond(params, cfg, cond, x),
                     kernel=kernel, window_attn=window_attn,
-                    cache_len=cache_len)
+                    cache_len=cache_len, moe_a2a=moe_a2a)
     caches = {}
     for gi, (specs, count) in enumerate(cfg.groups):
         gp = params["groups"][str(gi)]
         layer_caches = []
         for i in range(count):
-            x, nc, _ = apply_period(_index(gp, i), specs, x, ctx,
-                                    "prefill", None, None)
+            region = SP.Region.of(x) if SP.is_dtensor(x) else None
+            x, nc, _ = _period(_index(gp, i), specs, x, ctx, "prefill",
+                               None, None)
+            if constrain:
+                x = constrain(x)
             layer_caches.append(nc)
         caches[str(gi)] = _stack(layer_caches)
-    x = L.rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
-    return _logits(params, cfg, x), caches
+        if region is not None:
+            caches[str(gi)] = _wrap_cache(region, caches[str(gi)])
+    return _head(params, cfg, x, last=True), caches
 
 
 def decode_step(params, cfg, tokens, cache, t, *, window_attn=0,
@@ -534,21 +716,25 @@ def decode_step(params, cfg, tokens, cache, t, *, window_attn=0,
     """One-token decode. tokens: (B, 1), or (B, 1, ncb); t: the position
     (int or 0-d tensor). Writes the step into ``cache`` in place (the
     cross and cond leaves are read, never written); returns (logits
-    (B, 1, V) or (B, 1, ncb, V), cache). ``moe_pre``: a callable applied to each MoE
-    layer's input before its dispatch (the reference's hook)."""
+    (B, 1, V) or (B, 1, ncb, V), cache). ``moe_pre``: a callable applied to
+    each MoE layer's input before its dispatch (the reference's hook).
+    With placed parameters ``tokens`` and ``cache`` are DTensors
+    (``launch.specs``): each rank decodes its rows, and the cache is
+    written through its local blocks."""
     _check_cfg(cfg)
-    x = _embed_tokens(params, cfg, tokens)
+    x = _embed(params, cfg, tokens)
     t = A.position_tensor(t, x.device)
     ctx = _make_ctx(cfg, None, window_attn=window_attn, moe_pre=moe_pre)
     for gi, (specs, count) in enumerate(cfg.groups):
         gp, gc = params["groups"][str(gi)], cache[str(gi)]
         for i in range(count):
             lc = _index(gc, i)
-            x, nc, _ = apply_period(_index(gp, i), specs, x, ctx, "decode",
-                                    lc, t)
-            _write(lc, nc)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x), cache
+            sharded = SP.is_dtensor(x)
+            x, nc, _ = _period(_index(gp, i), specs, x, ctx, "decode", lc,
+                               t)
+            if not sharded:
+                _write(lc, nc)
+    return _head(params, cfg, x), cache
 
 
 # ----------------------------------------------------------------------

@@ -20,6 +20,15 @@ GB however large the model: an LLM at full width keeps only the new
 parameters and moments beside the old. Adafactor scales each leaf's
 gradient by the clip factor as it reaches it, for the same reason. The
 numbers are the same either way: every element sees the same operations.
+
+Placed trees (DTensors, a sharded step of ``training.trainer``): state
+leaves take their parameter's placement (Adafactor's factored ``vr``/
+``vc`` drop the reduced dim's split, as ``Policy.opt_pspecs`` does).
+The global gradient norm sums each leaf's local squares once per
+distinct block and all-reduces them; AdamW then runs on each rank's
+local blocks (it is elementwise), and Adafactor, whose factored moments
+and update clipping reduce over a leaf, gathers one leaf at a time,
+updates it whole and keeps its own block.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from functools import partial
 
 import torch
 
+from ..distributed import spmd as SP
 from . import tree as T
 
 
@@ -62,9 +72,57 @@ def schedule(cfg: OptConfig, step):
 
 def _global_norm(leaves):
     """sqrt of the sum of squares over every leaf: per-leaf norms in one
-    foreach launch, then the norm of those."""
+    foreach launch, then the norm of those. DTensor leaves: each rank's
+    local sums of squares, weighted by one over the leaf's replication,
+    all-reduced over the mesh (a plain 0-d result, the same everywhere)."""
+    if leaves and SP.is_dtensor(leaves[0]):
+        return _global_norm_placed(leaves)
     return torch.linalg.vector_norm(torch.stack(
         torch._foreach_norm([g.float() for g in leaves])))
+
+
+def _global_norm_placed(leaves):
+    from torch.distributed.tensor import Replicate
+    mesh = leaves[0].device_mesh
+    total = torch.zeros((), dtype=torch.float32,
+                        device=leaves[0].to_local().device)
+    for g in leaves:
+        rep = 1
+        for i, pl in enumerate(g.placements):
+            if isinstance(pl, Replicate):
+                rep *= mesh.size(i)
+        loc = g.to_local().float()
+        total += (loc * loc).sum() / rep
+    if mesh.size() > 1:
+        torch.distributed.all_reduce(total, group=SP.axes_group(
+            mesh, SP.mesh_names(mesh)))
+    return total.sqrt()
+
+
+def _as_placed(tree, like):
+    """Each DTensor leaf of ``tree`` in the placement of the same leaf of
+    ``like`` (AdamW's blocks must line up with the parameter's)."""
+    def one(a, r):
+        if SP.is_dtensor(a) and tuple(a.placements) != tuple(r.placements):
+            return a.redistribute(r.device_mesh, r.placements)
+        return a
+    return T.tree_map(one, tree, like)
+
+
+def _local(tree):
+    """Each leaf's local block (plain leaves as they are)."""
+    return T.tree_map(lambda a: a.to_local() if SP.is_dtensor(a) else a,
+                      tree)
+
+
+def _placed_like(new, ref):
+    """Local blocks ``new`` placed as the DTensors of ``ref``."""
+    from torch.distributed.tensor import DTensor
+    return T.tree_map(
+        lambda n, r: DTensor.from_local(n, r.device_mesh, r.placements,
+                                        shape=r.shape, stride=r.stride(),
+                                        run_check=False)
+        if SP.is_dtensor(r) else n, new, ref)
 
 
 def clip_by_global_norm(grads, max_norm):
@@ -97,15 +155,35 @@ def _init_step():
 
 # ---------------------------------------------------------------- AdamW
 
+def _zeros_like(p):
+    if SP.is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def adamw_init(params):
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    zeros = _zeros_like
     return {"m": T.tree_map(zeros, params), "v": T.tree_map(zeros, params),
             "step": _init_step()}
 
 
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, grads, state, params):
+    if SP.any_dtensor(params):
+        grads = _as_placed(grads, params)
+        state = dict(state, m=_as_placed(state["m"], params),
+                     v=_as_placed(state["v"], params))
+        gn = _global_norm(T.leaves(grads))
+        new_p, new_s, _ = _adamw(cfg, _local(grads), _local(state),
+                                 _local(params), gn)
+        return (_placed_like(new_p, params),
+                {"m": _placed_like(new_s["m"], state["m"]),
+                 "v": _placed_like(new_s["v"], state["v"]),
+                 "step": new_s["step"]}, gn)
+    return _adamw(cfg, grads, state, params, _global_norm(T.leaves(grads)))
+
+
+def _adamw(cfg: OptConfig, grads, state, params, gn):
     step = state["step"] + 1
     lr = float(schedule(cfg, step))
     b1, b2 = cfg.b1, cfg.b2
@@ -113,7 +191,6 @@ def adamw_update(cfg: OptConfig, grads, state, params):
     bc2 = float(1 - _f32(b2) ** _f32(step))
     p = T.leaves(params)
     g_all = T.leaves(grads)
-    gn = _global_norm(g_all)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
     m_all, v_all = T.leaves(state["m"]), T.leaves(state["v"])
     new, m, v = [], [], []
@@ -153,12 +230,37 @@ def _factored(shape):
 
 def adafactor_init(params):
     def init(p):
+        if SP.is_dtensor(p):
+            return _adafactor_init_placed(p)
         z = partial(torch.zeros, dtype=torch.float32, device=p.device)
         if _factored(p.shape):
             return {"vr": z(p.shape[:-1]),
                     "vc": z(p.shape[:-2] + p.shape[-1:])}
         return {"v": z(p.shape)}
     return {"v": T.tree_map(init, params), "step": _init_step()}
+
+
+def _adafactor_init_placed(p):
+    """Zero moments of a placed leaf: ``vr`` drops the last dim's split,
+    ``vc`` the second-to-last's (the last shifts down one)."""
+    from torch.distributed.tensor import Replicate, Shard, zeros
+    nd = p.dim()
+    if not _factored(p.shape):
+        return {"v": torch.zeros_like(p, dtype=torch.float32)}
+
+    def drop(dim):
+        out = []
+        for pl in p.placements:
+            if isinstance(pl, Shard) and pl.dim == dim:
+                out.append(Replicate())
+            elif isinstance(pl, Shard) and pl.dim > dim:
+                out.append(Shard(pl.dim - 1))
+            else:
+                out.append(pl)
+        return out
+    z = partial(zeros, dtype=torch.float32, device_mesh=p.device_mesh)
+    return {"vr": z(p.shape[:-1], placements=drop(nd - 1)),
+            "vc": z(p.shape[:-2] + p.shape[-1:], placements=drop(nd - 2))}
 
 
 @torch.no_grad()
@@ -197,9 +299,20 @@ def adafactor_update(cfg: OptConfig, grads, state, params):
         u.mul_(lr)
         return torch.sub(p.float(), u).to(p.dtype), nv
 
+    def upd_placed(p, g, v):
+        # the leaf gathered whole, updated, and each block kept
+        whole = lambda a: a.full_tensor() if SP.is_dtensor(a) else a
+        new, nv = upd(whole(p), whole(g), {k: whole(a) for k, a in v.items()})
+        return (SP.reshard_like(new, p),
+                {k: SP.reshard_like(a, v[k]) for k, a in nv.items()})
+
+    if SP.any_dtensor(params):
+        upd_leaf = upd_placed
+    else:
+        upd_leaf = upd
     # a leaf's state is a dict, so walk the params' paths, not the state's
     vs = {path: v for path, v in _state_at(params, state["v"])}
-    outs = [upd(p, g, vs[path]) for (path, p), g
+    outs = [upd_leaf(p, g, vs[path]) for (path, p), g
             in zip(T.paths(params), T.leaves(grads))]
     new_params = T.unflatten(params, [o[0] for o in outs])
     new_v = T.unflatten(params, [o[1] for o in outs])

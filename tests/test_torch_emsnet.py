@@ -186,6 +186,45 @@ def test_port_flash_text_equals_einsum_on_padded_batch():
     np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL)
 
 
+@pytest.mark.parametrize("text_encoder", ["microbert", "tinybert"])
+def test_flash_kv_lengths_text_with_interior_pads_matches_einsum(
+        text_encoder):
+    """The synthetic NEMSIS text drops words anywhere in a row (interior
+    PADs): the port's ``kv_lengths`` flash path reorders each row's valid
+    tokens first and agrees with the reference's einsum path at the
+    flash-vs-einsum tolerance, one flash call a block."""
+    from repro_torch.data import synthetic_nemsis as SN
+    from repro_torch.kernels import flash_attention as FA
+    jcfg = jax_tiny(text_encoder=text_encoder, use_flash_text=False)
+    cfg = tiny(text_encoder=text_encoder, use_flash_text=True)
+    jp, tp = _params(jcfg)
+    toks = SN.generate(cfg, 32, seed=3).text
+    valid = toks > 0
+    assert (~valid[:, :-1] & valid[:, 1:]).any(1).sum() >= 16
+    want = JE.text_encoder(jp["text"], jcfg, jnp.asarray(toks))
+    calls = FA.flash_attention.calls
+    got = E.text_encoder(tp["text"], cfg, torch.from_numpy(toks))
+    assert FA.flash_attention.calls - calls == len(tp["text"]["blocks"])
+    _close(got, want)
+
+
+def test_flash_kv_lengths_suffix_rows_unchanged_by_the_reordering():
+    """Rows whose PADs are a suffix keep their order: the features are
+    bit for bit those of the path without the reordering (the blocks run
+    on the embedded rows as they are, keys masked by ``kv_lengths``)."""
+    cfg = tiny(text_encoder="tinybert", use_flash_text=True)
+    _, tp = _params(jax_tiny(text_encoder="tinybert", use_flash_text=True))
+    toks = torch.from_numpy(_tokens(cfg))
+    p = tp["text"]
+    mask = toks > 0
+    x = L.embed(p["tok"], toks) + p["pos"]["emb"][None, :toks.shape[1]]
+    lengths = mask.sum(-1).to(torch.int32)
+    for blk in p["blocks"]:
+        x = E._bert_block(blk, x, mask, cfg.text_dims[2], kv_lengths=lengths)
+    want = E._pool(L.layernorm(p["ln"], x), mask)
+    assert torch.equal(E.text_encoder(p, cfg, toks), want)
+
+
 @pytest.mark.parametrize("kind", ["rnn", "gru", "lstm"])
 @pytest.mark.parametrize("bucketed", [False, True])
 def test_vitals_encoder_matches_reference(kind, bucketed):

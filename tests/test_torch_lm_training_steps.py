@@ -120,11 +120,35 @@ def test_pallas_kernel_raises_under_a_train_step():
 
 
 def test_sharding_hooks_name_item_12():
+    """The sharding hooks are ported: on plain (unplaced) tensors the
+    policy's ``constrain`` passes every activation through unchanged, and
+    ``constrain_grads`` sees the accumulated float32 gradients once a
+    step, before the optimizer, so the step's numbers are bit for bit
+    the step without hooks. (Placed steps: ``tests/test_torch_dist_*``.)"""
+    from repro_torch.distributed.sharding import Policy, abstract_mesh
     _, cfg = cfgs("olmoe-1b-7b")
-    for kw in ({"constrain": lambda a: a}, {"moe_a2a": {}},
-               {"constrain_grads": lambda g: g}):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            TR.make_train_step(cfg, **kw)
+    pol = Policy(cfg, abstract_mesh((1, 1), ("data", "model")),
+                 tuned=True, strategy="fsdp")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    seen = []
+
+    def constrain_grads(grads):
+        seen.append(TT.leaves(grads))
+        return grads
+
+    plain, opt_init = TR.make_train_step(cfg)
+    hooked, _ = TR.make_train_step(cfg, constrain=pol.constrain,
+                                   constrain_grads=constrain_grads)
+    b = as_torch(batch(cfg))
+    want = plain(params, opt_init(params), b)
+    got = hooked(params, opt_init(params), b)
+    assert len(seen) == 1
+    assert all(g.dtype == torch.float32 for g in seen[0])
+    assert len(seen[0]) == len(TT.leaves(params))
+    assert torch.equal(got[2]["loss"], want[2]["loss"])
+    for a, w in zip(TT.leaves(got[0]), TT.leaves(want[0])):
+        assert torch.equal(a, w)
 
 
 # --------------------------------------- tests/test_archs_smoke.py's cases

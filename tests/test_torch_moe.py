@@ -231,6 +231,18 @@ def test_moe_tree_converts_leaf_for_leaf(cfg):
 
 
 def test_expert_parallel_path_names_roadmap_item(cfg):
+    """The expert-parallel path is ported (its runs on one, two and four
+    ranks are ``tests/test_torch_dist_*.py``); like the reference's it
+    needs ``expert_axes`` to be a suffix of ``token_axes``, and refuses
+    anything else before it touches the mesh or a process group."""
+    from repro_torch.distributed.sharding import abstract_mesh
     p = _init(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        M.moe_forward_a2a(p, _x(9, (1, 4, cfg.d_model)), cfg)
+    mesh = abstract_mesh((1, 1), ("data", "model"))
+    for token_axes, expert_axes in ((("data", "model"), ("data",)),
+                                    (("data",), ("model",)),
+                                    (("model",), ("data", "model")),
+                                    (("data", "model"), ())):
+        with pytest.raises(ValueError, match="suffix"):
+            M.moe_forward_a2a(p, _x(9, (1, 4, cfg.d_model)), cfg, mesh=mesh,
+                              token_axes=token_axes,
+                              expert_axes=expert_axes)

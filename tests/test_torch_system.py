@@ -5,9 +5,10 @@ data (``training.emsnet_trainer``, the reference's step counts), split
 by EMSServe, and a Table-6 episode is streamed through the per-event
 engine (tasks 1-5, caching, offloading).
 
-The reference file's ``test_lowering_on_host_mesh`` and
-``test_dryrun_artifacts_complete`` lower XLA programs and read the
-dry-run sweep; their counterparts belong to ROADMAP item 12.
+The reference file's ``test_lowering_on_host_mesh`` is mirrored in
+``tests/test_torch_dist_host.py``; ``test_dryrun_artifacts_complete``
+reads the dry-run sweep, whose counterpart is ROADMAP item 12's second
+half.
 """
 import pytest
 import torch
