@@ -250,6 +250,16 @@ Phases, each printing one JSON line:
           launches == layers x 8 == the CPU run's calls. The group is
           destroyed at the end; a failed group, mesh or check fails the
           script (nothing falls back to the CPU or to the unplaced path).
+  dryrun  python -m repro_torch.launch.dryrun --arch olmoe-1b-7b --shape
+          decode_32k --mesh single (its record under chiprun_out/dryrun)
+          in a child process: a fake group of 256 ranks on this machine's
+          torch, the placed decode step traced on meta DTensors; the
+          record ok at 256 chips with FLOPs, collectives and the roofline,
+          printed. Then, for each arch the llm phase serves, the one-card
+          roofline of its decode step at that phase's width, depth cut and
+          1024-slot cache (analysis.roofline.analyze at chips=1 over the
+          step's meta trace on the CPU), beside the decode step the llm
+          phase measured (p50) and their ratio. No card is used.
   llm     the prefix-cached LLMServer. (i) Every ported arch reduced to 2
           float32 layers on examples/llm_generate.py's mix, card vs CPU:
           the same tokens and stats, logits of every call within 1e-4, a
@@ -4970,6 +4980,85 @@ def dist_rows():
     return rows
 
 
+# ---------------------------------------------------------------- dryrun
+
+DRYRUN_ARGS = ("--arch", "olmoe-1b-7b", "--shape", "decode_32k", "--mesh",
+               "single")
+DRYRUN_TIMEOUT = 300     # seconds for the dry run's child process
+LLM_CACHE_LEN = 1024     # the llm phase's servers' cache_len
+LLM_DECODE_T = 520       # a position inside that phase's decode steps
+
+
+def one_card_roofline(cfg):
+    """The roofline of one decode step of ``cfg`` unplaced on one card
+    (B=1, LLM_CACHE_LEN slots): its aten ops traced on meta tensors on
+    the CPU, ``analyze`` at chips=1."""
+    from repro_torch.analysis import roofline as RL
+    from repro_torch.analysis.hlo_analyzer import analyze_step
+    from repro_torch.configs import InputShape
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import transformer as T
+    params = SH.abstract_params(cfg, T.init_params)
+    cache = T.init_cache(cfg, 1, LLM_CACHE_LEN, device="meta")
+    tokens = torch.empty((1, 1) if cfg.n_codebooks == 1
+                         else (1, 1, cfg.n_codebooks),
+                         dtype=torch.int32, device="meta")
+    totals = analyze_step(lambda p, c, x: T.decode_step(
+        p, cfg, x, c, LLM_DECODE_T), params, cache, tokens)
+    shape = InputShape("llm_decode", LLM_CACHE_LEN, 1, "decode")
+    return RL.analyze(totals, cfg, shape, 1).as_dict()
+
+
+def phase_dryrun(llm_rows=None):
+    """The dry run's entry point in a child process (its record printed),
+    then the one-card roofline of every llm-phase arch's decode step,
+    beside that phase's measured p50 where ``llm_rows`` has it."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    out = os.path.join(OUT_DIR, "dryrun")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS,
+         "--out", out], capture_output=True, text=True,
+        timeout=DRYRUN_TIMEOUT, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    sys.stderr.write(proc.stderr[-5000:])
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines
+          and lines[-1] == "dry-run complete: 1 ok, 0 failed",
+          f"the dry run exited {proc.returncode}: {lines[-2:]}")
+    with open(os.path.join(out, "olmoe-1b-7b_decode_32k_single.json")) as f:
+        rec = json.load(f)
+    roof = rec["roofline"]
+    check(rec["ok"] and rec["chips"] == 256 and roof["flops_per_device"] > 0
+          and rec["collectives_count"]["all-gather"] > 0,
+          f"dry-run record {rec}")
+    child_s = time.perf_counter() - t0
+    emit("dryrun", arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"],
+         chips=rec["chips"], roofline=roof,
+         collectives_bytes=rec["collectives_bytes"],
+         collectives_count=rec["collectives_count"],
+         argument_local_bytes=rec["argument_local_bytes"],
+         cache_local_bytes=rec["cache_local_bytes"],
+         t_trace_s=rec["t_trace_s"], torch=torch.__version__,
+         child_s=child_s)
+    rows = {}
+    for arch in LLM_ARCHS:
+        r = one_card_roofline(depth_cut(get_config(arch)))
+        row = {k: r[k] for k in ("bottleneck", "t_compute_s", "t_memory_s",
+                                 "t_collective_s", "flops_per_device",
+                                 "hbm_bytes_per_device")}
+        measured = (llm_rows or {}).get(arch, {}).get("decode_ms_p50")
+        if measured is not None:
+            bound_ms = 1e3 * max(r["t_compute_s"], r["t_memory_s"])
+            row.update(decode_ms_p50=measured, roofline_ms=bound_ms,
+                       x_roofline=measured / bound_ms,
+                       nvidia_smi=CARD.get("nvidia_smi"))
+        rows[arch] = row
+    emit("dryrun_one_card", cache_len=LLM_CACHE_LEN, batch=1, rows=rows,
+         seconds=time.perf_counter() - t0)
+    return {"record": rec, "one_card": rows}
+
+
 # ----------------------------------------------------------------- fleet
 #
 # The region simulator (repro_torch.fleet) over engine replicas on the
@@ -5554,7 +5643,7 @@ PHASES = {"kernel": phase_kernel, "int8": phase_int8,
           "robust": phase_robust, "batch": phase_batch,
           "fleet": phase_fleet, "train": phase_train,
           "llm": phase_llm, "lm_train": phase_lm_train,
-          "dist": phase_dist, "cli": phase_cli}
+          "dist": phase_dist, "dryrun": phase_dryrun, "cli": phase_cli}
 
 
 def main():
@@ -5599,6 +5688,7 @@ def main():
     llm_rows = timed("llm", phase_llm)
     lm_rows = timed("lm_train", phase_lm_train)
     dist_out = timed("dist", phase_dist)
+    timed("dryrun", lambda: phase_dryrun(llm_rows))
     timed("cli", phase_cli)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds)
     print(smi)

@@ -102,6 +102,13 @@ def axes_group(mesh, axes):
     return _GROUPS[key]
 
 
+def forget_groups():
+    """Drop the groups ``axes_group`` built: they die with the process
+    group they were made in, and a later mesh may reuse a dead mesh's
+    ``id``."""
+    _GROUPS.clear()
+
+
 def mean_over(x, mesh, axes):
     """The mean of ``x`` over the ranks along ``axes``, on every rank.
     Backward: each rank's local ``x`` gets ``1/n`` of the (replicated)

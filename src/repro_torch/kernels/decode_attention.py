@@ -16,10 +16,11 @@ On a CUDA tensor it launches ``csrc/decode_attention.cu`` (float32 or
 bfloat16; built with ``nvcc`` for ``sm_90a`` at first use), which cuts
 the W slots into ``plan_splits`` chunks, one block each, merged inside a
 thread-block cluster; or it raises. On
-a CPU tensor it computes ``decode_attention_plain``. Nothing falls back
-from one to the other. ``t`` may be a Python int or a 0-d integer
-tensor; on the card it is read from device memory, so a decode step
-never waits for the host.
+a CPU tensor it computes ``decode_attention_plain``, and on a ``meta``
+tensor (the dry run's shapes, ``launch/dryrun.py``) the same, which
+computes nothing there. Nothing falls back from one to the other. ``t``
+may be a Python int or a 0-d integer tensor; on the card it is read from
+device memory, so a decode step never waits for the host.
 
 ``decode_attention.launches`` counts kernel launches, so a run can show
 that its decode went through the kernel; ``decode_attention.calls``
@@ -134,7 +135,7 @@ def _launch(q, kbuf, vbuf, slot_pos, t, *, window, scale):
 def decode_attention(q, kbuf, vbuf, slot_pos, t, *, window=0, scale=None):
     """q: (B, 1, H, D); kbuf/vbuf: (B, W, KV, D/Dv); slot_pos: (W,) int32;
     t: the current position (int or 0-d tensor). Returns (B, 1, H, Dv) in
-    q's dtype. CUDA tensors launch the kernel; CPU tensors take
+    q's dtype. CUDA tensors launch the kernel; CPU and meta tensors take
     ``decode_attention_plain``."""
     refuse_dtensor("decode_attention", q, kbuf, vbuf, slot_pos, t)
     B, one, H, D = q.shape
@@ -149,7 +150,7 @@ def decode_attention(q, kbuf, vbuf, slot_pos, t, *, window=0, scale=None):
                          f"{tuple(vbuf.shape)} disagree")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return decode_attention_plain(q, kbuf, vbuf, slot_pos, t,
                                       window=window, scale=scale)
     if q.device.type == "cuda":

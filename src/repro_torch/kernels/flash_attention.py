@@ -10,8 +10,9 @@ sums in float32 and returns q's dtype. On a CUDA tensor it launches
 ``csrc/flash_attention.cu`` (built with ``nvcc`` for ``sm_90a`` at first
 use) or raises: float32 on the FMA units, bf16 and fp16 on the tensor
 cores with float32 accumulators. On a CPU tensor it computes the same
-function with ``flash_attention_plain``. Nothing falls back from one to
-the other.
+function with ``flash_attention_plain``, as it does on a ``meta`` tensor
+(the dry run's shapes, where nothing is computed). Nothing falls back
+from one to the other.
 
 ``flash_attention.launches`` counts kernel launches, so a run can show
 that its attention went through the kernel; ``flash_attention.calls``
@@ -194,9 +195,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     The padding never changes the result.
 
     CUDA tensors launch the kernel (float32, bfloat16 or float16, the
-    three alike; head dims up to 128); CPU tensors take
-    ``flash_attention_plain``. Either way the softmax and the sums are
-    float32 and the output has q's dtype.
+    three alike; head dims up to 128); CPU and meta tensors (the dry
+    run's shapes) take ``flash_attention_plain``. Either way the softmax
+    and the sums are float32 and the output has q's dtype.
 
     The kernel has no backward (nor has the Pallas kernel it ports), so a
     call under grad mode with any of q, k, v requiring grad raises, on
@@ -237,7 +238,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
                                                   value=-1)
     kw = dict(causal=causal, window=window, scale=scale,
               kv_lengths=kv_lengths, segment_ids=segment_ids)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         out = flash_attention_plain(q, k, v, **kw)
     elif q.device.type == "cuda":
         out = _launch(q, k, v, **kw)

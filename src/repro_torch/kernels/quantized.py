@@ -17,7 +17,8 @@ Ports of the Pallas TPU kernels of ``repro/kernels/quantized.py``:
 On a CUDA tensor each wrapper launches its kernel from
 ``csrc/quantized.cu`` (built with ``nvcc`` for ``sm_90a`` at first use)
 as its plan says, or raises; on a CPU tensor it computes the same
-function with the plain version.
+function with the plain version, as it does on a ``meta`` tensor (the
+dry run's shapes).
 
   * ``plan_quantize`` picks the quantize kernel's form from the view's
     strides: ``rows`` (1-8 warps a row, every load of the row in flight
@@ -205,7 +206,7 @@ def _device_of(*ts):
     dev = ts[0].device
     if any(t.device != dev for t in ts):
         raise ValueError("all operands must be on one device")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no int8 kernels for device {dev}")
     return dev
 
@@ -228,7 +229,7 @@ def quantize_rowwise(x):
         raise ValueError(f"quantize_rowwise takes (M, K), got {tuple(x.shape)}")
     refuse_dtensor("quantize_rowwise", x)
     quantize_rowwise.calls += 1
-    if _device_of(x).type == "cpu":
+    if _device_of(x).type in ("cpu", "meta"):
         return quantize_rowwise_plain(x)
     if x.dtype not in QUANTIZE_DTYPES:
         raise TypeError(f"the CUDA quantize kernel takes float32, bfloat16 "
@@ -257,7 +258,7 @@ def dequantize_rowwise(q, scale):
                          f"{tuple(q.shape)} and {tuple(scale.shape)}")
     refuse_dtensor("dequantize_rowwise", q, scale)
     dequantize_rowwise.calls += 1
-    if _device_of(q, scale).type == "cpu":
+    if _device_of(q, scale).type in ("cpu", "meta"):
         return dequantize_rowwise_plain(q, scale)
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError(f"the CUDA dequantize kernel takes int8 and float32, "
@@ -292,7 +293,7 @@ def int8_matmul(xq, sx, wq, sw):
                          f"{tuple(sx.shape)} and {tuple(sw.shape)}")
     refuse_dtensor("int8_matmul", xq, sx, wq, sw)
     int8_matmul.calls += 1
-    if _device_of(xq, sx, wq, sw).type == "cpu":
+    if _device_of(xq, sx, wq, sw).type in ("cpu", "meta"):
         return int8_matmul_plain(xq, sx, wq, sw)
     if xq.dtype != torch.int8 or wq.dtype != torch.int8 or \
             sx.dtype != torch.float32 or sw.dtype != torch.float32:

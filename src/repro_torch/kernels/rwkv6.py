@@ -21,9 +21,11 @@ up-cast inputs bit for bit.
 On a CUDA tensor it launches ``csrc/rwkv6.cu`` (head dim n <= 64; built
 with ``nvcc`` for ``sm_90a`` at first use) once per call, split over the
 state's value columns and chunked over time as ``plan_chunks`` says, or
-raises; on a CPU tensor it computes ``rwkv6_scan_plain``. Nothing falls
-back from one to the other. ``rwkv6_scan.launches`` counts kernel
-launches, ``rwkv6_scan.calls`` every call on any device.
+raises; on a CPU tensor it computes ``rwkv6_scan_plain``, and on a
+``meta`` tensor (the dry run's shapes) the same, one step counted S times
+(``analysis.hlo_analyzer.trips``). Nothing falls back from one to the
+other. ``rwkv6_scan.launches`` counts kernel launches,
+``rwkv6_scan.calls`` every call on any device.
 
 Gradients. Under grad mode, when any input requires grad, the scan runs
 through ``RWKV6Scan`` (a ``torch.autograd.Function``): the forward as
@@ -48,6 +50,7 @@ import ctypes
 
 import torch
 
+from ..analysis.hlo_analyzer import scan_steps, stack_steps
 from ..distributed.spmd import refuse_dtensor
 
 MAX_HEAD_DIM = 64
@@ -83,11 +86,11 @@ def rwkv6_scan_plain(r, k, v, w, u, s0=None):
     s = (torch.zeros((B, H, n, n), dtype=torch.float32, device=r.device)
          if s0 is None else s0.float())
     ys = []
-    for t in range(S):
+    for t in scan_steps(S, r):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]           # (B,H,n,n)
         ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], s + u[..., None] * kv))
         s = w[:, t, :, :, None] * s + kv
-    return torch.stack(ys, dim=1), s
+    return stack_steps(ys, S), s
 
 
 def rwkv6_scan_backward_plain(r, k, v, w, u, s0, dy, dsf):
@@ -100,14 +103,14 @@ def rwkv6_scan_backward_plain(r, k, v, w, u, s0, dy, dsf):
     r, k, v, w, u, dy = (a.float() for a in (r, k, v, w, u, dy))
     s = (torch.zeros((B, H, n, n), dtype=torch.float32, device=r.device)
          if s0 is None else s0.float())
-    prev = []                                   # S_{t-1} of every step t
-    for t in range(S):
-        prev.append(s)
+    prev = [s] * S                              # S_{t-1} of every step t
+    for t in scan_steps(S, r):
+        prev[t] = s
         s = w[:, t, :, :, None] * s + k[:, t, :, :, None] * v[:, t, :, None, :]
     g = (torch.zeros_like(s) if dsf is None else dsf.float())
     dr, dk, dv, dw = ([None] * S for _ in range(4))
     du = torch.zeros_like(u)
-    for t in range(S - 1, -1, -1):
+    for t in (S - 1 - i for i in scan_steps(S, r)):
         rt, kt, vt, wt, dyt = (a[:, t] for a in (r, k, v, w, dy))  # (B,H,n)
         vdy = (vt * dyt).sum(-1, keepdim=True)                     # (B,H,1)
         dr[t] = torch.einsum("bhij,bhj->bhi", prev[t], dyt) + u * kt * vdy
@@ -117,8 +120,9 @@ def rwkv6_scan_backward_plain(r, k, v, w, u, s0, dy, dsf):
         dw[t] = (g * prev[t]).sum(-1)
         du = du + (rt * kt * vdy).sum(0)
         g = wt[..., None] * g + rt[..., None] * dyt[..., None, :]
-    stack = lambda xs: torch.stack(xs, dim=1)                      # noqa: E731
-    return stack(dr), stack(dk), stack(dv), stack(dw), du, g
+    if r.device.type == "meta":                 # one step stood for all
+        dr, dk, dv, dw = ([x[-1]] for x in (dr, dk, dv, dw))
+    return (*(stack_steps(x, S) for x in (dr, dk, dv, dw)), du, g)
 
 
 def _kernel_fn():
@@ -230,11 +234,11 @@ def rwkv6_scan_backward(r, k, v, w, u, s0, dy, dsf):
     """The scan's backward: (dr, dk, dv in r's dtype, dw (B, S, H, n),
     du (H, n), ds0 (B, H, n, n) float32) from the forward's inputs, dy
     (B, S, H, n) float32 and dsf (B, H, n, n) float32 or None (zeros).
-    CUDA tensors launch the kernel; CPU tensors take
+    CUDA tensors launch the kernel; CPU and meta tensors take
     ``rwkv6_scan_backward_plain``."""
     refuse_dtensor("rwkv6_scan_backward", r, k, v, w, u, s0, dy, dsf)
     rwkv6_scan_backward.calls += 1
-    if r.device.type == "cpu":
+    if r.device.type in ("cpu", "meta"):
         out = rwkv6_scan_backward_plain(r, k, v, w, u, s0, dy, dsf)
         return tuple(g.to(r.dtype) for g in out[:3]) + out[3:]
     if r.device.type == "cuda":
@@ -268,7 +272,7 @@ class RWKV6Scan(torch.autograd.Function):
 
 
 def _scan(r, k, v, w, u, s0):
-    if r.device.type == "cpu":
+    if r.device.type in ("cpu", "meta"):
         return rwkv6_scan_plain(r, k, v, w, u, s0)
     if r.device.type == "cuda":
         return _launch(r, k, v, w, u, s0)
@@ -279,7 +283,8 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
     """r/k/v/w: (B, S, H, n); u: (H, n); s0: (B, H, n, n) or None; r, k
     and v float32, bfloat16 or float16, w, u and s0 float32.
     Returns (y (B, S, H, n) float32, final_state (B, H, n, n) float32).
-    CUDA tensors launch the kernel; CPU tensors take ``rwkv6_scan_plain``.
+    CUDA tensors launch the kernel; CPU and meta tensors take
+    ``rwkv6_scan_plain``.
     Under grad mode with an input that requires grad, through
     ``RWKV6Scan``, whose backward is ``rwkv6_scan_backward``."""
     refuse_dtensor("rwkv6_scan", r, k, v, w, u, s0)

@@ -87,9 +87,12 @@ def close_mesh():
     """Destroy the process group ``make_host_mesh`` started (if it did)
     and remove its store file."""
     import torch.distributed as dist
+
+    from ..distributed.spmd import forget_groups
     path = _STORE.pop("path", None)
     if path is None:
         return
     if dist.is_initialized():
+        forget_groups()
         dist.destroy_process_group()
     path.unlink(missing_ok=True)

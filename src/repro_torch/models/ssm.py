@@ -27,6 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..analysis.hlo_analyzer import scan_steps, stack_steps
 from . import layers as L
 
 
@@ -90,11 +91,12 @@ def _ssm_scan(p, xr, dt_, B_, C_, h0):
     (B, S, st); h0: (B, di, st). Returns (h, ys (B, S, di))."""
     A = -torch.exp(p["A_log"])                                # (di, st)
     xr = xr.float()
+    S = xr.shape[1]
     h, ys = h0, []
-    for t in range(xr.shape[1]):
+    for t in scan_steps(S, xr):
         h, y = _ssm_step(A, h, xr[:, t], dt_[:, t], B_[:, t], C_[:, t])
         ys.append(y)
-    return h, torch.stack(ys, dim=1)
+    return h, stack_steps(ys, S)
 
 
 def _projections(p, xc, cfg):

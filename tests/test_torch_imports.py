@@ -52,6 +52,7 @@ def test_package_imports_with_jax_unavailable():
         "import repro_torch.training.checkpoint\n"
         "import repro_torch.fleet, repro_torch.distributed.sharding\n"
         "import repro_torch.models.ssm, repro_torch.serving.kv_cache\n"
+        "import repro_torch.analysis.roofline, repro_torch.launch.dryrun\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
     )
