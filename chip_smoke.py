@@ -192,13 +192,17 @@ Phases, each printing one JSON line:
           S=520 and S=1 of that width, and in fp16 with rows off 16 bytes:
           bit for bit the float32 launch on the up-cast inputs under each
           chunk length, timed beside it and beside three casts to float32
-          followed by the float32 launch. The backward kernel against the
-          plain backward: RWKV6-1.6B's training microbatch (B=16 S=64,
-          no s0) and a 520-token scan with s0 and a final-state gradient,
-          r/k/v in float32 and bf16, and fp16 at n=20: each output
-          within 1e-4 of its scale (bf16/fp16 dr, dk, dv: one step of the
-          type at their scale), timed (L2 flushed, and warm) beside the
-          plain backward and the bound.
+          followed by the float32 launch. The backward kernel (a
+          thread-block cluster per (batch, head), plan_backward's plan
+          printed) against the plain backward: RWKV6-1.6B's training
+          microbatch (B=16 S=64, no s0) and a 520-token scan with s0 and
+          a final-state gradient, r/k/v in float32 and bf16; fp16 at n=20;
+          exact 0 and 1 decays at n=64; n=48 (a 3-CTA cluster), n=8 (one
+          CTA); S=213 at H=2, 14 chunks; S=9, one chunk: each output within
+          1e-4 of its scale (bf16/fp16 dr, dk, dv: one step of the type
+          at their scale), a second launch bit-equal to the first, timed
+          (L2 flushed, and warm) beside the plain backward, the bound and
+          previous kernel's time (quoted from PERF.md).
   lm_train  LM training of the LLM zoo (repro_torch.training.trainer).
           (i) Every arch reduced in float32 (Llama-Vision's gates 0.5, a
           seeded cond for the conditioned two), 3 make_train_step steps
@@ -2840,18 +2844,29 @@ def rwkv_bwd_bound(B, S, H, n, *, s0, dsf, rkv_bytes=4):
 
 
 RWKV_BWD_NAMES = ("dr", "dk", "dv", "dw", "du", "ds0")
+# The previous backward (a block per (batch, head), checkpoints every 8
+# steps) on the same card type, cold, ms: quoted from PERF.md section 6,
+# not measured here, and printed beside the rows as parent_ms_quoted
+PARENT_BWD_MS = {"rwkv_backward_16x64x32x64_bf16": 0.42352,
+                 "rwkv_backward_16x64x32x64": 0.43162,
+                 "rwkv_backward_1x520x32x64_bf16": 0.75661}
 
 
-def rwkv_bwd_case(name, *, B, S, H, n, s0, dsf, seed, dtype=torch.float32):
+def rwkv_bwd_case(name, *, B, S, H, n, s0, dsf, seed, dtype=torch.float32,
+                  decay="model"):
     """The CUDA backward against ``rwkv6_scan_backward_plain`` on the card,
-    decays as the model draws them, dy and dsf ~ N(0, 1): every output
-    within RWKV_TOL of its scale (max |plain|, at least 1), except dr, dk
-    and dv of bf16 r/k/v, which the kernel rounds to bf16: within one
-    bf16 step of their scale. One launch counted per call; timed (L2
-    flushed, and warm) beside the plain backward and the bound."""
+    decays as the model draws them unless ``decay`` says otherwise
+    (``rwkv_inputs``), dy and dsf ~ N(0, 1): every output within RWKV_TOL
+    of its scale (max |plain|, at least 1), except dr, dk and dv of
+    bf16/fp16 r/k/v, which the kernel rounds to their type: within one
+    step of it at their scale. One launch counted per call; a second
+    launch on the same inputs bit-equal to the first (every sum in a fixed
+    order); timed (L2 flushed, and warm) beside the plain backward, the
+    bound and the previous kernel's time where PERF.md has one (quoted,
+    not measured here), with the plan it took."""
     from repro_torch.kernels import rwkv6 as RW
     r, k, v, w, u, s = rwkv_inputs(B, S, H, n, s0=s0, seed=seed,
-                                   decay="model")
+                                   decay=decay)
     r, k, v = (x.to(dtype) for x in (r, k, v))
     g = torch.Generator().manual_seed(seed + 1000)
     dy = torch.randn((B, S, H, n), generator=g).cuda()
@@ -2863,6 +2878,10 @@ def rwkv_bwd_case(name, *, B, S, H, n, s0, dsf, seed, dtype=torch.float32):
     check(RW.rwkv6_scan_backward.launches == before + 1,
           f"{name}: backward launches {RW.rwkv6_scan_backward.launches} "
           f"!= {before + 1}")
+    again = RW.rwkv6_scan_backward(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{name}: two launches on the same inputs differ")
     want = RW.rwkv6_scan_backward_plain(*args)
     errs, tols = {}, {}
     for i, (gname, a, b) in enumerate(zip(RWKV_BWD_NAMES, got, want)):
@@ -2881,15 +2900,55 @@ def rwkv_bwd_case(name, *, B, S, H, n, s0, dsf, seed, dtype=torch.float32):
     kfn = lambda: RW.rwkv6_scan_backward(*args)  # noqa: E731
     pfn = lambda: RW.rwkv6_scan_backward_plain(*args)  # noqa: E731
     row = dict(name=name, shape=dict(B=B, S=S, H=H, n=n, s0=s0, dsf=dsf),
-               dtype=str(dtype).split(".")[-1], max_abs_err=max(errs.values()),
+               dtype=str(dtype).split(".")[-1], decay=decay,
+               plan=RW.plan_backward(B, S, H, n)._asdict(),
+               max_abs_err=max(errs.values()),
                max_abs_err_by_output=errs, tol_by_output=tols,
-               ms=device_ms_cold(kfn),
+               relaunch_bit_equal=True, ms=device_ms_cold(kfn),
+               parent_ms_quoted=PARENT_BWD_MS.get(name),
                plain_ms=device_ms_cold(pfn, reps=3 if S > 100 else 5),
                library_ms=None, ms_l2_warm=device_ms(kfn),
                bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
-               scratch_bytes=RW.backward_scratch_bytes(B, S, H))
+               scratch_bytes=RW.backward_scratch_bytes(B, S, H, n))
     emit("rwkv_kernel", **row)
     return row
+
+
+def rwkv_bwd_rows():
+    """The backward's rows: RWKV6-1.6B's training microbatch (B=16, S=64,
+    no s0, the final state unused) and a 520-token scan from a nonzero
+    state with a gradient on the final state, r/k/v in float32 and bf16;
+    a small odd shape (n=20, a 2-CTA cluster with 4 columns in the second
+    CTA, S not a multiple of the chunk) in fp16; decays with exact 0s and
+    1s; n=48 (a 3-CTA cluster) and n=8 (one CTA); a 14-chunk scan at
+    H=2, S not a multiple of the chunk; and a scan of one chunk."""
+    rows = {}
+    for dt, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        rows[f"backward_train{tag}"] = rwkv_bwd_case(
+            f"rwkv_backward_16x64x32x64{tag}", B=16, S=64, H=32, n=64,
+            s0=False, dsf=False, seed=9, dtype=dt)
+        rows[f"backward_520{tag}"] = rwkv_bwd_case(
+            f"rwkv_backward_1x520x32x64{tag}", B=1, S=520, H=32, n=64,
+            s0=True, dsf=True, seed=10, dtype=dt)
+    rows["backward_odd_fp16"] = rwkv_bwd_case(
+        "rwkv_backward_2x45x3x20_fp16", B=2, S=45, H=3, n=20, s0=True,
+        dsf=True, seed=11, dtype=torch.float16)
+    rows["backward_edges"] = rwkv_bwd_case(
+        "rwkv_backward_2x45x3x64_exact_0_and_1", B=2, S=45, H=3, n=64,
+        s0=True, dsf=True, seed=12, decay="edges")
+    rows["backward_n48"] = rwkv_bwd_case(
+        "rwkv_backward_2x77x3x48_bf16", B=2, S=77, H=3, n=48, s0=True,
+        dsf=True, seed=13, dtype=torch.bfloat16)
+    rows["backward_n8"] = rwkv_bwd_case(
+        "rwkv_backward_3x33x2x8", B=3, S=33, H=2, n=8, s0=True, dsf=True,
+        seed=14)
+    rows["backward_long"] = rwkv_bwd_case(
+        "rwkv_backward_1x213x2x64_bf16", B=1, S=213, H=2, n=64, s0=True,
+        dsf=True, seed=15, dtype=torch.bfloat16)
+    rows["backward_one_chunk"] = rwkv_bwd_case(
+        "rwkv_backward_2x9x3x64", B=2, S=9, H=3, n=64, s0=True, dsf=True,
+        seed=16)
+    return rows
 
 
 def phase_rwkv_kernel():
@@ -2940,20 +2999,7 @@ def phase_rwkv_kernel():
     rows["fp16_odd"] = rwkv_half_case(
         "rwkv_1x45x3x20_fp16", B=1, S=45, H=3, n=20, seed=8,
         dtype=torch.float16)
-    # the backward: RWKV6-1.6B's training microbatch (B=16, S=64, no s0,
-    # the final state unused) and a 520-token scan from a nonzero state
-    # with a gradient on the final state, r/k/v in float32 and bf16; a
-    # small odd shape (n=20, S not a multiple of the 8-step chunk) in fp16
-    for dt, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
-        rows[f"backward_train{tag}"] = rwkv_bwd_case(
-            f"rwkv_backward_16x64x32x64{tag}", B=16, S=64, H=32, n=64,
-            s0=False, dsf=False, seed=9, dtype=dt)
-        rows[f"backward_520{tag}"] = rwkv_bwd_case(
-            f"rwkv_backward_1x520x32x64{tag}", B=1, S=520, H=32, n=64,
-            s0=True, dsf=True, seed=10, dtype=dt)
-    rows["backward_odd_fp16"] = rwkv_bwd_case(
-        "rwkv_backward_2x45x3x20_fp16", B=2, S=45, H=3, n=20, s0=True,
-        dsf=True, seed=11, dtype=torch.float16)
+    rows.update(rwkv_bwd_rows())
     return rows
 
 
@@ -4567,6 +4613,13 @@ def lm_full(arch):
     if peak > LM_PEAK_CAP:
         row["note"] = (f"peak {peak / 1e9:.1f} GB passes {LM_PEAK_CAP / 1e9:.0f}"
                        " GB: cut this model deeper in LM_TRAIN_DEPTH_CUTS")
+    if layers:
+        # the profiled step ran the scan's kernels under these names: a
+        # share of 0 would mean the matcher no longer finds them
+        check(bool(row["scan_forward_share"])
+              and bool(row["scan_backward_share"]),
+              f"{arch}: the scan's kernels not found in the profiled step "
+              f"({row['scan_forward_share']}, {row['scan_backward_share']})")
     emit("lm_train_full", **row)
     if layers:
         state = None
@@ -5819,6 +5872,7 @@ def main():
                              "dist_train": dist_out["rwkv6_train"][
                                  "launches"]["rwkv6_scan_backward"]},
                          entry_point="repro_rwkv6_scan_backward",
+                         plan=bwd_row["plan"],
                          float32=_brief(rwkv_rows["backward_train"]),
                          s520_bf16=_brief(rwkv_rows["backward_520_bf16"])))
     print(json.dumps({"kernels": kernels}))

@@ -52,6 +52,7 @@
 // y are contiguous (B, S, H, n); u is (H, n); s0 (or null) and the final
 // state are contiguous (B, H, n, n). n <= 64.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -140,6 +141,21 @@ __device__ __forceinline__ void stage(TE* dst, int ld, const TE* src,
         dst[t * ld + c] = in ? src[t * ss + c] : TE(0.f);
       }
     }
+  }
+}
+
+// stage's 16-byte path when each of BT lanes copies at most one piece:
+// lane e copies piece e % C of row e / C (C pieces a row), without a loop
+template <int PAD, typename TE>
+__device__ __forceinline__ void stage_one(TE* dst, int ld, const TE* src, long long ss,
+                                       int rows, int nvalid, int width, int lane) {
+  constexpr int W = 16 / sizeof(TE);
+  constexpr int C = PAD / W;
+  if (lane < rows * C) {
+    static_assert(C > 0 && (C & (C - 1)) == 0, "pieces a row: a power of two");
+    const int t = lane / C, c = lane % C;
+    const bool in = t < nvalid && W * c < width;
+    cp_async16(dst + t * ld + W * c, in ? src + t * ss + W * c : src, in);
   }
 }
 
@@ -622,50 +638,83 @@ int run(const void* r, const void* k, const void* v, const void* w,
 }
 
 // ---------------------------------------------------------------------
-// The backward. With dy_t = dL/dy_t, G_t = dL/dS_t (G_S = dL/d final
+// The backward. With dy_t = dL/dy_t, G_t = dL/dS_t (G_{S-1} = dL/d final
 // state, or zeros) and A_t = S_{t-1} + diag(u) k_t^T v_t:
 //     dr_t = A_t dy_t                  du = sum_t r_t * k_t (v_t . dy_t)
 //     M_t  = G_t + diag(u * r_t) 1 dy_t^T
 //     dk_t = M_t v_t                   dv_t = M_t^T k_t
 //     dw_t = rowsum(G_t * S_{t-1})     G_{t-1} = diag(w_t) G_t + r_t^T dy_t
-//     ds0  = G_0
-// What bounds it: the same chain of S dependent steps as the forward,
-// now walked twice (once forward for the states, once backward). At the
-// training microbatch of RWKV6-1.6B (B=16, S=64, H=32, n=64) it reads and
-// writes 59 MB with bf16 r/k/v (84 MB in float32), 18 us of HBM time,
-// and does 16 n^2 float32 operations per (step, head): 2.1 GFLOP, 32 us
-// at 67 TFLOP/s, so the operations bound it.
+//     ds0  = G_{-1}
 //
-// The design (simple first; a later change can chunk it as the forward).
-// - One block per (batch, head), 512 threads. Thread (i, c) owns row i of
-//   the n x n state and of G, columns 8c .. 8c+7, in registers. The state
-//   and G evolve element by element (S_t[i,j] needs w_t[i], k_t[i],
-//   v_t[j]; G_{t-1}[i,j] needs w_t[i], r_t[i], dy_t[j]), so no thread
-//   reads another's state.
-// - dw_t needs S_{t-1} beside G_t, and the state cannot be run backward
-//   (w_t may be 0). So a first walk forward stores each thread's slice of
-//   the state at the start of every chunk of BC = 8 steps into a scratch
-//   buffer in device memory (B * H * ceil(S / 8) * 64 * 64 floats:
-//   67 MB at the training microbatch). The walk backward takes the chunks
-//   last first: it reloads the chunk's checkpoint, recomputes the chunk's
-//   8 states into registers, then walks the chunk's steps backward. Each
-//   thread reads back only what it wrote itself.
-// - A chunk's r, k, w, v and dy rows are staged in shared memory as
-//   float32 (bf16 and fp16 up-cast exactly) by all 512 threads at once.
-// - Sums over a row's columns (dr, dk, dw, v . dy): the 8 threads of a
-//   row are 8 neighbouring lanes of a warp, so 3 xor shuffles each. Sums
-//   over rows (dv): 2 shuffles over the warp's 4 rows, then each warp's
-//   partial column sums of the chunk go to shared memory, and after the
-//   chunk one thread per (step, column) adds the 16 warps' partials in
-//   warp order.
-// - du sums over batch too: each block writes its (B, H) row of partial
-//   sums (over its own steps, in step order) to scratch, and a second
-//   kernel adds them over b in order. Every sum is in a fixed order, so
-//   the backward is deterministic, as the forward is.
-constexpr int BT = 512;                 // threads of a backward block
-constexpr int BC = 8;                   // steps between checkpoints
-constexpr int BCOLS = 8;                // state columns a thread owns
-constexpr int BWARPS = BT / 32;
+// What bounds it on this card. At RWKV6-1.6B's training microbatch (B=16,
+// S=64, H=32, n=64, bf16 r/k/v) it reads r, k, v, w and dy and writes dr,
+// dk, dv, dw, du and ds0 once: 59 MB, 17.5 us of HBM time at 3.35 TB/s.
+// Its float32 operations are 14 n^2 per (step, head): the state S_{t-1}
+// again (3 n^2), S dy, G v, G^T k and rowsum(G * S) (2 n^2 each) and G's
+// update (3 n^2); 1.88 GFLOP, 28.05 us at 67 TFLOP/s, so the operations
+// bound it (chip_smoke.py::rwkv_bwd_bound). A 520-token scan (B=1, H=32,
+// with s0 and a final-state gradient) is bounded at 14.2 us, by the
+// operations too, with only 32 (batch, head) pairs to spread them over.
+//
+// What the design does about that.
+// - Split over value columns, as a cluster. Column j of S and of G depends
+//   only on v[:, j] and dy[:, j], so the grid is B * H * ceil(n / 16)
+//   CTAs of 256 threads (2,048 at the microbatch, 128 at S=520), each
+//   owning a 64 x 16 slice of S and of G, and the ceil(n / 16) CTAs of
+//   one (batch, head) are one thread-block cluster (cudaLaunchKernelEx,
+//   cudaLaunchAttributeClusterDimension). dv sums over rows, inside a
+//   CTA. dr, dk and dw sum over columns: each CTA sends its slice's
+//   partial sums to the CTA that owns the row (ceil(n / ncb) rows each)
+//   by stores into that CTA's shared memory (distributed shared memory,
+//   map_shared_rank), and after the cluster's barrier the owner adds them
+//   in rank order. One barrier a chunk, split: a CTA arrives once its
+//   stores are made, forms dv, then waits; the received sums alternate
+//   between two buffers.
+// - Chunks of L = 16 steps. A first walk keeps only the state at each
+//   chunk's start, by the forward's update without y,
+//   S <- diag(a_L) S + (k * b)^T V, with running products of w (never a
+//   log: w may be exactly 0 or 1); (k * b)^T V does not wait for S, so
+//   three chunks' products go side by side and the chain is one FMA a
+//   chunk. The chunk starts go to device scratch, 4 KB a chunk and CTA,
+//   each written and read back by the thread that owns it (the last one
+//   stays in registers); the second walk loads the next chunk's start a
+//   chunk ahead. Kept in shared memory instead, they measured within 1 %
+//   at the microbatch (ahead in bf16, behind in float32), and at S=520
+//   their 132 KB left one CTA an SM, 27 % slower.
+// - The second walk takes the chunks last first; a chunk's inputs are
+//   copied in (cp.async) while the chunk before it is worked on, and r, k
+//   and v converted to float32 once. Phase 1 forms the forward's
+//   intra-chunk matrix A (u on its diagonal) and k * b; phase 3 dv as
+//   products with no per-step chain: with G_out the gradient after the
+//   chunk and b_t the decay to its end, dV = (K * b) G_out + A^T dY.
+// - dw_t = rowsum(G_t * S_{t-1}) has no division-free low-rank form (w may
+//   be 0), so in phase 2 a thread walks its row's 4 slice columns step by
+//   step: the chunk's states forward from its start (8 held at a time,
+//   the first 8 recomputed once), then G back, summing dw's G * S, dr's
+//   S dy and dk's G v in the thread. The walk holds S_{t-1} and G_t
+//   anyway, so dr and dk cost one FMA an element there and need no
+//   product form. The 4 threads of a row add their partial sums once
+//   every 4 steps by shuffles (a reduce-scatter, 9 a thread), not once a
+//   step; u's terms, which need all of v . dy (sent to every rank before
+//   the walk), join in the owner's sum. Phase 1 runs after the walk, with
+//   no barrier between them, while the walk's last stores land.
+// - du sums over batch too: each CTA writes its rows' share of
+//   r * k (v . dy) to scratch, and a second kernel adds them over batch
+//   and step in order. Every sum is in a fixed order and nothing is
+//   atomic, so the backward is deterministic, as the forward is. Float32
+//   FMA throughout: TF32 products would not keep 1e-4.
+constexpr int BT = 256;                 // threads of a backward CTA
+constexpr int BQ = 4;                   // slice columns a thread walks: row tid / 4,
+                                        //   columns 4 (tid % 4) .. +3
+constexpr int SUB = 8;                  // states a walking thread holds at once
+// a chunk's partial sums a CTA receives, for the <= 16 rows it owns:
+// from each of <= 4 ranks, dr, dk and dw at the chunk's L steps (rows RBS
+// apart), then each rank's v . dy at VDY0
+constexpr int RBS = 16;
+constexpr int VDY0 = 4 * 3 * L * RBS;
+constexpr int RECV = VDY0 + 4 * L;
+static_assert(BT == NMAX * BQ && BT == L * CW && L % SUB == 0 && SUB % BQ == 0 &&
+              L % BQ == 0, "thread plan");
 
 template <typename TI>
 struct BwdParams {
@@ -681,174 +730,566 @@ struct BwdParams {
   TI* dk;
   TI* dv;
   float* dw;
-  float* du_part;                       // (B, H, NMAX) partial sums of du
+  float* du_part;                       // (B, H, ncb, L, RBS) partial sums of du
   float* ds0;
-  float* ckpt;                          // (B, H, chunks, NMAX, NMAX)
+  float* ckpt;                          // (B, H, ncb, chunks - 1, NMAX * CW): chunk starts
   int B, S, H, n;
+  int ncb;                              // CTAs of a cluster: column slices of a head
+  int vec;                              // rows on 16-byte boundaries
 };
+
+// a chunk's staged inputs: the forward's r, k, w and v, then dy (rows of
+// CW floats)
+template <typename TI>
+__host__ __device__ constexpr int bwd_in_bytes() { return in_bytes<TI>() + 4 * L * CW; }
+
+// floats after the two input buffers: k * b, G_out, A and its diagonal,
+// r, k and v as float32, two buffers of received partial sums
+constexpr int BWD_FLOATS = L * NMAX + NMAX * CW + L * (L + 1) + L + 2 * L * RS + L * CW + 2 * RECV;
+
+template <typename TI>
+__host__ __device__ constexpr int bwd_smem_bytes() {
+  return 2 * bwd_in_bytes<TI>() + 4 * BWD_FLOATS;
+}
 
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 __device__ __forceinline__ void store_as(__half* p, float x) { *p = __float2half(x); }
 
-template <typename TI>
-__global__ void __launch_bounds__(BT) rwkv6_backward_kernel(const BwdParams<TI> p) {
-  __shared__ float sr[BC][NMAX], sk[BC][NMAX], sw[BC][NMAX], sv[BC][NMAX], sdy[BC][NMAX];
-  __shared__ float dvp[BWARPS][BC][NMAX];          // per-warp partial sums of dv
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i = tid / BCOLS, c = tid % BCOLS, j0 = c * BCOLS;
-  const int n = p.n;
-  const bool row_ok = i < n;
-  const long long row = static_cast<long long>(p.H) * n;       // stride of t
-  const long long base = static_cast<long long>(b) * p.S * row + static_cast<long long>(h) * n;
-  const long long sbase = static_cast<long long>(bh) * n * n + static_cast<long long>(i) * n;
-  const int chunks = (p.S + BC - 1) / BC;
-  float* ck = p.ckpt + static_cast<long long>(bh) * chunks * NMAX * NMAX + i * NMAX + j0;
+// The cluster barrier in its two halves: a CTA arrives once its stores
+// to its peers are made (release), works on, and waits before it reads
+// what its peers stored (acquire)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
-  // a chunk's rows into shared memory as float32: element e of each array
-  // (step e / NMAX, lane e % NMAX), zeros past the sequence or the head dim
-  auto stage = [&](int ch, bool all) {
-    const int s = tid / NMAX, x = tid % NMAX, t = ch * BC + s;
-    const bool in = t < p.S && x < n;
-    const long long o = base + static_cast<long long>(t) * row + x;
-    sk[s][x] = in ? to_f32(p.k[o]) : 0.f;
-    sw[s][x] = in ? p.w[o] : 0.f;
-    sv[s][x] = in ? to_f32(p.v[o]) : 0.f;
-    if (all) {
-      sr[s][x] = in ? to_f32(p.r[o]) : 0.f;
-      sdy[s][x] = in ? p.dy[o] : 0.f;
-    }
-  };
-  static_assert(BT == BC * NMAX, "one staged element per thread and array");
-
-  // the walk forward: checkpoint the state at the start of every chunk
-  float st[BCOLS];
+// One level of a reduce-scatter over the lanes ``off`` apart: of the
+// 2 HALF values red[0 .. 2 HALF - 1], the lane with bit ``off`` of
+// ``who`` set keeps the upper half and its partner the lower, each adding
+// what the other sends, into red[0 .. HALF - 1]. HALF is a template
+// argument so that every index is a constant and red stays in registers;
+// the two selections are selp in inline PTX, since a ?: over two elements
+// of a register array becomes one load from a computed address, which
+// sends the array to local memory.
+template <int OFF, int HALF = OFF, int N>
+__device__ __forceinline__ void reduce_scatter(float (&red)[N], int who) {
+  static_assert(2 * HALF <= N, "two halves");
+  const unsigned hi = (who & OFF) != 0;
 #pragma unroll
-  for (int jj = 0; jj < BCOLS; ++jj)
-    st[jj] = (p.s0 && row_ok && j0 + jj < n) ? p.s0[sbase + j0 + jj] : 0.f;
-  for (int ch = 0; ch < chunks; ++ch) {
-    float* dst = ck + static_cast<long long>(ch) * NMAX * NMAX;
-#pragma unroll
-    for (int jj = 0; jj < BCOLS; ++jj) dst[jj] = st[jj];
-    __syncthreads();                    // the last chunk's rows are read
-    stage(ch, false);
-    __syncthreads();
-    const int steps = min(BC, p.S - ch * BC);
-    for (int s = 0; s < steps; ++s) {
-      const float wi = sw[s][i & (NMAX - 1)], ki = sk[s][i & (NMAX - 1)];
-#pragma unroll
-      for (int jj = 0; jj < BCOLS; ++jj) st[jj] = fmaf(wi, st[jj], ki * sv[s][j0 + jj]);
-    }
-  }
-
-  // the walk backward
-  float g[BCOLS];
-#pragma unroll
-  for (int jj = 0; jj < BCOLS; ++jj)
-    g[jj] = (p.dsf && row_ok && j0 + jj < n) ? p.dsf[sbase + j0 + jj] : 0.f;
-  const float ui = row_ok ? p.u[h * n + i] : 0.f;
-  float du = 0.f;
-  for (int ch = chunks - 1; ch >= 0; --ch) {
-    __syncthreads();                    // the last chunk's rows and dv partials are read
-    stage(ch, true);
-    __syncthreads();
-    const int steps = min(BC, p.S - ch * BC);
-    // the chunk's states S_{t-1}, from its checkpoint
-    float sp[BC][BCOLS];
-    const float* src = ck + static_cast<long long>(ch) * NMAX * NMAX;
-#pragma unroll
-    for (int jj = 0; jj < BCOLS; ++jj) sp[0][jj] = src[jj];
-#pragma unroll
-    for (int s = 0; s + 1 < BC; ++s) {
-      const float wi = sw[s][i & (NMAX - 1)], ki = sk[s][i & (NMAX - 1)];
-#pragma unroll
-      for (int jj = 0; jj < BCOLS; ++jj) sp[s + 1][jj] = fmaf(wi, sp[s][jj], ki * sv[s][j0 + jj]);
-    }
-#pragma unroll
-    for (int s = BC - 1; s >= 0; --s) {
-      if (s < steps) {                  // uniform over the block
-        const int ii = i & (NMAX - 1);
-        const float ri = sr[s][ii], ki = sk[s][ii], wi = sw[s][ii];
-        float vj[BCOLS], dyj[BCOLS];
-#pragma unroll
-        for (int jj = 0; jj < BCOLS; ++jj) {
-          vj[jj] = sv[s][j0 + jj];
-          dyj[jj] = sdy[s][j0 + jj];
-        }
-        float s_dy = 0.f, g_v = 0.f, g_s = 0.f, v_dy = 0.f;
-        float m_k[BCOLS];
-        const float ur = ui * ri;
-#pragma unroll
-        for (int jj = 0; jj < BCOLS; ++jj) {
-          s_dy = fmaf(sp[s][jj], dyj[jj], s_dy);
-          v_dy = fmaf(vj[jj], dyj[jj], v_dy);
-          g_s = fmaf(g[jj], sp[s][jj], g_s);
-          const float m = fmaf(ur, dyj[jj], g[jj]);
-          g_v = fmaf(m, vj[jj], g_v);
-          m_k[jj] = m * ki;
-          g[jj] = fmaf(wi, g[jj], ri * dyj[jj]);
-        }
-        // sums over the row's 8 threads (neighbouring lanes)
-#pragma unroll
-        for (int off = 1; off < BCOLS; off <<= 1) {
-          s_dy += __shfl_xor_sync(0xffffffffu, s_dy, off);
-          v_dy += __shfl_xor_sync(0xffffffffu, v_dy, off);
-          g_s += __shfl_xor_sync(0xffffffffu, g_s, off);
-          g_v += __shfl_xor_sync(0xffffffffu, g_v, off);
-        }
-        // sums over the warp's 4 rows, then into the warp's partials
-#pragma unroll
-        for (int off = BCOLS; off < 32; off <<= 1)
-#pragma unroll
-          for (int jj = 0; jj < BCOLS; ++jj)
-            m_k[jj] += __shfl_xor_sync(0xffffffffu, m_k[jj], off);
-        if (lane < BCOLS)
-#pragma unroll
-          for (int jj = 0; jj < BCOLS; ++jj) dvp[warp][s][j0 + jj] = m_k[jj];
-        if (c == 0 && row_ok) {
-          const long long o = base + static_cast<long long>(ch * BC + s) * row + i;
-          store_as(p.dr + o, fmaf(ui * ki, v_dy, s_dy));
-          store_as(p.dk + o, g_v);
-          p.dw[o] = g_s;
-          du = fmaf(ri * ki, v_dy, du);
-        }
-      }
-    }
-    __syncthreads();                    // every warp's dv partials are in
-    {
-      const int s = tid / NMAX, x = tid % NMAX;
-      if (s < steps && x < n) {
-        float acc = 0.f;
-#pragma unroll
-        for (int q = 0; q < BWARPS; ++q) acc += dvp[q][s][x];
-        store_as(p.dv + base + static_cast<long long>(ch * BC + s) * row + x, acc);
-      }
-    }
-  }
-  if (row_ok) {
-#pragma unroll
-    for (int jj = 0; jj < BCOLS; ++jj)
-      if (j0 + jj < n) p.ds0[sbase + j0 + jj] = g[jj];
-    if (c == 0) p.du_part[static_cast<long long>(bh) * NMAX + i] = du;
+  for (int e = 0; e < HALF; ++e) {
+    float keep, send;
+    asm("{\n .reg .pred p;\n setp.ne.u32 p, %4, 0;\n selp.f32 %0, %3, %2, p;\n"
+        " selp.f32 %1, %2, %3, p;\n}"
+        : "=f"(keep), "=f"(send) : "f"(red[e]), "f"(red[e + HALF]), "r"(hi));
+    red[e] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
   }
 }
 
-// du[h][i] = sum over b, in order, of the blocks' partial sums
-__global__ void rwkv6_du_kernel(const float* du_part, float* du, int B, int H, int n) {
+// A lane's share of a chunk's intra-chunk matrix A, for warp GRP: rows
+// i2 and i2 + 1 of A[t][s] = sum_i r_t[i] k_s[i] prod_{s<tau<t} w_tau[i]
+// at s = GRP (t = GRP+1 .. L-1), then s = L-1-GRP (t = L-GRP .. L-1), L - 1
+// entries, with kp = k_s * prod w running along t; then the diagonal
+// sum_i r_t u k_t at t = GRP and t = L-1-GRP. R, K and W are [t][i] rows of
+// RS floats.
+template <int GRP>
+__device__ __forceinline__ void a_partials(float (&red)[L + 1], const float* R, const float* K,
+                                           const float* W, int i2, float u0, float u1) {
+  static_assert(GRP >= 0 && GRP < L / 2, "a pair of columns of A");
+  float kp[2];
+#pragma unroll
+  for (int e = 0; e < L - 1; ++e) {
+    const bool first = e < L - 1 - GRP;
+    const int s = first ? GRP : L - 1 - GRP;
+    const int t = first ? GRP + 1 + e : e + 1;
+    if (e == 0 || e == L - 1 - GRP) lds(kp, K + s * RS + i2);
+    float rx[2], wx[2];
+    lds(rx, R + t * RS + i2);
+    lds(wx, W + t * RS + i2);
+    red[e] = fmaf(rx[1], kp[1], rx[0] * kp[0]);
+    kp[0] *= wx[0];
+    kp[1] *= wx[1];
+  }
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    const int t = d ? L - 1 - GRP : GRP;
+    float rx[2], kx[2];
+    lds(rx, R + t * RS + i2);
+    lds(kx, K + t * RS + i2);
+    red[L - 1 + d] = fmaf(rx[1] * u1, kx[1], rx[0] * u0 * kx[0]);
+  }
+}
+
+template <typename TI>
+__global__ void __launch_bounds__(BT, 2) rwkv6_backward_kernel(const BwdParams<TI> p) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int RSI = rs_of<TI>();       // row stride of staged r and k
+  constexpr int AS = L + 1;              // row stride of A
+  constexpr int INB = bwd_in_bytes<TI>();
+  static_assert(INB % 16 == 0 && BWD_FLOATS % 4 == 0, "16-byte regions");
+
+  extern __shared__ float4 smem4[];
+  unsigned char* in = reinterpret_cast<unsigned char*>(smem4);
+  float* kb = reinterpret_cast<float*>(in + 2 * INB);   // k_t * b_t, [t][i]
+  float* Gs = kb + L * NMAX;                             // G_out, [i][j]
+  float* Am = Gs + NMAX * CW;                            // A[t][s], s < t
+  float* Dg = Am + L * AS;                               // A's diagonal
+  float* fr = Dg + L;                                    // r, k, v as float32
+  float* fk = fr + L * RS;
+  float* fv = fk + L * RS;
+  float* recv = fv + L * CW;                             // two buffers of RECV
+  // the staged inputs of chunk c: r, k (TI), w (float32), v (TI), dy (float32)
+  auto in_r = [&](int c) { return reinterpret_cast<TI*>(in + (c & 1) * INB); };
+  auto in_k = [&](int c) { return in_r(c) + L * RSI; };
+  auto in_w = [&](int c) { return reinterpret_cast<float*>(in_k(c) + L * RSI); };
+  auto in_v = [&](int c) { return reinterpret_cast<TI*>(in_w(c) + L * RS); };
+  auto in_dy = [&](int c) { return reinterpret_cast<float*>(in_v(c) + L * CW); };
+
+  const int ncb = p.ncb;
+  const int bh = blockIdx.x / ncb, cb = blockIdx.x % ncb;    // cb: rank in the cluster
+  const int b = bh / p.H, h = bh % p.H, j0 = cb * CW;
+  const int tid = threadIdx.x, n = p.n;
+  const int i = tid / BQ, q = tid % BQ, jq = q * BQ;        // the walk's row and columns
+  const bool vec = p.vec;
+  const bool row_ok = i < n;
+  const int vcols = n - j0 - jq;        // of this thread's BQ columns, the valid ones
+  const long long row = static_cast<long long>(p.H) * n;       // stride of t
+  const long long base = static_cast<long long>(b) * p.S * row + static_cast<long long>(h) * n;
+  const long long sbase = static_cast<long long>(bh) * n * n + static_cast<long long>(i) * n + j0 + jq;
+  const int chunks = (p.S + L - 1) / L;
+  auto steps_of = [&](int c) { return min(L, p.S - c * L); };
+  // this thread's BQ state values at chunk c's start: ck[c * BT + tid],
+  // c < chunks - 1
+  float4* ck = reinterpret_cast<float4*>(p.ckpt) + static_cast<long long>(blockIdx.x) * (chunks - 1) * BT;
+
+  // The first walk: the state at every chunk's start, a chunk at a time
+  // as S <- diag(a_L) S + X, X = sum_t (k_t b_t)^T v_t. X does not wait
+  // for S, so the chain is one FMA a chunk: the chunks go in groups of
+  // G1, their X formed side by side after one barrier. k, w and v are
+  // copied in a group ahead, into a ring of two groups over the space the
+  // second walk uses later. Every chunk but the last (which this walk
+  // skips) is whole.
+  constexpr int G1 = 3;
+  constexpr int P1B = static_cast<int>(L * RSI * sizeof(TI) + 4 * L * RS + L * CW * sizeof(TI));
+  static_assert(P1B % 16 == 0 && 2 * G1 * P1B <= bwd_smem_bytes<TI>(), "the ring");
+  auto p1_k = [&](int c) { return reinterpret_cast<TI*>(in + (c % (2 * G1)) * P1B); };
+  auto p1_w = [&](int c) { return reinterpret_cast<float*>(p1_k(c) + L * RSI); };
+  auto p1_v = [&](int c) { return reinterpret_cast<TI*>(p1_w(c) + L * RS); };
+  auto stage_group = [&](int c0) {
+    for (int c = c0; c < c0 + G1 && c + 1 < chunks; ++c) {
+      const long long o = base + static_cast<long long>(c) * L * row;
+      if (vec) {
+        stage_one<NMAX>(p1_k(c), RSI, p.k + o, row, L, L, n, tid);
+        stage_one<NMAX>(p1_w(c), RS, p.w + o, row, L, L, n, tid);
+        stage_one<CW>(p1_v(c), CW, p.v + o + j0, row, L, L, min(CW, n - j0), tid);
+      } else {
+        stage<NMAX>(p1_k(c), RSI, p.k + o, row, L, L, n, false, tid, BT);
+        stage<NMAX>(p1_w(c), RS, p.w + o, row, L, L, n, false, tid, BT);
+        stage<CW>(p1_v(c), CW, p.v + o + j0, row, L, L, min(CW, n - j0), false, tid, BT);
+      }
+    }
+    cp_async_commit();
+  };
+  float s1[BQ];
+#pragma unroll
+  for (int jj = 0; jj < BQ; ++jj) s1[jj] = (p.s0 && row_ok && jj < vcols) ? p.s0[sbase + jj] : 0.f;
+  stage_group(0);
+  for (int c0 = 0; c0 + 1 < chunks; c0 += G1) {
+    cp_async_wait_all();
+    __syncthreads();                    // group c0 is in; the group before it is read
+    stage_group(c0 + G1);
+    float x[G1][BQ], aL[G1];
+#pragma unroll
+    for (int g1 = 0; g1 < G1; ++g1) {
+      const TI* K1 = p1_k(c0 + g1);
+      const float* W1 = p1_w(c0 + g1);
+      const TI* V1 = p1_v(c0 + g1);
+      float wv[L], kbv[L];
+#pragma unroll
+      for (int t = 0; t < L; ++t) {
+        wv[t] = W1[t * RS + i];
+        kbv[t] = to_f32(K1[t * RSI + i]);
+      }
+      float bb = 1.f;
+#pragma unroll
+      for (int t = L - 1; t >= 0; --t) {
+        kbv[t] *= bb;
+        bb *= wv[t];
+      }
+      aL[g1] = bb;
+#pragma unroll
+      for (int jj = 0; jj < BQ; ++jj) x[g1][jj] = 0.f;
+#pragma unroll
+      for (int t = 0; t < L; ++t) {
+        float vv[BQ];
+        lds(vv, V1 + t * CW + jq);
+#pragma unroll
+        for (int jj = 0; jj < BQ; ++jj) x[g1][jj] = fmaf(kbv[t], vv[jj], x[g1][jj]);
+      }
+    }
+#pragma unroll
+    for (int g1 = 0; g1 < G1; ++g1) {
+      if (c0 + g1 + 1 < chunks) {       // a group past the last whole chunk: stale X
+        ck[(c0 + g1) * BT + tid] = make_float4(s1[0], s1[1], s1[2], s1[3]);
+#pragma unroll
+        for (int jj = 0; jj < BQ; ++jj) s1[jj] = fmaf(aL[g1], s1[jj], x[g1][jj]);
+      }
+    }
+  }
+  // the last chunk's start stays in registers: the second walk takes it
+  // first, and loads each chunk's start a chunk ahead
+  float4 c4n = make_float4(s1[0], s1[1], s1[2], s1[3]);
+  cp_async_wait_all();
+  cluster.sync();                       // the ring's space is free, in every CTA
+                                        //   of the cluster (its peers write there next)
+
+  // The second walk, chunks last first. Each chunk's inputs are copied in
+  // (cp.async) while the chunk before it is worked on; r, k and v of half
+  // types are converted to float32 once, into fr, fk and fv. Partial row
+  // sums go to the CTA that owns the row (rank i / RB, RB = ceil(n / ncb)
+  // <= 16 rows each) by stores into its shared memory: recv[src][x][t][i -
+  // rank RB] for output x (dr, dk, dw) of step t from rank src, then each
+  // rank's v . dy of step t at VDY0 + src L + t.
+  auto stage_chunk = [&](int c) {
+    const long long o = base + static_cast<long long>(c) * L * row;
+    const int nv = steps_of(c), nc = min(CW, n - j0);
+    static_assert(L * NMAX / 4 <= BT, "one 16-byte piece a lane and array");
+    if (vec) {
+      stage_one<NMAX>(in_r(c), RSI, p.r + o, row, L, nv, n, tid);
+      stage_one<NMAX>(in_k(c), RSI, p.k + o, row, L, nv, n, tid);
+      stage_one<NMAX>(in_w(c), RS, p.w + o, row, L, nv, n, tid);
+      stage_one<CW>(in_v(c), CW, p.v + o + j0, row, L, nv, nc, tid);
+      stage_one<CW>(in_dy(c), CW, p.dy + o + j0, row, L, nv, nc, tid);
+    } else {
+      stage<NMAX>(in_r(c), RSI, p.r + o, row, L, nv, n, false, tid, BT);
+      stage<NMAX>(in_k(c), RSI, p.k + o, row, L, nv, n, false, tid, BT);
+      stage<NMAX>(in_w(c), RS, p.w + o, row, L, nv, n, false, tid, BT);
+      stage<CW>(in_v(c), CW, p.v + o + j0, row, L, nv, nc, false, tid, BT);
+      stage<CW>(in_dy(c), CW, p.dy + o + j0, row, L, nv, nc, false, tid, BT);
+    }
+    cp_async_commit();
+  };
+  const int RB = (n + ncb - 1) / ncb;   // rows a rank owns
+  const int own = i / RB, il = i - own * RB;
+  // where this thread's three partial sums of a group of BQ steps go in
+  // the owner's buffer (lane q ends the reduce-scatter with entries 3q ..
+  // 3q+2 of the 12, entry e being output e / BQ at step e % BQ of the group)
+  int pofs[3];
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const int ent = 3 * q + e;
+    pofs[e] = ((cb * 3 + ent / BQ) * L + ent % BQ) * RBS + il;
+  }
+  // the partial sums' phase: step t_r and row rl of this rank's rows
+  const int t_r = tid / RBS, rl = tid % RBS, rrow = cb * RB + rl;
+  const bool r_ok = rl < RB && rrow < n;
+  static_assert(L * RBS == BT, "a lane a (step, row)");
+  float g[BQ];                          // G, row i, this thread's columns
+#pragma unroll
+  for (int jj = 0; jj < BQ; ++jj) g[jj] = (p.dsf && row_ok && jj < vcols) ? p.dsf[sbase + jj] : 0.f;
+  const float* uh = p.u + static_cast<long long>(h) * n;
+  // u at rows 2 (tid % 32) and the next, for A's diagonal, and at rrow
+  const int i2 = 2 * (tid % 32);
+  const float u0 = i2 < n ? uh[i2] : 0.f, u1 = i2 + 1 < n ? uh[i2 + 1] : 0.f;
+  const float ur = r_ok ? uh[rrow] : 0.f;
+  float du_acc = 0.f;
+  stage_chunk(chunks - 1);
+  cp_async_wait_all();
+  __syncthreads();
+  {
+    // the last chunk's steps past S get w = 1 (the copies left zeros), so
+    // the running products of w need no test of t (r, k, v, dy stay 0)
+    const int T = steps_of(chunks - 1);
+    float* W = in_w(chunks - 1);
+    for (int e = tid; e < (L - T) * NMAX; e += BT) W[(T + e / NMAX) * RS + e % NMAX] = 1.f;
+    __syncthreads();
+  }
+
+  for (int c = chunks - 1; c >= 0; --c) {
+    const int T = steps_of(c);
+    const float* W = in_w(c);
+    const float* DY = in_dy(c);
+    float* rv = recv + (c & 1) * RECV;
+    const float4 c4 = c4n;
+    if (c > 0) c4n = ck[(c - 1) * BT + tid];
+    // G_out into shared memory for dv; chunk c-1's inputs copied in behind
+    *reinterpret_cast<float4*>(Gs + i * CW + jq) = make_float4(g[0], g[1], g[2], g[3]);
+    if (c > 0) stage_chunk(c - 1);
+    // r, k and v as float32: 8 elements of r or k a thread, one of v
+    const float* R;
+    const float* K;
+    const float* V;
+    if constexpr (sizeof(TI) == 4) {
+      R = reinterpret_cast<const float*>(in_r(c));
+      K = reinterpret_cast<const float*>(in_k(c));
+      V = reinterpret_cast<const float*>(in_v(c));
+    } else {
+      const int e = tid % 128, t = e / 8, x8 = (e % 8) * 8;
+      const TI* src = (tid < 128 ? in_r(c) : in_k(c)) + t * RSI + x8;
+      float* dst = (tid < 128 ? fr : fk) + t * RS + x8;
+      float f[8];
+      lds(f, src);
+      *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(f[4], f[5], f[6], f[7]);
+      fv[tid] = to_f32(in_v(c)[tid]);
+      R = fr;
+      K = fk;
+      V = fv;
+      __syncthreads();
+    }
+
+    // The slice's v . dy, to every rank of the cluster
+    if (tid < L) {
+      float a = 0.f;
+#pragma unroll
+      for (int j = 0; j < CW; ++j) a = fmaf(V[tid * CW + j], DY[tid * CW + j], a);
+#pragma unroll
+      for (int rk = 0; rk < 4; ++rk)
+        if (rk < ncb) cluster.map_shared_rank(rv, rk)[VDY0 + cb * L + tid] = a;
+    }
+
+    // Phase 2: the walk. Sub-chunks of SUB steps, last first: the states
+    // S_{t-1} of the sub-chunk forward from the chunk's start, then G back
+    // through it with the partial sums of dr (S dy), dk (G v) and dw
+    // (G * S) over this thread's columns; every BQ steps the row's BQ
+    // lanes reduce-scatter them and send each to the row's owner.
+    {
+      float* dst = cluster.map_shared_rank(rv, own < ncb ? own : 0);
+      // one sub-chunk; t0 a compile-time constant, so st stays in registers;
+      // a whole chunk (FULL) tests no step against T
+      auto sub_chunk = [&](auto t0c, auto fullc) {
+        constexpr int t0 = decltype(t0c)::value;
+        constexpr bool FULL = decltype(fullc)::value;
+        float st[SUB][BQ];
+        float red[3 * BQ];
+        float sx[BQ] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int t = 0; t < t0 + SUB; ++t) {
+          if (t >= t0) {
+#pragma unroll
+            for (int jj = 0; jj < BQ; ++jj) st[t - t0][jj] = sx[jj];
+          }
+          if (t + 1 < t0 + SUB && (FULL || t < T)) {
+            const float wi = W[t * RS + i], ki = K[t * RS + i];
+            float vv[BQ];
+            lds(vv, V + t * CW + jq);
+#pragma unroll
+            for (int jj = 0; jj < BQ; ++jj) sx[jj] = fmaf(wi, sx[jj], ki * vv[jj]);
+          }
+        }
+#pragma unroll
+        for (int x = SUB - 1; x >= 0; --x) {
+          const int t = t0 + x;
+          float pdr = 0.f, pdk = 0.f, pdw = 0.f;
+          if (FULL || t < T) {
+            const float ri = R[t * RS + i], wi = W[t * RS + i];
+            float vv[BQ], dd[BQ];
+            lds(vv, V + t * CW + jq);
+            lds(dd, DY + t * CW + jq);
+#pragma unroll
+            for (int jj = 0; jj < BQ; ++jj) {
+              pdr = fmaf(st[x][jj], dd[jj], pdr);
+              pdk = fmaf(g[jj], vv[jj], pdk);
+              pdw = fmaf(g[jj], st[x][jj], pdw);
+              g[jj] = fmaf(wi, g[jj], ri * dd[jj]);
+            }
+          }
+          red[x % BQ] = pdr;
+          red[BQ + x % BQ] = pdk;
+          red[2 * BQ + x % BQ] = pdw;
+          if (x % BQ == 0) {
+            reduce_scatter<2, 6>(red, q);
+            reduce_scatter<1, 3>(red, q);
+            if (row_ok) {
+#pragma unroll
+              for (int e = 0; e < 3; ++e) dst[pofs[e] + t * RBS] = red[e];
+            }
+          }
+        }
+      };
+      auto walk = [&](auto fullc) {
+        static_assert(L == 2 * SUB, "two sub-chunks");
+        sub_chunk(std::integral_constant<int, SUB>{}, fullc);
+        sub_chunk(std::integral_constant<int, 0>{}, fullc);
+      };
+      if (T == L) walk(std::true_type{});
+      else walk(std::false_type{});
+    }
+    // Phase 1, after the walk, so that the walk's last stores to its peers
+    // land while it runs; no barrier between them: what phase 1 writes is
+    // read after the cluster barrier. A and its diagonal, and k * b.
+    // A below the diagonal as the forward forms it: warp grp takes s = grp
+    // for t = grp+1 .. L-1, then s = L-1-grp for t = L-grp .. L-1 (L - 1
+    // entries each), then the diagonal at t = grp and t = L-1-grp; a lane
+    // sums rows 2 lane and 2 lane + 1. The warp adds its lanes 16 apart by
+    // shuffles, then the 16 halves through the other receive buffer, free
+    // until this chunk's cluster barrier (lane e sums entry e, in lane
+    // order). Steps past T have r = 0.
+    {
+      const int grp = tid / 32, lane = tid % 32;
+      float red[L + 1];
+      switch (grp) {                    // warp-uniform: each warp's entries at constant indices
+        case 0: a_partials<0>(red, R, K, W, i2, u0, u1); break;
+        case 1: a_partials<1>(red, R, K, W, i2, u0, u1); break;
+        case 2: a_partials<2>(red, R, K, W, i2, u0, u1); break;
+        case 3: a_partials<3>(red, R, K, W, i2, u0, u1); break;
+        case 4: a_partials<4>(red, R, K, W, i2, u0, u1); break;
+        case 5: a_partials<5>(red, R, K, W, i2, u0, u1); break;
+        case 6: a_partials<6>(red, R, K, W, i2, u0, u1); break;
+        default: a_partials<7>(red, R, K, W, i2, u0, u1); break;
+      }
+#pragma unroll
+      for (int e = 0; e < L + 1; ++e) red[e] += __shfl_xor_sync(0xffffffffu, red[e], 16);
+      float* sa = recv + ((c + 1) & 1) * RECV + grp * (L + 1) * 16;
+      if (lane < 16) {
+#pragma unroll
+        for (int e = 0; e < L + 1; ++e) sa[e * 16 + lane] = red[e];
+      }
+      __syncwarp();
+      if (lane < L + 1) {
+        float a = 0.f;
+#pragma unroll
+        for (int l = 0; l < 16; l += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(sa + lane * 16 + l);
+          a += (x.x + x.y) + (x.z + x.w);
+        }
+        if (lane < L - 1) {
+          const bool first = lane < L - 1 - grp;
+          const int s = first ? grp : L - 1 - grp;
+          const int t = first ? grp + 1 + lane : lane + 1;
+          Am[t * AS + s] = a;
+        } else {
+          Dg[lane == L - 1 ? grp : L - 1 - grp] = a;
+        }
+      }
+    }
+    {
+      // b_t = prod_{t<tau<T} w_tau[i] backward along the row; this thread
+      // writes k_t b_t for its steps t = q, q + BQ, ...
+      float wv[L];
+#pragma unroll
+      for (int t = 0; t < L; ++t) wv[t] = W[t * RS + i];
+      float bb = 1.f;
+#pragma unroll
+      for (int t = L - 1; t >= 0; --t) {
+        if (t % BQ == q) kb[t * NMAX + i] = K[t * RS + i] * bb;
+        bb *= wv[t];
+      }
+    }
+    cluster_arrive();                   // this CTA's partial sums of chunk c are sent
+    __syncthreads();                    // A, k * b and G_out are in
+
+    // Phase 3: dv_t[j] = sum_i (k_t b_t)[i] G_out[i][j] + A[t][t] dy_t[j]
+    //                    + sum_{s>t} A[s][t] dy_s[j], lane (t, j), while the
+    // cluster's barrier completes
+    {
+      const int t = tid / CW, j = tid % CW;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ii = 0; ii < NMAX; ii += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(kb + t * NMAX + ii);
+        acc[0] = fmaf(x.x, Gs[ii * CW + j], acc[0]);
+        acc[1] = fmaf(x.y, Gs[(ii + 1) * CW + j], acc[1]);
+        acc[2] = fmaf(x.z, Gs[(ii + 2) * CW + j], acc[2]);
+        acc[3] = fmaf(x.w, Gs[(ii + 3) * CW + j], acc[3]);
+      }
+      float ad = Dg[t] * DY[t * CW + j];
+#pragma unroll
+      for (int s2 = 1; s2 < L; ++s2)
+        if (s2 > t && s2 < T) ad = fmaf(Am[s2 * AS + t], DY[s2 * CW + j], ad);
+      if (t < T && j0 + j < n)
+        store_as(p.dv + base + static_cast<long long>(c * L + t) * row + j0 + j,
+                 ((acc[0] + acc[1]) + (acc[2] + acc[3])) + ad);
+    }
+    cluster_wait();                     // every CTA's partial sums of chunk c are in
+
+    // Phase 4: this rank's rows, lane (t, rl): dr, dk and dw of row rrow
+    // at step t, the partial sums received added in rank order, then u's
+    // terms with the whole v . dy, and the step's share of du
+    if (r_ok && t_r < T) {
+      float sum[3] = {0.f, 0.f, 0.f}, vdy = 0.f;
+#pragma unroll
+      for (int src = 0; src < 4; ++src) {
+        const bool on = src < ncb;      // loads stay inside the buffer either way
+#pragma unroll
+        for (int x = 0; x < 3; ++x) {
+          const float part = rv[((src * 3 + x) * L + t_r) * RBS + rl];
+          sum[x] += on ? part : 0.f;
+        }
+        const float part = rv[VDY0 + src * L + t_r];
+        vdy += on ? part : 0.f;
+      }
+      const float ri = R[t_r * RS + rrow], ki = K[t_r * RS + rrow];
+      const long long o = base + static_cast<long long>(c * L + t_r) * row + rrow;
+      store_as(p.dr + o, fmaf(ur * ki, vdy, sum[0]));
+      store_as(p.dk + o, fmaf(ur * ri, vdy, sum[1]));
+      p.dw[o] = sum[2];
+      du_acc = fmaf(ri * ki, vdy, du_acc);
+    }
+    cp_async_wait_all();
+    __syncthreads();                    // chunk c-1's inputs are in; G_out, k * b, A are free
+  }
+#pragma unroll
+  for (int jj = 0; jj < BQ; ++jj)
+    if (row_ok && jj < vcols) p.ds0[sbase + jj] = g[jj];
+  p.du_part[static_cast<long long>(blockIdx.x) * BT + tid] = du_acc;
+}
+
+// du[h][i] = sum over b, then over the chunk steps t of the row's owner
+// (rank i / RB), in order, of the CTAs' partial sums
+__global__ void rwkv6_du_kernel(const float* du_part, float* du, int B, int H, int n, int ncb) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= H * n) return;
-  const int h = e / n, i = e % n;
+  const int h = e / n, i = e % n, rb = (n + ncb - 1) / ncb, r = i / rb, il = i - r * rb;
   float acc = 0.f;
-  for (int b = 0; b < B; ++b) acc += du_part[(static_cast<long long>(b) * H + h) * NMAX + i];
+  for (int b = 0; b < B; ++b)
+    for (int t = 0; t < L; ++t)
+      acc += du_part[((static_cast<long long>(b) * H + h) * ncb + r) * BT + t * RBS + il];
   du[e] = acc;
+}
+
+template <typename TI>
+int launch_backward(const BwdParams<TI>& p, int bytes, cudaStream_t s) {
+  static bool configured = false;       // the attributes are set once per instantiation
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(rwkv6_backward_kernel<TI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(rwkv6_backward_kernel<TI>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.B * p.H * p.ncb);
+  cfg.blockDim = dim3(BT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.ncb;     // the column slices of one (batch, head)
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, rwkv6_backward_kernel<TI>, p);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 template <typename TI>
 int run_backward(const void* r, const void* k, const void* v, const void* w,
                  const void* u, const void* s0, const void* dy, const void* dsf,
                  void* dr, void* dk, void* dv, void* dw, void* du, void* ds0,
-                 void* scratch, int B, int S, int H, int n, cudaStream_t s) {
+                 void* scratch, int B, int S, int H, int n, int chunk, int cols,
+                 int cluster, cudaStream_t s) {
+  const int ncb = (n + CW - 1) / CW;
+  const int chunks = (S + L - 1) / L;
+  // the plan this file compiles (kernels/rwkv6.py::plan_backward)
+  if (chunk != L || cols != CW || cluster != ncb) return static_cast<int>(cudaErrorInvalidValue);
   BwdParams<TI> p;
   p.r = static_cast<const TI*>(r);
   p.k = static_cast<const TI*>(k);
@@ -863,15 +1304,19 @@ int run_backward(const void* r, const void* k, const void* v, const void* w,
   p.dv = static_cast<TI*>(dv);
   p.dw = static_cast<float*>(dw);
   p.ds0 = static_cast<float*>(ds0);
-  const long long chunks = (S + BC - 1) / BC;
-  // scratch: the checkpoints, then the partial sums of du
-  p.ckpt = static_cast<float*>(scratch);
-  p.du_part = p.ckpt + static_cast<long long>(B) * H * chunks * NMAX * NMAX;
-  p.B = B; p.S = S; p.H = H; p.n = n;
-  rwkv6_backward_kernel<TI><<<B * H, BT, 0, s>>>(p);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  rwkv6_du_kernel<<<(H * n + 255) / 256, 256, 0, s>>>(p.du_part, static_cast<float*>(du), B, H, n);
+  p.B = B; p.S = S; p.H = H; p.n = n; p.ncb = ncb;
+  // 16-byte copies: rows of r, k, v (16 / sizeof(TI) elements), of w and
+  // of dy (4 floats) on 16-byte boundaries
+  p.vec = n % static_cast<int>(16 / sizeof(TI)) == 0 && n % 4 == 0 && aligned16(r) &&
+          aligned16(k) && aligned16(v) && aligned16(w) && aligned16(dy);
+  // scratch: the chunk starts, then du's partial sums
+  float* sc = static_cast<float*>(scratch);
+  p.ckpt = sc;
+  p.du_part = sc + static_cast<long long>(B) * H * ncb * (chunks - 1) * NMAX * CW;
+  const int e = launch_backward<TI>(p, bwd_smem_bytes<TI>(), s);
+  if (e != 0) return e;
+  rwkv6_du_kernel<<<(H * n + 255) / 256, 256, 0, s>>>(p.du_part, static_cast<float*>(du), B, H,
+                                                      n, ncb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -895,24 +1340,29 @@ extern "C" int repro_rwkv6_scan(
 
 // The backward: dr, dk, dv in r's dtype, dw (B, S, H, n), du (H, n) and
 // ds0 (B, H, n, n) float32, from the forward's inputs, dy (B, S, H, n)
-// float32 and dsf (B, H, n, n) float32 or null (zeros). scratch holds
-// B * H * 64 * (ceil(S / 8) * 64 + 1) floats (kernels/rwkv6.py::
-// backward_scratch_bytes). Two launches: the backward, then du's sum
-// over the batch.
+// float32 and dsf (B, H, n, n) float32 or null (zeros). The plan
+// (kernels/rwkv6.py::plan_backward), which this file compiles and checks:
+// chunk (16) steps, cols (16) columns a CTA, cluster (ceil(n / 16)) CTAs.
+// scratch holds backward_scratch_bytes of it: the chunk starts,
+// B * H * cluster * (ceil(S / 16) - 1) * 64 * 16 floats, then
+// B * H * cluster * 256 floats of du's partial sums. Two launches: the
+// backward, then du's sum over the batch.
 extern "C" int repro_rwkv6_scan_backward(
     const void* r, const void* k, const void* v, const void* w,
     const void* u, const void* s0, const void* dy, const void* dsf,
     void* dr, void* dk, void* dv, void* dw, void* du, void* ds0,
-    void* scratch, int B, int S, int H, int n, int dtype, void* stream) {
+    void* scratch, int B, int S, int H, int n, int dtype,
+    int chunk, int cols, int cluster, void* stream) {
   if (n < 1 || n > NMAX || S < 1 || B < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return run_backward<float>(r, k, v, w, u, s0, dy, dsf, dr, dk, dv, dw, du, ds0,
-                                       scratch, B, S, H, n, s);
+                                       scratch, B, S, H, n, chunk, cols, cluster, s);
     case 1: return run_backward<__nv_bfloat16>(r, k, v, w, u, s0, dy, dsf, dr, dk, dv, dw, du,
-                                               ds0, scratch, B, S, H, n, s);
+                                               ds0, scratch, B, S, H, n, chunk, cols, cluster,
+                                               s);
     case 2: return run_backward<__half>(r, k, v, w, u, s0, dy, dsf, dr, dk, dv, dw, du, ds0,
-                                        scratch, B, S, H, n, s);
+                                        scratch, B, S, H, n, chunk, cols, cluster, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

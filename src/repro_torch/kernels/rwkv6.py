@@ -30,10 +30,11 @@ other. ``rwkv6_scan.launches`` counts kernel launches,
 Gradients. Under grad mode, when any input requires grad, the scan runs
 through ``RWKV6Scan`` (a ``torch.autograd.Function``): the forward as
 above, and a backward through ``rwkv6_scan_backward``, which launches the
-backward entry point of ``csrc/rwkv6.cu`` on the card and computes
-``rwkv6_scan_backward_plain`` on the CPU (its own ``calls`` and
-``launches``). With G_t = dL/dS_t (G_S = dL/d final state) and
-A_t = S_{t-1} + diag(u) k_t^T v_t:
+backward entry point of ``csrc/rwkv6.cu`` on the card (a thread-block
+cluster per (batch, head) over its column slices, in chunks, as
+``plan_backward`` says) and computes ``rwkv6_scan_backward_plain`` on the
+CPU (its own ``calls`` and ``launches``). With G_t = dL/dS_t (G_S = dL/d
+final state) and A_t = S_{t-1} + diag(u) k_t^T v_t:
 
     dr_t = A_t dy_t                 du = sum_t r_t * k_t (v_t . dy_t)
     dk_t = (G_t + diag(u * r_t) 1 dy_t^T) v_t
@@ -47,6 +48,7 @@ forward is called directly, as before, and nothing is saved.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -142,7 +144,7 @@ def _backward_fn():
     fn = build.library("rwkv6").repro_rwkv6_scan_backward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 15 + [i] * 5 + [p]
+        fn.argtypes = [p] * 15 + [i] * 8 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -187,17 +189,41 @@ def _launch(r, k, v, w, u, s0, chunk=None):
     return y, sf
 
 
-# csrc/rwkv6.cu's backward: steps between two of the forward walk's saved
-# states (the checkpoints in its scratch buffer)
-BACKWARD_CHUNK = 8
+# csrc/rwkv6.cu's backward: steps a chunk (L there)
+BACKWARD_CHUNK = 16
 
 
-def backward_scratch_bytes(B, S, H):
-    """Bytes of the backward's scratch: a 64 x 64 float32 checkpoint per
-    (batch, head, chunk of BACKWARD_CHUNK steps), and B x H x 64 float32
-    partial sums of du."""
-    chunks = -(-S // BACKWARD_CHUNK)
-    return 4 * B * H * MAX_HEAD_DIM * (chunks * MAX_HEAD_DIM + 1)
+class BackwardPlan(NamedTuple):
+    """How csrc/rwkv6.cu's backward runs a call: ``chunk`` steps a chunk,
+    ``cols`` value columns a CTA and ``cluster`` CTAs (the column slices
+    of one (batch, head)) a thread-block cluster. The source compiles one
+    plan a head dim and refuses any other, so these only check that both
+    sides agree."""
+    chunk: int
+    cols: int
+    cluster: int
+
+
+def plan_backward(B, S, H, n):
+    """The backward's plan at (B, S, H, n): chunks of 16 steps, 16 columns
+    a CTA, ceil(n / 16) CTAs a cluster, whatever B, S and H."""
+    if not 1 <= n <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {n} outside 1..{MAX_HEAD_DIM}")
+    if S < 1:
+        raise ValueError(f"empty scan: S={S}")
+    return BackwardPlan(BACKWARD_CHUNK, COLS_PER_BLOCK,
+                        -(-n // COLS_PER_BLOCK))
+
+
+def backward_scratch_bytes(B, S, H, n):
+    """Bytes of the backward's scratch under ``plan_backward``'s plan, for
+    each of its B x H x cluster CTAs: a 64 x 16 float32 state slice at
+    each chunk's start but the last (the last stays in registers), and
+    256 float32 partial sums of du (one a step of a chunk and row the CTA
+    owns)."""
+    plan = plan_backward(B, S, H, n)
+    slices = (-(-S // plan.chunk) - 1) * MAX_HEAD_DIM * plan.cols
+    return 4 * B * H * plan.cluster * (slices + plan.chunk * plan.cols)
 
 
 def _launch_backward(r, k, v, w, u, s0, dy, dsf):
@@ -214,7 +240,8 @@ def _launch_backward(r, k, v, w, u, s0, dy, dsf):
     dw = torch.empty((B, S, H, n), dtype=torch.float32, device=dev)
     du = torch.empty((H, n), dtype=torch.float32, device=dev)
     ds0 = torch.empty((B, H, n, n), dtype=torch.float32, device=dev)
-    scratch = torch.empty(backward_scratch_bytes(B, S, H) // 4,
+    plan = plan_backward(B, S, H, n)
+    scratch = torch.empty(backward_scratch_bytes(B, S, H, n) // 4,
                           dtype=torch.float32, device=dev)
     ptr = lambda a: a.data_ptr() if a is not None else None  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -222,7 +249,8 @@ def _launch_backward(r, k, v, w, u, s0, dy, dsf):
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         ptr(s0), dy.data_ptr(), ptr(dsf), dr.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(),
-        scratch.data_ptr(), B, S, H, n, RKV_DTYPES[r.dtype], stream)
+        scratch.data_ptr(), B, S, H, n, RKV_DTYPES[r.dtype], plan.chunk,
+        plan.cols, plan.cluster, stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_scan backward kernel launch failed: CUDA "
                            f"error {err}")

@@ -8,6 +8,8 @@ PyTorch version. atol 1e-4 is tests/test_kernels.py's tolerance. The
 CUDA kernel itself runs only on a card (chip_smoke.py and the card test
 at the end).
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -89,6 +91,81 @@ def _chunked_mirror(r, k, v, w, u, s0, *, chunk, cols):
             St = a[T][..., None] * St + kb.transpose(-1, -2) @ V
         state[..., j0:j0 + cols] = St
     return y.permute(0, 2, 1, 3), state
+
+
+def _backward_mirror(r, k, v, w, u, s0, dy, dsf, *, chunk, cols):
+    """A torch mirror of csrc/rwkv6.cu's backward: each ``cols``-column
+    slice of S and G on its own (a CTA of the cluster); a first walk that
+    keeps the state at each chunk's start, S <- diag(a_L) S + (k * b)^T V
+    with running products of w; then chunks of ``chunk`` steps last
+    first: dV = (K * b) G_out + A^T dY (A the forward's intra-chunk
+    matrix, u on its diagonal), and dr's S dy, dk's G v and dw's G * S
+    summed over the slice's columns step by step within the chunk, the
+    chunk's states walked forward from its start and G back. The slices'
+    partial row sums are added in rank order, then u's terms with the
+    whole v . dy. Returns what rwkv6_scan_backward_plain returns."""
+    B, S, H, n = r.shape
+    r, k, v, w, dy = (x.float().permute(0, 2, 1, 3) for x in (r, k, v, w, dy))
+    chunks = -(-S // chunk)
+    dv = torch.zeros((B, H, S, n))
+    ds0 = torch.zeros((B, H, n, n))
+    parts = []                                  # per rank: (dr, dk, dw), v . dy
+    for j0 in range(0, n, cols):
+        j1 = min(j0 + cols, n)
+        V, DY = v[..., j0:j1], dy[..., j0:j1]
+        st = (torch.zeros((B, H, n, j1 - j0)) if s0 is None
+              else s0[..., j0:j1].clone())
+        starts = []
+        for c in range(chunks):
+            starts.append(st)
+            c0, T = c * chunk, min(chunk, S - c * chunk)
+            if c + 1 < chunks:
+                b = [torch.ones((B, H, n))]
+                for t in range(T - 1, 0, -1):
+                    b.insert(0, b[0] * w[:, :, c0 + t])
+                kb = k[:, :, c0:c0 + T] * torch.stack(b, 2)
+                st = (b[0] * w[:, :, c0])[..., None] * st + \
+                    kb.transpose(-1, -2) @ V[:, :, c0:c0 + T]
+        g = (torch.zeros((B, H, n, j1 - j0)) if dsf is None
+             else dsf[..., j0:j1].clone())
+        prt = torch.zeros((3, B, H, S, n))
+        for c in reversed(range(chunks)):
+            c0, T = c * chunk, min(chunk, S - c * chunk)
+            R, K, W = (x[:, :, c0:c0 + T] for x in (r, k, w))
+            Vc, DYc = V[:, :, c0:c0 + T], DY[:, :, c0:c0 + T]
+            b = [torch.ones((B, H, n))]
+            for t in range(T - 1, 0, -1):
+                b.insert(0, b[0] * W[:, :, t])
+            A = torch.zeros((B, H, T, T))
+            for s in range(T):
+                A[:, :, s, s] = (R[:, :, s] * u * K[:, :, s]).sum(-1)
+                kp = K[:, :, s]
+                for t in range(s + 1, T):
+                    A[:, :, t, s] = (R[:, :, t] * kp).sum(-1)
+                    kp = kp * W[:, :, t]
+            dv[:, :, c0:c0 + T, j0:j1] = (K * torch.stack(b, 2)) @ g + \
+                A.transpose(-1, -2) @ DYc
+            states = [starts[c]]                # S_{t-1} of the chunk's steps
+            for t in range(T - 1):
+                states.append(W[:, :, t, :, None] * states[-1]
+                              + K[:, :, t, :, None] * Vc[:, :, t, None, :])
+            for t in reversed(range(T)):
+                prt[0, :, :, c0 + t] = (states[t] * DYc[:, :, t, None, :]).sum(-1)
+                prt[1, :, :, c0 + t] = (g * Vc[:, :, t, None, :]).sum(-1)
+                prt[2, :, :, c0 + t] = (g * states[t]).sum(-1)
+                g = W[:, :, t, :, None] * g + \
+                    R[:, :, t, :, None] * DYc[:, :, t, None, :]
+        ds0[..., j0:j1] = g
+        parts.append((prt, (V * DY).sum(-1)))
+    tot, vdy = parts[0][0].clone(), parts[0][1].clone()
+    for prt, vd in parts[1:]:                   # the cluster's sum, rank order
+        tot += prt
+        vdy += vd
+    dr = tot[0] + u[:, None] * k * vdy[..., None]
+    dk = tot[1] + u[:, None] * r * vdy[..., None]
+    du = (r * k * vdy[..., None]).sum((0, 2))
+    back = lambda x: x.permute(0, 2, 1, 3)  # noqa: E731
+    return back(dr), back(dk), back(dv), back(tot[2]), du, ds0
 
 
 def _port(*arrays):
@@ -440,14 +517,129 @@ def test_cuda_backward_checks_before_building():
     with pytest.raises(TypeError, match="float32 dy"):
         RW._launch_backward(r, k, v, w, u, None, dy.double()[:, :, :2, :16],
                             None)
-    assert RW.backward_scratch_bytes(16, 64, 32) == 4 * 16 * 32 * 64 * (
-        8 * 64 + 1)
+    # the training microbatch's scratch, for each of its 16 x 32 heads x 4
+    # CTAs: the starts of chunks 1-3 (64 x 16 float32 slices; chunk 0's
+    # is s0, and the last stays in registers) and du's partial sums, 16
+    # steps x 16 rows
+    assert RW.backward_scratch_bytes(16, 64, 32, 64) == 4 * 16 * 32 * 4 * (
+        3 * 64 * 16 + 256)
 
 
 def test_source_names_the_backward_entry_point():
     text = (build.CSRC / "rwkv6.cu").read_text()
     assert 'extern "C" int repro_rwkv6_scan_backward' in text
-    assert "rwkv6_backward_kernel" in text
+    assert "rwkv6_backward_kernel" in text and "rwkv6_du_kernel" in text
+    # one thread-block cluster per (batch, head), its row sums through
+    # distributed shared memory
+    assert "cudaLaunchKernelEx" in text
+    assert "cudaLaunchAttributeClusterDimension" in text
+    assert "map_shared_rank" in text and "cluster.sync()" in text
+    # the plan's chunk and columns are the ones the source compiles, and it
+    # refuses any other plan
+    assert f"constexpr int L = {RW.BACKWARD_CHUNK};" in text
+    assert f"constexpr int CW = {RW.COLS_PER_BLOCK};" in text
+    assert "if (chunk != L || cols != CW || cluster != ncb)" in text
+
+
+@pytest.mark.parametrize("decay", ["range", "model", "edges"])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 45])
+def test_backward_mirror_chunks_and_decays(decay, S):
+    """The backward's cluster algebra, mirrored in torch at the plan's
+    chunk and column width, against the plain backward and jax.vjp of the
+    reference's scan: S around one chunk and past two, decays with exact
+    0s and 1s among them (no NaN), n=20 (a 2-CTA cluster, 4 columns in
+    the second), s0 and a final-state gradient."""
+    B, H, n = 2, 2, 20
+    rng = np.random.default_rng(200 + S)
+    r, k, v, dy = (rng.normal(size=(B, S, H, n)).astype(np.float32)
+                   for _ in range(4))
+    w = _decays(rng, (B, S, H, n), decay)
+    u = (rng.normal(size=(H, n)) * 0.1).astype(np.float32)
+    s0, dsf = (rng.normal(size=(B, H, n, n)).astype(np.float32)
+               for _ in range(2))
+    _check_backward_mirror([r, k, v, w, u, s0], dy, dsf, with_state=True)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("n", [8, 48, 64])
+def test_backward_mirror_head_dims(n, with_state):
+    """As above at n=8 (one CTA), 48 (three) and 64 (four, RWKV6-1.6B's
+    heads), with and without s0 and the final-state gradient."""
+    B, S, H = 1, 45, 2
+    rng = np.random.default_rng(300 + n + with_state)
+    r, k, v, dy = (rng.normal(size=(B, S, H, n)).astype(np.float32)
+                   for _ in range(4))
+    w = _decays(rng, (B, S, H, n), "model")
+    u = (rng.normal(size=(H, n)) * 0.1).astype(np.float32)
+    s0, dsf = (rng.normal(size=(B, H, n, n)).astype(np.float32)
+               for _ in range(2))
+    _check_backward_mirror([r, k, v, w, u, s0], dy, dsf,
+                           with_state=with_state)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_grads_jit():
+    """_jax_grads as one jitted function of (r, k, v, w, u, s0, dsf, dy):
+    compiled once a shape, so cases that differ only in values share it."""
+    import jax
+
+    def grads(r, k, v, w, u, s0, dsf, dy):
+        _, vjp = jax.vjp(lambda *a: wkv_jax(*a), r, k, v, w, u, s0)
+        return vjp((dsf, dy))
+    return jax.jit(grads)
+
+
+def _check_backward_mirror(arrays, dy, dsf, *, with_state):
+    t = [torch.from_numpy(a) for a in arrays]
+    s0 = t[5] if with_state else None
+    dsf_t = torch.from_numpy(dsf) if with_state else None
+    plan = RW.plan_backward(*arrays[0].shape)
+    got = _backward_mirror(*t[:5], s0, torch.from_numpy(dy), dsf_t,
+                           chunk=plan.chunk, cols=plan.cols)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    want = RW.rwkv6_scan_backward_plain(*t[:5], s0, torch.from_numpy(dy),
+                                        dsf_t)
+    jarrays = arrays[:5] + [arrays[5] if with_state
+                            else np.zeros_like(arrays[5])]
+    want_j = _jax_grads_jit()(*(jnp.asarray(a) for a in jarrays),
+                              jnp.asarray(dsf if with_state
+                                          else np.zeros_like(dsf)),
+                              jnp.asarray(dy))
+    for i, g in enumerate(got):
+        _scale_close(g.numpy(), want[i].numpy())
+        if i < 5 or with_state:             # without s0 no ds0 is asked for
+            _scale_close(g.numpy(), np.asarray(want_j[i]))
+
+
+@pytest.mark.parametrize("shape, plan", [
+    ((16, 64, 32, 64), (16, 16, 4)),    # RWKV6-1.6B's microbatch
+    ((1, 520, 32, 64), (16, 16, 4)),    # a 520-token scan
+    ((2, 45, 3, 20), (16, 16, 2)),      # the odd fp16 shape
+    ((3, 33, 2, 8), (16, 16, 1)),
+    ((2, 77, 3, 48), (16, 16, 3)),
+])
+def test_plan_backward_at_path_shapes(shape, plan):
+    got = RW.plan_backward(*shape)
+    assert tuple(got) == plan
+    assert got.cluster * got.cols >= shape[3] > (got.cluster - 1) * got.cols
+
+
+def test_backward_scratch_grows_a_slice_a_chunk():
+    """The chunk starts live in device scratch at every S: one chunk needs
+    none (its start is s0), and each chunk past it adds a 64 x 16 float32
+    slice a CTA, the same at S=520 as at S=17. The plan does not depend
+    on B, S or H, and refuses heads past 64 and empty scans."""
+    du = 4 * 2 * 4 * 256            # du's partial sums, 2 heads x 4 CTAs
+    piece = 4 * 2 * 4 * 64 * 16     # a chunk start, 2 heads x 4 CTAs
+    assert RW.backward_scratch_bytes(1, 1, 2, 64) == du
+    assert RW.backward_scratch_bytes(1, 16, 2, 64) == du
+    assert RW.backward_scratch_bytes(1, 17, 2, 64) == du + piece
+    assert RW.backward_scratch_bytes(1, 520, 2, 64) == du + 32 * piece
+    assert RW.plan_backward(1, 520, 2, 64) == RW.plan_backward(16, 1, 32, 64)
+    with pytest.raises(ValueError, match="head dim 80"):
+        RW.plan_backward(1, 8, 2, 80)
+    with pytest.raises(ValueError, match="empty scan"):
+        RW.plan_backward(1, 0, 2, 64)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
